@@ -1,0 +1,472 @@
+"""Synthetic "hard" formula crops: ``synth_hard_sample`` and what it needs.
+
+Copied from ``doc2tex_tpu.data.synthetic`` (numpy only), with two changes
+that keep every crop and label the same: the JAX package builds the
+terminal and unary-command lists by running its LaTeX normalizer over a
+KaTeX inventory, and those lists are exactly the released ``version2``
+vocabulary (``hard_vocab()`` equals
+``saved_models/math_recog/version2/vocab.txt``), so here they are read back
+from that file; and the structured grammar and its hard subclass are one
+class, ``_HardGen``.  The same seed gives the same crop and label as the
+JAX package (the port's tests hold the sha256 of 16 crops).
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from ..tokenizer.vocab import load_vocab
+
+HARD_VOCAB_PATH = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "saved_models", "math_recog", "version2", "vocab.txt",
+)
+
+# glyph ids of the two delimiter tokens: their index in the JAX package's
+# flat synthetic vocabulary (``doc2tex_tpu.data.synthetic.SYNTH_VOCAB``),
+# which seeds each glyph's pattern
+_DELIM_GLYPH_ID = {"\\left(": 47, "\\right)": 48}
+
+_GLYPH_CACHE: dict[int, np.ndarray] = {}
+_GLYPH_H, _GLYPH_W = 12, 8
+
+
+def _token_glyph(token_id: int) -> np.ndarray:
+    """Deterministic binary glyph for a token id (12x8).
+
+    Each token renders as a unique, stable pixel pattern, so the label IS
+    decodable from the image — synthetic training can reach ~100% exact
+    match, which is what makes convergence tests meaningful."""
+    g = _GLYPH_CACHE.get(token_id)
+    if g is None:
+        rng = np.random.default_rng(1000 + token_id)
+        g = (rng.random((_GLYPH_H, _GLYPH_W)) < 0.45).astype(np.uint8)
+        g[0, :] = 1  # top bar anchors vertical alignment
+        _GLYPH_CACHE[token_id] = g
+    return g
+
+
+_WHITE = 255
+
+
+def _glyph_img(token: str, scale: int, ink: int) -> np.ndarray:
+    g = _token_glyph(_DELIM_GLYPH_ID[token])
+    g = np.kron(g, np.ones((scale, scale), np.uint8))
+    img = np.full(g.shape, _WHITE, np.uint8)
+    img[g > 0] = ink
+    return img
+
+
+def _hstack(parts: list[np.ndarray], gap: int) -> np.ndarray:
+    """Concatenate horizontally, centering each part vertically."""
+    h = max(p.shape[0] for p in parts)
+    w = sum(p.shape[1] for p in parts) + gap * (len(parts) - 1)
+    out = np.full((h, w), _WHITE, np.uint8)
+    x = 0
+    for p in parts:
+        y = (h - p.shape[0]) // 2
+        out[y : y + p.shape[0], x : x + p.shape[1]] = p
+        x += p.shape[1] + gap
+    return out
+
+
+_HARD_FONTS = 3
+_HARD_ENVS = ("matrix", "pmatrix", "bmatrix")
+# 1-arg accent/style commands, rendered as a deterministic marker strip
+# above the argument so labels stay exactly decodable from pixels
+_HARD_UNARY_CANDIDATES = (
+    "\\hat", "\\bar", "\\tilde", "\\vec", "\\dot", "\\ddot", "\\acute",
+    "\\breve", "\\check", "\\grave", "\\overline", "\\underline",
+    "\\mathbf", "\\mathrm", "\\mathcal", "\\mathbb", "\\mathit",
+    "\\mathsf", "\\mathfrak", "\\boldsymbol",
+)
+
+_HARD_STRUCTURAL = (
+    "\\frac", "\\sqrt", "{", "}", "^", "_", "\\\\", "&",
+    "\\left(", "\\right)",
+)
+_hard_cache: dict = {}
+
+
+def _hard_lists() -> tuple[list[str], list[str]]:
+    """(terminals, unary commands) of the hard grammar, read back from the
+    released vocabulary: structural tokens, env delimiters and unary
+    commands come first, the sorted terminals after them."""
+    if "lists" not in _hard_cache:
+        vocab = load_vocab(HARD_VOCAB_PATH)
+        envs = {f"\\begin{{{e}}}" for e in _HARD_ENVS} | {
+            f"\\end{{{e}}}" for e in _HARD_ENVS
+        }
+        unary = [t for t in vocab if t in _HARD_UNARY_CANDIDATES]
+        skip = set(_HARD_STRUCTURAL) | envs | set(unary)
+        terms = [t for t in vocab if t not in skip]
+        if terms != sorted(terms):
+            raise ValueError(f"{HARD_VOCAB_PATH} is not the hard-mode vocabulary")
+        _hard_cache["lists"] = (terms, unary)
+    return _hard_cache["lists"]
+
+
+_HARD_GLYPH_CACHE: dict[tuple[int, int], np.ndarray] = {}
+
+
+def _hard_glyph(term_idx: int, font: int) -> np.ndarray:
+    """Deterministic binary glyph for terminal #term_idx in font #font.
+
+    Fonts are STYLE TRANSFORMS of one base shape per token — regular
+    (0), bold (1: horizontal dilation), italic (2: row shear) — like real
+    typefaces, where renderings of a symbol are correlated.  (Unrelated
+    random patterns per font were measured to put glyph identity out of
+    the soak model's reach: train loss floored at ~3.0 == structure
+    learned, terminals unread.)"""
+    g = _HARD_GLYPH_CACHE.get((term_idx, font))
+    if g is None:
+        rng = np.random.default_rng([7000 + term_idx])
+        base = (rng.random((_GLYPH_H, _GLYPH_W)) < 0.45).astype(np.uint8)
+        base[0, :] = 1  # top bar anchors vertical alignment
+        if font % 3 == 1:  # bold: dilate horizontally
+            g = base.copy()
+            g[:, 1:] |= base[:, :-1]
+        elif font % 3 == 2:  # italic: shear rows rightward
+            g = np.zeros((_GLYPH_H, _GLYPH_W + 3), np.uint8)
+            for r in range(_GLYPH_H):
+                off = (_GLYPH_H - 1 - r) // 4
+                g[r, off : off + _GLYPH_W] = base[r]
+        else:
+            g = base
+        _HARD_GLYPH_CACHE[(term_idx, font)] = g
+    return g
+
+
+_UNARY_MARK_CACHE: dict[int, np.ndarray] = {}
+
+
+def _unary_mark(unary_idx: int) -> np.ndarray:
+    """4x10 deterministic marker identifying a unary command (drawn above
+    its argument, like an accent)."""
+    m = _UNARY_MARK_CACHE.get(unary_idx)
+    if m is None:
+        rng = np.random.default_rng([91000 + unary_idx])
+        m = (rng.random((4, 10)) < 0.55).astype(np.uint8)
+        m[-1, :] = 1
+        _UNARY_MARK_CACHE[unary_idx] = m
+    return m
+
+
+def _filter3(img: np.ndarray, op) -> np.ndarray:
+    """3x3 neighborhood min/max/mean via shifted stacks (no scipy here)."""
+    p = np.pad(img, 1, mode="edge")
+    h, w = img.shape
+    stack = np.stack(
+        [p[dy : dy + h, dx : dx + w] for dy in range(3) for dx in range(3)]
+    )
+    return op(stack, axis=0)
+
+
+def apply_render_noise(
+    img: np.ndarray, rng: np.random.Generator,
+    level: float = 1.0, scale: int = 3,
+) -> np.ndarray:
+    """Per-sample render noise: ink thickness, blur, contrast jitter,
+    salt-and-pepper.  ``scale`` gates thinning (a 3x3 max filter would
+    erase 2x2 ink blocks entirely at glyph scale 2)."""
+    if level <= 0:
+        return img
+    out = img.astype(np.float32)
+    r = rng.random()
+    if r < 0.35 * level:
+        out = _filter3(out, np.min)  # thicken ink (dark = low values)
+    elif r < 0.55 * level and scale >= 3:
+        out = _filter3(out, np.max)  # thin ink
+    if rng.random() < 0.5 * level and scale >= 3:
+        # blur only at scale>=3: a 3x3 box blur over 2x2 ink blocks washes
+        # out glyph identity entirely (measured: train loss floors at ~2.6
+        # and eval BLEU at ~0.14 with blur-at-2 on)
+        out = _filter3(out, np.mean)
+    alpha = 1.0 + (rng.random() - 0.5) * 0.3 * level
+    beta = (rng.random() - 0.5) * 60 * level
+    out = out * alpha + beta
+    frac = rng.random() * 0.005 * level
+    n_px = int(frac * out.size)
+    if n_px:
+        ys = rng.integers(0, out.shape[0], n_px)
+        xs = rng.integers(0, out.shape[1], n_px)
+        out[ys, xs] = rng.integers(0, 2, n_px) * 255.0
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+class _HardGen:
+    """The hard grammar: KaTeX-inventory terminals in several fonts, unary
+    commands, delimited matrix envs, display-scale layouts.  Renders a
+    formula and emits its brace-explicit token string, so the label is
+    exactly decodable from the pixels."""
+
+    def __init__(self, rng: np.random.Generator, scale: int, ink: int,
+                 max_tokens: int, max_depth: int = 3, fonts: int = _HARD_FONTS):
+        self.rng = rng
+        self.s = scale
+        self.ink = ink
+        self.budget = max_tokens
+        self.max_depth = max_depth
+        self.terms, self.unary = _hard_lists()
+        self._term_idx = {t: i for i, t in enumerate(self.terms)}
+        self.fonts = fonts
+
+    def _sym(self) -> tuple[np.ndarray, list[str]]:
+        t = self._pick_terminal()
+        self.budget -= 1
+        return self._render_terminal(t), [t]
+
+    def expr(self, depth: int, max_atoms: int) -> tuple[np.ndarray, list[str]]:
+        n = int(self.rng.integers(1, max_atoms + 1))
+        imgs, toks = [], []
+        for _ in range(n):
+            if self.budget <= 0:
+                break
+            i, t = self.atom(depth)
+            imgs.append(i)
+            toks.extend(t)
+        if not imgs:
+            i, t = self._sym()
+            imgs, toks = [i], t
+        return _hstack(imgs, gap=self.s), toks
+
+    def frac(self, depth: int) -> tuple[np.ndarray, list[str]]:
+        self.budget -= 5  # \frac { } { }
+        num, nt = self.expr(depth + 1, 3)
+        den, dt = self.expr(depth + 1, 3)
+        w = max(num.shape[1], den.shape[1]) + 2 * self.s
+        bar = np.full((max(self.s // 2, 2), w), self.ink, np.uint8)
+        gap = np.full((self.s, w), _WHITE, np.uint8)
+
+        def center(p):
+            out = np.full((p.shape[0], w), _WHITE, np.uint8)
+            x = (w - p.shape[1]) // 2
+            out[:, x : x + p.shape[1]] = p
+            return out
+
+        img = np.concatenate(
+            [center(num), gap, bar, gap, center(den)], axis=0
+        )
+        return img, ["\\frac", "{", *nt, "}", "{", *dt, "}"]
+
+    def sqrt(self, depth: int) -> tuple[np.ndarray, list[str]]:
+        self.budget -= 3  # \sqrt { }
+        body, bt = self.expr(depth + 1, 3)
+        bar_h = max(self.s // 2, 2)
+        hook_w = 2 * self.s
+        h = body.shape[0] + bar_h + self.s
+        w = body.shape[1] + hook_w + self.s
+        img = np.full((h, w), _WHITE, np.uint8)
+        img[bar_h + self.s :, hook_w : hook_w + body.shape[1]] = body
+        img[:bar_h, hook_w - self.s :] = self.ink       # top bar
+        # diagonal hook
+        for k in range(h):
+            x = int(hook_w * k / h)
+            img[h - 1 - k, max(x - bar_h, 0) : x + 1] = self.ink
+        return img, ["\\sqrt", "{", *bt, "}"]
+
+    def script(self, depth: int) -> tuple[np.ndarray, list[str]]:
+        base, bt = self._sym()
+        which = "^" if self.rng.random() < 0.5 else "_"
+        self.budget -= 3  # ^ { }
+        sup, st = self.expr(depth + 1, 2)
+        bh, bw = base.shape
+        sh, sw = sup.shape
+        # enough rows for the raised/lowered script even when the script
+        # subtree is taller than the base glyph
+        h = max(bh + sh // 2 + self.s, sh + self.s)
+        w = bw + sw + self.s
+        img = np.full((h, w), _WHITE, np.uint8)
+        if which == "^":
+            img[h - bh :, :bw] = base
+            img[: sh, bw + self.s :] = sup
+        else:
+            img[:bh, :bw] = base
+            img[h - sh :, bw + self.s :] = sup
+        return img, [*bt, which, "{", *st, "}"]
+
+    def delims(self, depth: int) -> tuple[np.ndarray, list[str]]:
+        """Balanced \\left( ... \\right) pair around a sub-expression."""
+        self.budget -= 2
+        body, bt = self.expr(depth + 1, 3)
+        left = _glyph_img("\\left(", self.s, self.ink)
+        right = _glyph_img("\\right)", self.s, self.ink)
+        img = _hstack([left, body, right], gap=self.s)
+        return img, ["\\left(", *bt, "\\right)"]
+
+    def matrix(self, depth: int) -> tuple[np.ndarray, list[str]]:
+        env = self._pick_env()
+        rows, cols = self._matrix_dims()
+        self.budget -= rows * cols + 2
+        cells = [
+            [self.expr(depth + 1, 2) for _ in range(cols)]
+            for _ in range(rows)
+        ]
+        col_w = [
+            max(cells[r][c][0].shape[1] for r in range(rows))
+            for c in range(cols)
+        ]
+        row_h = [
+            max(cells[r][c][0].shape[0] for c in range(cols))
+            for r in range(rows)
+        ]
+        gap = 2 * self.s
+        h = sum(row_h) + gap * (rows - 1)
+        w = sum(col_w) + gap * (cols - 1)
+        img = np.full((h, w), _WHITE, np.uint8)
+        toks = ["\\begin{%s}" % env]
+        y = 0
+        for r in range(rows):
+            x = 0
+            for c in range(cols):
+                p, t = cells[r][c]
+                img[y + (row_h[r] - p.shape[0]) // 2 :, x :][
+                    : p.shape[0], : p.shape[1]
+                ] = p
+                if toks[-1] == "\\\\" and t and t[0] == "[":
+                    # "\\ [" would parse as the row break's optional size
+                    # argument (KaTeX cr function); brace the cell
+                    t = ["{", *t, "}"]
+                toks.extend(t)
+                if c < cols - 1:
+                    toks.append("&")
+                x += col_w[c] + gap
+            if r < rows - 1:
+                toks.append("\\\\")
+            y += row_h[r] + gap
+        toks.append("\\end{%s}" % env)
+        return self._decorate_env(env, img), toks
+
+    def _pick_terminal(self) -> str:
+        return self.terms[int(self.rng.integers(len(self.terms)))]
+
+    def _render_terminal(self, t: str) -> np.ndarray:
+        font = int(self.rng.integers(self.fonts))
+        g = _hard_glyph(self._term_idx[t], font)
+        g = np.kron(g, np.ones((self.s, self.s), np.uint8))
+        img = np.full(g.shape, _WHITE, np.uint8)
+        img[g > 0] = self.ink
+        return img
+
+    def _pick_env(self) -> str:
+        return _HARD_ENVS[int(self.rng.integers(len(_HARD_ENVS)))]
+
+    def _matrix_dims(self) -> tuple[int, int]:
+        # display-scale grids when the budget allows (fills gate buckets)
+        if self.budget >= 60:
+            return (int(self.rng.integers(3, 7)), int(self.rng.integers(2, 6)))
+        return (int(self.rng.integers(2, 4)), int(self.rng.integers(2, 4)))
+
+    def _decorate_env(self, env: str, img: np.ndarray) -> np.ndarray:
+        if env == "matrix":
+            return img
+        h = img.shape[0]
+        bar = max(self.s // 2, 2)
+        dw = 2 * self.s
+        out = np.full((h, img.shape[1] + 2 * (dw + self.s)), _WHITE, np.uint8)
+        out[:, dw + self.s : dw + self.s + img.shape[1]] = img
+        # vertical strokes; bmatrix adds square-bracket ticks
+        out[:, :bar] = self.ink
+        out[:, -bar:] = self.ink
+        if env == "bmatrix":
+            out[:bar, :dw] = self.ink
+            out[-bar:, :dw] = self.ink
+            out[:bar, -dw:] = self.ink
+            out[-bar:, -dw:] = self.ink
+        return out
+
+    def unary_atom(self, depth: int) -> tuple[np.ndarray, list[str]]:
+        u_idx = int(self.rng.integers(len(self.unary)))
+        u = self.unary[u_idx]
+        self.budget -= 3  # cmd { }
+        body, bt = self.expr(depth + 1, 2)
+        mark = np.kron(_unary_mark(u_idx), np.ones((self.s, self.s), np.uint8))
+        mark_img = np.full(mark.shape, _WHITE, np.uint8)
+        mark_img[mark > 0] = self.ink
+        w = max(body.shape[1], mark_img.shape[1])
+        h = body.shape[0] + mark_img.shape[0] + self.s
+        img = np.full((h, w), _WHITE, np.uint8)
+        xm = (w - mark_img.shape[1]) // 2
+        img[: mark_img.shape[0], xm : xm + mark_img.shape[1]] = mark_img
+        xb = (w - body.shape[1]) // 2
+        img[mark_img.shape[0] + self.s :, xb : xb + body.shape[1]] = body
+        return img, [u, "{", *bt, "}"]
+
+    def atom(self, depth: int) -> tuple[np.ndarray, list[str]]:
+        r = self.rng.random()
+        deep_ok = depth < self.max_depth and self.budget >= 6
+        if deep_ok and r < 0.10:
+            return self.frac(depth)
+        if deep_ok and r < 0.15:
+            return self.sqrt(depth)
+        if deep_ok and r < 0.21 and self.unary:
+            return self.unary_atom(depth)
+        if deep_ok and r < 0.35:
+            return self.script(depth)
+        if deep_ok and r < 0.39:
+            return self.delims(depth)
+        if deep_ok and depth == 0 and r < 0.46 and self.budget >= 10:
+            return self.matrix(depth)
+        return self._sym()
+
+
+def synth_hard_sample(
+    rng: np.random.Generator,
+    min_len: int = 8,
+    max_len: int = 150,
+    max_h: int = 448,
+    max_w: int = 960,
+    noise: float = 1.0,
+    fonts: int = _HARD_FONTS,
+    scale_range: tuple[int, int] = (2, 4),
+) -> tuple[np.ndarray, str]:
+    """One reference-scale (image, label) pair.  Same decodable-label
+    contract as synth_structured_sample (oversized renders regenerate with
+    a halved budget; never clipped).  ``scale_range``: half-open glyph
+    scale range; the soak's calibrated operating point uses (3, 5) — at
+    scale 2 a glyph spans ~1.5 positions of the encoder's /16 stride and
+    token accuracy ceilings too low for sequence-level exact match."""
+    budget = int(rng.integers(min_len, max_len + 1))
+    for _ in range(12):
+        scale = int(rng.integers(*scale_range))
+        ink = int(rng.integers(0, 60))
+        gen = _HardGen(rng, scale, ink, max_tokens=budget, fonts=fonts)
+        img, toks = gen.expr(0, max_atoms=max(min(budget // 2, 14), 3))
+        pad = int(rng.integers(2, 8))
+        img = np.pad(img, pad, constant_values=_WHITE)
+        fits = img.shape[0] <= max_h and img.shape[1] <= max_w
+        if fits and min_len <= len(toks) <= max_len:
+            break
+        if not fits or len(toks) > max_len:
+            budget = max(budget // 2, min_len)
+        # too short: just resample (structural atoms emit several tokens,
+        # so a small-n draw can undershoot min_len)
+    else:  # guaranteed-valid fallback: exactly min_len plain symbols
+        scale = scale_range[0]
+        gen = _HardGen(rng, scale, 0, max_tokens=min_len + 1, max_depth=0,
+                       fonts=fonts)
+        parts = [gen._sym() for _ in range(min_len)]
+        img = _hstack([p for p, _ in parts], gap=2)
+        toks = [t for _, ts in parts for t in ts]
+        img = np.pad(img, 4, constant_values=_WHITE)
+    img = apply_render_noise(img, rng, level=noise, scale=scale)
+    h = max(img.shape[0], 24)
+    w = max(img.shape[1], 32)
+    canvas = np.full((h, w), int(img.max()) if img.size else _WHITE, np.uint8)
+    canvas[: img.shape[0], : img.shape[1]] = img
+    return canvas, " ".join(toks)
+
+
+def seeded_crops(n: int, max_h: int = 224, max_w: int = 704, min_side: int = 32):
+    """The first ``n`` seeds (0, 1, ...) whose ``synth_hard_sample`` crop has
+    both sides >= ``min_side``, so it needs no resize in a config whose
+    min_dimension is that size.  Returns [(seed, image, label), ...]."""
+    out, seed = [], 0
+    while len(out) < n:
+        img, label = synth_hard_sample(np.random.default_rng(seed), max_h=max_h, max_w=max_w)
+        if min(img.shape) >= min_side:
+            out.append((seed, img, label))
+        seed += 1
+    return out

@@ -1,0 +1,3 @@
+from .model import Model, build_model
+
+__all__ = ["Model", "build_model"]

@@ -1,0 +1,84 @@
+"""Recognizer assembled from a config dict (counterpart of
+``doc2tex_tpu.models.model.Model``, the ViT + TFM branch).
+
+Ported stage combination: FeatureExtraction 'None' + SequenceModeling 'ViT'
+(resnet hybrid, 2d patches, fixed sin-cos table) + Prediction 'TFM'.  Any
+other combination raises ``NotImplementedError``.
+
+Interface, as the JAX module's:
+- ``encode(image)``: normalized (B, H, W, C) floats -> memory (B, S, D)
+- ``init_decode_state(enc, max_steps, beam_size, live_steps)``
+- ``decode_step(state, tokens) -> (state, logits)``
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from .decoder_tfm import TransformerDecoder
+from .vit import ViTEncoder, grid_size_for
+
+
+def _vit_from_config(config, dtype) -> ViTEncoder:
+    sm = config["SequenceModeling"]["params"]
+    backbone = sm.get("backbone") or {}
+    if backbone.get("name") != "resnet" or backbone.get("gcb", False):
+        raise NotImplementedError(f"ViT backbone {backbone!r} is not ported yet")
+    if sm.get("patching_style", "2d") != "2d" or not sm.get("fix_embed", False):
+        raise NotImplementedError("only the 2d-patch, fixed sin-cos ViT is ported")
+    patch = tuple(sm.get("patch_size", [2, 2]))
+    max_dim = ((config["imgH"], config["max_dimension"][1]) if config.get("imgH")
+               else tuple(config["max_dimension"]))
+    return ViTEncoder(
+        embed_dim=sm["hidden_size"],
+        depth=sm["depth"],
+        num_heads=sm["num_heads"],
+        patch_size=patch,
+        max_grid=grid_size_for(max_dim, patch, "resnet"),
+        backbone_channels=backbone.get("output_channel", 512),
+        input_channel=sm.get("input_channel", 1),
+        dtype=dtype,
+    )
+
+
+class Model(nn.Module):
+    def __init__(self, config, num_classes: int):
+        super().__init__()
+        stages = (config["FeatureExtraction"]["name"],
+                  config["SequenceModeling"]["name"],
+                  config["Prediction"]["name"])
+        if stages != ("None", "ViT", "TFM"):
+            raise NotImplementedError(f"stage combination {stages} is not ported yet")
+        # like the JAX package: any dtype but 'bfloat16' computes in float32
+        self.dtype = (torch.bfloat16 if config.get("dtype", "bfloat16") == "bfloat16"
+                      else torch.float32)
+        self.seqmodeler = _vit_from_config(config, self.dtype)
+        enc_dim = config["SequenceModeling"]["params"]["hidden_size"]
+        pp = dict(config["Prediction"].get("params", {}))
+        self.predicter = TransformerDecoder(
+            num_classes=num_classes,
+            d_model=pp.get("d_model", enc_dim),
+            nhead=pp.get("nhead", 8),
+            num_decoder_layers=pp.get("num_decoder_layers", 3),
+            dim_feedforward=pp.get("dim_feedforward", 1024),
+            max_seq_len=config.get("batch_max_length", 150) + 2,
+            padding_idx=0,
+            dtype=self.dtype,
+        )
+
+    def encode(self, image):
+        """image: (B, H, W, C) normalized floats -> encoder memory (B, S, D)."""
+        tokens, _grid = self.seqmodeler(image.to(self.dtype))
+        return tokens
+
+    def init_decode_state(self, enc, max_steps: int, beam_size: int = 1,
+                          live_steps: int | None = None):
+        return self.predicter.init_state(enc, max_steps, beam_size, live_steps=live_steps)
+
+    def decode_step(self, state, tokens):
+        return self.predicter.step(state, tokens)
+
+
+def build_model(config, num_classes: int) -> Model:
+    return Model(config, num_classes)
