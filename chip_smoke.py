@@ -6,20 +6,32 @@
 Needs one CUDA card; exits non-zero without one.  Phases, one line each:
 
 1. device  — the card's name, and its name and power limit from nvidia-smi;
-2. build   — nvcc builds the beam decode attention kernel (seconds taken);
-3. kernel  — the kernel against its plain PyTorch version on the card, at
-   the decode shapes of the release model (self-attention with a random
-   beam-ancestry mask, cross-attention over 623 memory tokens), in float32
-   and bfloat16; then times at the release shape (batch 64, beam 10, step
-   151) beside the plain version, F.scaled_dot_product_attention (a
-   yardstick only; the port never calls it) and the bytes bound;
-4. slice   — MathRecognition with the released ``synthetic_tfm_big``
+2. build   — nvcc builds both kernels at once, one process per source
+   (seconds taken);
+3. kernel  — beam decode attention (B1) against its plain PyTorch version
+   on the card, at the decode shapes of the TFM release model
+   (self-attention with a random beam-ancestry mask, cross-attention over
+   623 memory tokens), in float32 and bfloat16; then times at the release
+   shape (batch 64, beam 10, step 151) beside the plain version,
+   F.scaled_dot_product_attention (a yardstick only; the port never calls
+   it) and the bound;
+4. kernel  — the coverage-attention step (B2) against its plain version at
+   rows {1, 10, 37, 640} x S {83, 623, 2525} x (D, H, Kl) {(128, 128, 64),
+   (256, 256, 128)}, and at the (rows, S) of every batch the ``synthetic``
+   slice phase decodes, x valid_len {None, S - 17}, float32 and bfloat16
+   memory; then times (bf16) at each of the slice's shapes and at the
+   release shape (640 rows = 64 crops x beam 10, S 623) beside the plain
+   version and the bound.  The JSON record holds the slice's largest
+   launch;
+5. slice   — MathRecognition with the released ``synthetic_tfm_big``
    weights, beam 10, on 16 seeded synthetic crops: float32 (the strings
    must equal the JAX package's golden strings on >= 15 of 16) and
-   bfloat16, the release compute type (agreement printed, not gated).  The
-   kernel's launch count must rise in each run.
+   bfloat16, the release compute type (agreement printed, not gated).  B1's
+   launch count must rise in each run;
+6. slice   — the same with the released coverage-LSTM ``synthetic``
+   against its own golden file; B2's launch count must rise in each run.
 
-Then a JSON line with the kernel's numbers, and last
+Then a JSON line with both kernels' numbers, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the traceback
 is printed and the exit code is 1.  A hang is cut by faulthandler.
 """
@@ -36,13 +48,20 @@ import traceback
 
 TIME_LIMIT_S = 1100
 ROOT = os.path.dirname(os.path.abspath(__file__))
-GOLDEN = os.path.join(ROOT, "tests", "torch_port_golden.json")
+GOLDEN = {"synthetic_tfm_big": os.path.join(ROOT, "tests", "torch_port_golden.json"),
+          "synthetic": os.path.join(ROOT, "tests", "torch_port_golden_synthetic.json")}
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor rate
+F32_FLOPS = 67e12                  # H100 SXM float32 rate outside the tensor cores
 KERNEL_SOURCE = "doc2tex_tpu_torch/csrc/decode_attention.cu"
 KERNEL_REPLACES = "doc2tex_tpu/ops/decode_attention.py:104"
+B2_SOURCE = "doc2tex_tpu_torch/csrc/attention_step.cu"
+B2_REPLACES = "doc2tex_tpu/ops/attention_step.py:99"
 # stated tolerances of kernel vs plain version (abs + rel * |plain|)
 TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 0.0)}
+# B2 computes in float32 whatever the memory's type, so one tolerance for
+# both: float32 sums of the same terms in another order
+B2_TOL = (1e-5, 1e-5)
 MIN_GOLDEN_MATCH = 15
 
 
@@ -179,17 +198,150 @@ def kernel_phase(t0):
     }
 
 
-def golden_crops():
-    """The 16 crops of the golden file, regenerated from their seeds; their
-    sha256 must match, so a numpy difference fails here and not as a
-    parity miss."""
+def attention_step_inputs(rows, S, D, H, Kl, dtype, seed):
+    """Random inputs of the coverage-attention step on the card, at the
+    scales of a decode: unit-variance memory and keys, location features of
+    a coverage conv, weights scaled by fan-in."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    return dict(
+        enc=randn(rows, S, D).to(dtype), enc_proj=randn(rows, S, H).to(dtype),
+        q=randn(rows, H), loc_feat=randn(rows, S, Kl, scale=0.5),
+        w_loc=randn(Kl, H, scale=Kl ** -0.5), b_loc=randn(H, scale=0.1),
+        w_score=randn(H, 1, scale=H ** -0.5),
+    )
+
+
+def lstm_launch_shapes(version: str = "synthetic", beam_size: int = 10):
+    """(rows, S, D, H, Kl) of the B2 launches the ``version`` slice phase
+    makes: one shape per batch that MathRecognition builds from the golden
+    crops (rows = the padded batch x beam; S = the bucket's patch grid, the
+    v2 cls token split off).  Host arithmetic only."""
+    from doc2tex_tpu_torch.models.vit import grid_size_for
+    from doc2tex_tpu_torch.recognition import MathRecognition, load_recog_config
+
+    _, crops = golden_crops(version)
+    cfg, weights = load_recog_config(version=version)
+    cfg["quantize"] = None
+    rec = MathRecognition(cfg, weights, beam_size=beam_size, device="cpu")
+    vit, head = cfg["SequenceModeling"]["params"], cfg["Prediction"]["params"]
+    prepped = [rec._preprocess(c) for c in crops]
+    shapes = set()
+    for bucket, idxs in rec.group(prepped).items():
+        gh, gw = grid_size_for(bucket, tuple(vit["patch_size"]))
+        rows = rec.make_batch([prepped[i] for i in idxs], bucket).shape[0] * beam_size
+        shapes.add((rows, gh * gw, vit["hidden_size"], head["hidden_size"], head["kernel_dim"]))
+    return sorted(shapes)
+
+
+def attention_step_timing(rows, S, D, H, Kl):
+    """Kernel and plain version timed at one shape with bf16 memory (the
+    release compute type), and the bound of the same work."""
+    import torch
+
+    from doc2tex_tpu_torch.ops.attention_step import (
+        attention_step_reference, fused_attention_step)
+
+    kw = attention_step_inputs(rows, S, D, H, Kl, torch.bfloat16, seed=7)
+    before = fused_attention_step.launches
+    ms = cuda_time_ms(lambda: fused_attention_step(**kw))
+    plain_ms = cuda_time_ms(lambda: attention_step_reference(**kw))
+    got, ref = fused_attention_step(**kw), attention_step_reference(**kw)
+    fused_attention_step.launches = before  # timing launches are not main-path launches
+    err = max((got[0] - ref[0]).abs().max().item(), (got[1] - ref[1]).abs().max().item())
+    nbytes = sum(t.numel() * t.element_size() for t in kw.values())
+    nbytes += (got[0].numel() + got[1].numel()) * 4
+    # float32 work per position: loc.w_loc, the adds, tanh and w_score over
+    # H, the softmax, and alpha.enc over D
+    flops = rows * S * (2 * Kl * H + 5 * H + 3 + 2 * D)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOPS * 1e3
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations", max_abs_err=err,
+                text=f"rows {rows} S {S} D{D} H{H} Kl{Kl} bf16: kernel {ms:.4f} ms, plain "
+                     f"{plain_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms (bytes "
+                     f"{bytes_ms:.4f} ms for {nbytes / 1e6:.1f} MB, operations {ops_ms:.4f} ms "
+                     f"for {flops / 1e9:.3f} GFLOP f32), achieved "
+                     f"{nbytes / (ms * 1e-3) / 1e9:.0f} GB/s, "
+                     f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s")
+
+
+def attention_step_phase(t0):
+    """B2 vs its plain version over the listed shapes and the shapes of the
+    ``synthetic`` slice; timings at each of the slice's shapes and at the
+    release shape.  Returns the kernel's JSON record (launches filled
+    later); its numbers are those of the slice's largest launch."""
+    import torch
+
+    from doc2tex_tpu_torch.ops.attention_step import (
+        attention_step_reference, fused_attention_step)
+
+    main_path = lstm_launch_shapes()
+    log("kernel", t0, "attention_step launch shapes of the synthetic slice (rows, S, D, H, Kl): "
+        + ", ".join(map(str, main_path)))
+    grid = [(rows, S, D, H, Kl) for D, H, Kl in ((128, 128, 64), (256, 256, 128))
+            for S in (83, 623, 2525) for rows in (1, 10, 37, 640)]
+    atol, rtol = B2_TOL
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for rows, S, D, H, Kl in grid + main_path:
+            for valid in (None, S - 17):
+                kw = attention_step_inputs(rows, S, D, H, Kl, dtype, seed=n)
+                n += 1
+                got = fused_attention_step(**kw, valid_len=valid)
+                ref = attention_step_reference(**kw, valid_len=valid)
+                torch.cuda.synchronize()
+                for what, a, b in (("context", got[0], ref[0]), ("alpha", got[1], ref[1])):
+                    if not torch.isfinite(a).all():
+                        raise AssertionError(f"non-finite {what} at rows {rows} S {S} "
+                                             f"D {D} {name}")
+                    err = (a - b).abs()
+                    if (err > atol + rtol * b.abs()).any():
+                        raise AssertionError(
+                            f"attention step disagrees with plain version ({what}) at rows "
+                            f"{rows} S {S} D{D} H{H} Kl{Kl} valid {valid} {name}: max "
+                            f"abs err {err.max().item():.3e}")
+                    worst[name] = max(worst[name], err.max().item())
+                del kw, got, ref
+    log("kernel", t0, f"attention_step matches plain version at {n} shapes (rows {{1,10,37,640}} "
+        "x S {83,623,2525} x (D,H,Kl) {(128,128,64),(256,256,128)}, and the synthetic slice's "
+        "shapes; x valid {None, S-17}): max abs err "
+        + ", ".join(f"{k} {e:.3e}" for k, e in worst.items())
+        + f" (tol {atol:g} abs + {rtol:g} rel)")
+
+    timings = {shape: attention_step_timing(*shape) for shape in main_path}
+    for timing in timings.values():
+        log("kernel", t0, f"attention_step (synthetic slice) {timing['text']}")
+    log("kernel", t0, "attention_step (release shape, 64 crops x beam 10) "
+        + attention_step_timing(640, 623, 128, 128, 64)["text"])
+    # the record: the slice's largest launch (most rows, then longest S)
+    rel = timings[max(main_path)]
+    return {
+        "name": "attention_step", "route": "cuda", "source": B2_SOURCE,
+        "replaces": B2_REPLACES, "launches": 0, "max_abs_err": rel["max_abs_err"],
+        "ms": rel["ms"], "plain_ms": rel["plain_ms"], "bound_ms": rel["bound_ms"],
+        "bound_by": rel["bound_by"], "library_ms": None,
+    }
+
+
+def golden_crops(version: str = "synthetic_tfm_big"):
+    """The 16 crops of ``version``'s golden file, regenerated from their
+    seeds; their sha256 must match, so a numpy difference fails here and
+    not as a parity miss."""
     import hashlib
 
     import numpy as np
 
     from doc2tex_tpu_torch.data.synthetic import synth_hard_sample
 
-    with open(GOLDEN) as f:
+    with open(GOLDEN[version]) as f:
         golden = json.load(f)
     h, w = golden["crop_max"]
     crops = []
@@ -204,10 +356,12 @@ def golden_crops():
 
 def run_slice(config, weights_path, crops, beam_size: int, device: str):
     """Drive the port's main path: MathRecognition on ``crops``.  Returns
-    (strings, kernel launches, decode steps, seconds of the timed run).
-    The first call warms up; the counted and timed call is the second."""
+    (strings, launches of the head's kernel, decode steps, seconds of the
+    timed run).  The first call warms up; the counted and timed call is
+    the second, with every kernel's count set to 0 just before it."""
     import torch
 
+    from doc2tex_tpu_torch.ops.attention_step import fused_attention_step
     from doc2tex_tpu_torch.ops.decode_attention import decode_attention
     from doc2tex_tpu_torch.recognition import MathRecognition
 
@@ -215,21 +369,24 @@ def run_slice(config, weights_path, crops, beam_size: int, device: str):
     rec(crops)
     if device != "cpu":
         torch.cuda.synchronize()
-    decode_attention.launches = 0
+    decode_attention.launches = fused_attention_step.launches = 0
     t = time.perf_counter()
     out = rec(crops)
     if device != "cpu":
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t
-    launches = decode_attention.launches
-    steps = launches // (2 * rec.model.predicter.num_layers)
+    if rec.model.head == "TFM":
+        launches = decode_attention.launches
+        steps = launches // (2 * rec.model.predicter.num_layers)
+    else:  # the LSTM head: one attention step per decode step
+        launches = steps = fused_attention_step.launches
     return out, launches, steps, seconds
 
 
-def slice_phase(t0, record):
+def slice_phase(t0, version, record):
     from doc2tex_tpu_torch.recognition import load_recog_config
 
-    golden, crops = golden_crops()
+    golden, crops = golden_crops(version)
     want = [c["beam10"] for c in golden["crops"]]
     for dtype in ("float32", "bfloat16"):
         cfg, weights = load_recog_config(version=golden["version"])
@@ -237,18 +394,34 @@ def slice_phase(t0, record):
         cfg["quantize"] = None
         out, launches, steps, seconds = run_slice(cfg, weights, crops, 10, "cuda")
         if launches <= 0:
-            raise AssertionError(f"{dtype} run launched the decode attention kernel 0 times")
+            raise AssertionError(f"{version} {dtype} run launched its kernel "
+                                 f"{record['name']} 0 times")
         misses = [i for i, (a, b) in enumerate(zip(out, want)) if a != b]
         match = len(want) - len(misses)
-        log("slice", t0, f"synthetic_tfm_big beam 10 {dtype}: {match}/{len(want)} equal to "
+        log("slice", t0, f"{version} beam 10 {dtype}: {match}/{len(want)} equal to "
             f"the JAX golden (misses at crops {misses}), {len(crops) / seconds:.2f} crops/s "
-            f"({seconds:.3f} s), {steps} decode steps, {launches} kernel launches")
+            f"({seconds:.3f} s), {steps} decode steps, {launches} {record['name']} launches")
         if dtype == "float32":
             record["launches"] = launches
             if match < MIN_GOLDEN_MATCH:
                 raise AssertionError(
                     f"float32 strings equal the golden on {match}/16 < {MIN_GOLDEN_MATCH}: "
                     + "; ".join(f"crop {i}: {out[i]!r} != {want[i]!r}" for i in misses))
+
+
+def build_kernels(t0):
+    """nvcc on both sources at once (one process each)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from doc2tex_tpu_torch.ops import attention_step, decode_attention
+
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        infos = list(pool.map(lambda m: (m.SOURCE, m.build()), (decode_attention, attention_step)))
+    for source, info in infos:
+        log("build", t0, f"{source} built in {info['seconds']:.2f} s "
+            f"({'compiled' if info['built'] else 'cached'}): {info['path']}")
+        if info["ptxas"]:
+            print(info["ptxas"], file=sys.stderr, flush=True)
 
 
 def main() -> int:
@@ -264,20 +437,15 @@ def main() -> int:
     # float32 means float32: no TF32 in matmuls or cuDNN convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from doc2tex_tpu_torch.ops.decode_attention import build
-
     name = torch.cuda.get_device_name(0)
     log("device", t0, f"{name}; torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{torch.cuda.device_count()} device(s)")
     log("device", t0, f"nvidia-smi: {nvidia_smi()}")
-    info = build()
-    log("build", t0, f"decode_attention built in {info['seconds']:.2f} s "
-        f"({'compiled' if info['built'] else 'cached'}): {info['path']}")
-    if info["ptxas"]:
-        print(info["ptxas"], file=sys.stderr, flush=True)
-    record = kernel_phase(t0)
-    slice_phase(t0, record)
-    print(json.dumps({"kernels": [record]}), flush=True)
+    build_kernels(t0)
+    records = [kernel_phase(t0), attention_step_phase(t0)]
+    slice_phase(t0, "synthetic_tfm_big", records[0])
+    slice_phase(t0, "synthetic", records[1])
+    print(json.dumps({"kernels": records}), flush=True)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}),

@@ -1,9 +1,11 @@
 """doc2tex_tpu_torch — the PyTorch + CUDA port of doc2tex_tpu.
 
-Runs batched crop recognition with the released ViT + TFM recognizers on an
-NVIDIA GPU.  Plain tensor code is PyTorch; the one TPU kernel on this path
-(beam decode attention) is a hand-written CUDA kernel for Hopper
-(``csrc/decode_attention.cu``), built with nvcc at first use and loaded with
+Runs batched crop recognition with the released ViT recognizers on an
+NVIDIA GPU: the Transformer head (``synthetic_tfm_big``) and the
+coverage-LSTM head (``synthetic``).  Plain tensor code is PyTorch; each TPU
+kernel is a hand-written CUDA kernel for Hopper (``csrc/decode_attention.cu``
+for beam decode attention, ``csrc/attention_step.cu`` for the
+coverage-attention step), built with nvcc at first use and loaded with
 ctypes.  Every entry point takes a ``device`` argument that defaults to
 ``"cuda"``; the CPU is used only when the caller asks for it.
 

@@ -26,6 +26,32 @@ from .greedy import POLL_EVERY
 NEG_INF = -1e9
 
 
+def _gather_beams(x, beam_idx, batch_size, k):
+    """x: (B*K, ...) -> its rows reordered by parent beam within each
+    sample, an exact index gather.  beam_idx: (B, K)."""
+    rows = torch.arange(batch_size, device=beam_idx.device)[:, None]
+    shaped = x.reshape(batch_size, k, *x.shape[1:])
+    return shaped[rows, beam_idx].reshape(x.shape)
+
+
+def make_gather_fn(static_fields: tuple[str, ...] = ()) -> Callable:
+    """A gather_fn for a NamedTuple state; ``static_fields`` are
+    beam-invariant (encoder memory, scales) and left as they are."""
+
+    def gather(state, beam_idx, batch_size, k):
+        updates = {name: _gather_beams(leaf, beam_idx, batch_size, k)
+                   for name, leaf in state._asdict().items() if name not in static_fields}
+        return state._replace(**updates)
+
+    return gather
+
+
+# Beam-invariant fields of the LSTM head's state: the attention memory is
+# the same for every beam of a sample, and the scales are (0,) placeholders.
+LSTM_STATIC = ("enc", "enc_proj", "enc_scale", "proj_scale")
+lstm_gather = make_gather_fn(LSTM_STATIC)
+
+
 def tfm_gather(state, beam_idx, batch_size, k):
     """Reorder only the (B, K, T, K) ancestry selection by parent beam — an
     exact index gather; the KV caches stay in their fixed slots."""

@@ -1,8 +1,8 @@
 """Images -> token ids: normalize, encode, decode (counterpart of
 ``doc2tex_tpu.decode.runner``).
 
-Special-token ids of the TFM family: PAD=0, GO=1, [s]=2 (the LSTM family's
-Attn ids are kept for ``token_ids_for`` parity).
+Special-token ids: Attn (LSTM heads) GO=0 (also pad), [s]=1; TFM PAD=0,
+GO=1, [s]=2.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ import torch
 
 from ..models.decoder_tfm import grow_decode_state
 from ..transforms.augment import normalize
-from .beam import beam_decode, tfm_gather
+from .beam import beam_decode, lstm_gather, tfm_gather
 from .greedy import greedy_decode
 
 
@@ -48,16 +48,17 @@ def make_decode_fn(model, config, beam_size: int = 1, device="cuda") -> Callable
     ``images_u8``: (B, H, W, 1) uint8 bucket-padded pixels (numpy or
     tensor); they are moved to ``device``, normalized and decoded there, for
     ``batch_max_length + 1`` steps at most.  ``aux`` is lengths for greedy,
-    scores for beam.  The decode runs in ``DECODE_CHUNKS`` chunks: the KV
-    caches start at the first chunk's length and grow between chunks, so
-    early steps read only the live prefix (token-exact)."""
+    scores for beam.  The TFM head decodes in ``DECODE_CHUNKS`` chunks: the
+    KV caches start at the first chunk's length and grow between chunks, so
+    early steps read only the live prefix (token-exact).  The LSTM head's
+    state has no step-sized leaf, so it decodes in one chunk."""
     pred_name = config["Prediction"]["name"]
-    if pred_name != "TFM":
-        raise NotImplementedError(f"Prediction head {pred_name!r} is not ported yet")
     ids = token_ids_for(pred_name)
     mean, std = config.get("mean", 0.5), config.get("std", 0.5)
     max_steps = config["batch_max_length"] + 1
-    ends = _chunk_ends(max_steps, DECODE_CHUNKS)
+    is_tfm_head = pred_name == "TFM"
+    gather = tfm_gather if is_tfm_head else lstm_gather
+    ends = _chunk_ends(max_steps, DECODE_CHUNKS) if is_tfm_head else [max_steps]
     k = max(beam_size, 1)
     schedule = [
         (t_end, (lambda s, _n=nxt: grow_decode_state(s, _n, k)) if nxt else None)
@@ -80,7 +81,7 @@ def make_decode_fn(model, config, beam_size: int = 1, device="cuda") -> Callable
                 start_token=ids.start, end_token=ids.end, pad_token=ids.pad,
                 chunk_schedule=schedule, device=device)
         return beam_decode(
-            model.decode_step, state, tfm_gather, B, beam_size, max_steps,
+            model.decode_step, state, gather, B, beam_size, max_steps,
             start_token=ids.start, end_token=ids.end, pad_token=ids.pad,
             chunk_schedule=schedule, device=device)
 

@@ -7,7 +7,10 @@ state-dict key one to one.  Dense kernels stay ``(in, out)`` and are
 applied as ``x @ kernel``, as the JAX code does.
 
 Types follow the JAX modules: a Dense or the attention products compute in
-the model's compute type (``dtype``), LayerNorm and softmax in float32.
+the model's compute type (``dtype``), LayerNorm and softmax in float32.  In
+bfloat16 the rounding follows JAX's too: constants are rounded to the
+compute type (``scalar``) and the gelu rounds after each op; float32 keeps
+the fused forms.
 """
 
 from __future__ import annotations
@@ -82,6 +85,25 @@ def word_posenc(max_len: int, d_model: int) -> torch.Tensor:
     return torch.stack([torch.sin(ang), torch.cos(ang)], dim=-1).reshape(max_len, d_model)
 
 
+def scalar(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``.  JAX casts a Python scalar to the
+    array's type before an op on it; PyTorch computes with the scalar as
+    given, which differs in bfloat16."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
+def gelu_tanh(x):
+    """``jax.nn.gelu(x, approximate=True)``.  In float32, PyTorch's fused
+    gelu (one pass).  In a narrower type, as JAX writes it, op by op, so
+    that each step and each constant rounds to x's type (there a fused
+    gelu rounds once and gives other values)."""
+    if x.dtype == torch.float32:
+        return F.gelu(x, approximate="tanh")
+    c0, c1 = scalar(math.sqrt(2 / math.pi), x.dtype), scalar(0.044715, x.dtype)
+    cdf = 0.5 * (1.0 + torch.tanh(c0 * (x + c1 * (x ** 3))))
+    return x * cdf
+
+
 class Mlp(nn.Module):
     def __init__(self, dim: int, hidden: int, dtype: torch.dtype):
         super().__init__()
@@ -89,8 +111,7 @@ class Mlp(nn.Module):
         self.Dense_1 = Dense(hidden, dim, dtype=dtype)
 
     def forward(self, x):
-        # flax nn.gelu is the tanh approximation
-        return self.Dense_1(F.gelu(self.Dense_0(x), approximate="tanh"))
+        return self.Dense_1(gelu_tanh(self.Dense_0(x)))
 
 
 class SelfAttention(nn.Module):
@@ -109,7 +130,7 @@ class SelfAttention(nn.Module):
         hd = C // self.num_heads
         qkv = self.Dense_0(x).reshape(B, N, 3, self.num_heads, hd)
         q, k, v = qkv.unbind(dim=2)  # (B, N, H, hd)
-        attn = torch.einsum("bnhd,bmhd->bhnm", q, k) * hd ** -0.5
+        attn = torch.einsum("bnhd,bmhd->bhnm", q, k) * scalar(hd ** -0.5, self.dtype)
         attn = torch.softmax(attn.float(), dim=-1).to(self.dtype)
         out = torch.einsum("bhnm,bmhd->bnhd", attn, v).reshape(B, N, C)
         return self.Dense_1(out)

@@ -1,9 +1,10 @@
 """Recognizer assembled from a config dict (counterpart of
-``doc2tex_tpu.models.model.Model``, the ViT + TFM branch).
+``doc2tex_tpu.models.model.Model``, the ViT branch).
 
-Ported stage combination: FeatureExtraction 'None' + SequenceModeling 'ViT'
-(resnet hybrid, 2d patches, fixed sin-cos table) + Prediction 'TFM'.  Any
-other combination raises ``NotImplementedError``.
+Ported stage combinations: FeatureExtraction 'None' + SequenceModeling 'ViT'
+(resnet hybrid, 2d patches, fixed sin-cos table) + Prediction 'TFM', or
+'Attn'/'Attnv2' (the coverage-LSTM head).  Any other combination raises
+``NotImplementedError``.
 
 Interface, as the JAX module's:
 - ``encode(image)``: normalized (B, H, W, C) floats -> memory (B, S, D)
@@ -16,6 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from .decoder_lstm import LSTMAttentionDecoder
 from .decoder_tfm import TransformerDecoder
 from .vit import ViTEncoder, grid_size_for
 
@@ -48,24 +50,41 @@ class Model(nn.Module):
         stages = (config["FeatureExtraction"]["name"],
                   config["SequenceModeling"]["name"],
                   config["Prediction"]["name"])
-        if stages != ("None", "ViT", "TFM"):
+        if stages[:2] != ("None", "ViT") or stages[2] not in ("TFM", "Attn", "Attnv2"):
             raise NotImplementedError(f"stage combination {stages} is not ported yet")
+        self.head = stages[2]
         # like the JAX package: any dtype but 'bfloat16' computes in float32
         self.dtype = (torch.bfloat16 if config.get("dtype", "bfloat16") == "bfloat16"
                       else torch.float32)
         self.seqmodeler = _vit_from_config(config, self.dtype)
         enc_dim = config["SequenceModeling"]["params"]["hidden_size"]
         pp = dict(config["Prediction"].get("params", {}))
-        self.predicter = TransformerDecoder(
-            num_classes=num_classes,
-            d_model=pp.get("d_model", enc_dim),
-            nhead=pp.get("nhead", 8),
-            num_decoder_layers=pp.get("num_decoder_layers", 3),
-            dim_feedforward=pp.get("dim_feedforward", 1024),
-            max_seq_len=config.get("batch_max_length", 150) + 2,
-            padding_idx=0,
-            dtype=self.dtype,
-        )
+        if self.head != "TFM":
+            self.predicter = LSTMAttentionDecoder(
+                num_classes=num_classes,
+                input_size=pp.get("input_size", enc_dim),
+                hidden_size=pp.get("hidden_size", 256),
+                embed_dim=pp.get("embed_dim"),
+                kernel_size=pp.get("kernel_size", 2),
+                kernel_dim=pp.get("kernel_dim", 128),
+                attn_type=pp.get("attn_type", "coverage"),
+                embed_target=pp.get("embed_target", True),
+                enc_init=pp.get("enc_init", False),
+                seqmodel=pp.get("seqmodel", "TFM"),
+                v2=self.head == "Attnv2",
+                dtype=self.dtype,
+            )
+        else:
+            self.predicter = TransformerDecoder(
+                num_classes=num_classes,
+                d_model=pp.get("d_model", enc_dim),
+                nhead=pp.get("nhead", 8),
+                num_decoder_layers=pp.get("num_decoder_layers", 3),
+                dim_feedforward=pp.get("dim_feedforward", 1024),
+                max_seq_len=config.get("batch_max_length", 150) + 2,
+                padding_idx=0,
+                dtype=self.dtype,
+            )
 
     def encode(self, image):
         """image: (B, H, W, C) normalized floats -> encoder memory (B, S, D)."""
@@ -74,7 +93,11 @@ class Model(nn.Module):
 
     def init_decode_state(self, enc, max_steps: int, beam_size: int = 1,
                           live_steps: int | None = None):
-        return self.predicter.init_state(enc, max_steps, beam_size, live_steps=live_steps)
+        """The TFM head sizes its caches by ``max_steps`` (``live_steps``
+        at first); the LSTM head's state does not depend on them."""
+        if self.head == "TFM":
+            return self.predicter.init_state(enc, max_steps, beam_size, live_steps=live_steps)
+        return self.predicter.init_state(enc, beam_size)
 
     def decode_step(self, state, tokens):
         return self.predicter.step(state, tokens)

@@ -11,8 +11,8 @@ horizontal resolution:
 
 Inside, the port runs NCHW convolutions (PyTorch's layout); kernels are
 stored OIHW (``weights.py`` converts flax's HWIO).  BatchNorm runs with its
-running statistics (inference only) in the compute type, as the JAX module
-does.
+running statistics (inference only) in float32 and returns the compute
+type, as flax's BatchNorm does.
 """
 
 from __future__ import annotations
@@ -46,9 +46,14 @@ class Conv(nn.Module):
         nn.init.kaiming_normal_(self.kernel, mode="fan_out")
 
     def forward(self, x):
-        bias = None if self.bias is None else self.bias.to(self.dtype)
-        return F.conv2d(x.to(self.dtype), self.kernel.to(self.dtype), bias,
-                        self.stride, self.padding)
+        kernel = self.kernel.to(self.dtype)
+        if self.dtype == torch.float32 or self.bias is None:
+            return F.conv2d(x.to(self.dtype), kernel, self.bias, self.stride, self.padding)
+        # in a narrower type the bias is added after the convolution's output
+        # is rounded to it, as flax does (a bias fused into the convolution
+        # would round once, and give other values)
+        y = F.conv2d(x.to(self.dtype), kernel, None, self.stride, self.padding)
+        return y + self.bias.to(self.dtype).view(1, -1, 1, 1)
 
 
 class BatchNorm(nn.Module):
@@ -64,10 +69,11 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(channels))
 
     def forward(self, x):
-        mul = torch.rsqrt(self.var.float() + self.eps) * self.scale.float()
-        shape = (1, -1, 1, 1)
-        return ((x - self.mean.to(x.dtype).view(shape)) * mul.to(x.dtype).view(shape)
-                + self.bias.to(x.dtype).view(shape))
+        # float32 arithmetic and one rounding to the input's type at the
+        # end, in one pass: flax subtracts the float32 running mean from the
+        # input, which promotes it, and casts the result to the module's type
+        return F.batch_norm(x, self.mean, self.var, self.scale, self.bias,
+                            training=False, eps=self.eps)
 
 
 class ConvBN(nn.Module):

@@ -149,25 +149,29 @@ class MathRecognition:
             image = np.round(image.astype(np.float32).mean(axis=-1)).astype(np.uint8)
         return resize_for_inference(image, self.config)
 
-    def decode_group(self, prepped: Sequence[np.ndarray], bucket) -> list[str]:
-        """Preprocessed uint8 crops -> strings, decoded as one batch padded
-        to ``bucket`` (the batch axis snapped to the {1, 8, 64, ...} ladder)."""
+    @staticmethod
+    def make_batch(prepped: Sequence[np.ndarray], bucket) -> np.ndarray:
+        """Preprocessed uint8 crops -> one (N, H, W, 1) batch padded to
+        ``bucket``, the batch axis snapped to the {1, 8, 64, ...} ladder."""
         batch = np.stack([pad_to_bucket(img, bucket) for img in prepped])[..., None]
         n = batch.shape[0]
         padded_n = _snap_batch(n)
         if padded_n != n:
             batch = np.concatenate([batch, np.repeat(batch[:1], padded_n - n, axis=0)])
-        tokens, _ = self._decode(batch)
+        return batch
+
+    def decode_group(self, prepped: Sequence[np.ndarray], bucket) -> list[str]:
+        """Preprocessed uint8 crops -> strings, decoded as one batch (see
+        ``make_batch``)."""
+        n = len(prepped)
+        tokens, _ = self._decode(self.make_batch(prepped, bucket))
         sep = " " if self.config.get("token_level", "word") == "word" else ""
         return [postprocess_prediction(sep.join(self.converter.detokenize(row[None])[0]))
                 for row in tokens[:n].cpu().numpy()]
 
-    def __call__(self, images) -> list[str] | str:
-        """One crop or a list of crops -> LaTeX string(s)."""
-        single = isinstance(images, np.ndarray)
-        crops: Sequence[np.ndarray] = [images] if single else list(images)
-        prepped = [self._preprocess(c) for c in crops]
-
+    def group(self, prepped: list[np.ndarray]) -> dict:
+        """{bucket: crop indices} of preprocessed crops, after coalescing.
+        A crop larger than the largest bucket is cut to it in place."""
         groups: dict[tuple[int, int], list[int]] = {}
         for i, img in enumerate(prepped):
             bucket = self.table.lookup(*img.shape[:2])
@@ -175,7 +179,14 @@ class MathRecognition:
                 bucket = self.table.shapes[-1]
                 prepped[i] = img[: bucket[0], : bucket[1]]
             groups.setdefault(bucket, []).append(i)
-        groups = coalesce_groups(groups, self.coalesce_ratio)
+        return coalesce_groups(groups, self.coalesce_ratio)
+
+    def __call__(self, images) -> list[str] | str:
+        """One crop or a list of crops -> LaTeX string(s)."""
+        single = isinstance(images, np.ndarray)
+        crops: Sequence[np.ndarray] = [images] if single else list(images)
+        prepped = [self._preprocess(c) for c in crops]
+        groups = self.group(prepped)
 
         results: list[str] = [""] * len(crops)
         for bucket, idxs in groups.items():

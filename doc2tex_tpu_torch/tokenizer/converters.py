@@ -1,8 +1,13 @@
-"""The TFM label converter (copied from ``doc2tex_tpu.tokenizer.converters``).
+"""Label converters (copied from ``doc2tex_tpu.tokenizer.converters``).
 
-Special tokens: [PAD]=0, [GO]=1, [s]=2, [UNK]=3, then the vocabulary.
-Only the decode direction is needed for recognition: ``detokenize`` cuts
-each row at its first [s].
+Two families, told apart by the Prediction head:
+
+- Attn (LSTM heads ``Attn``/``Attnv2``): [GO]=0, [s]=1, [UNK]=2; pad is
+  [GO] = 0;
+- TFM: [PAD]=0, [GO]=1, [s]=2, [UNK]=3.
+
+The vocabulary follows the special tokens.  Only the decode direction is
+needed for recognition: ``detokenize`` cuts each row at its first [s].
 """
 
 from __future__ import annotations
@@ -12,9 +17,8 @@ from typing import Sequence
 import numpy as np
 
 
-class TFMLabelConverter:
-    list_token = ["[PAD]", "[GO]", "[s]", "[UNK]"]
-    PAD, GO, END, UNK = 0, 1, 2, 3
+class _BaseConverter:
+    list_token: list[str] = []
 
     def __init__(self, character: Sequence[str]):
         self.character: list[str] = list(self.list_token) + list(character)
@@ -38,10 +42,20 @@ class TFMLabelConverter:
         return out
 
 
-def create_converter(config) -> TFMLabelConverter:
-    """Load the vocab into ``config['character']`` and build the converter.
+class AttnLabelConverter(_BaseConverter):
+    list_token = ["[GO]", "[s]", "[UNK]"]
+    GO, END, UNK = 0, 1, 2
+    PAD = GO
 
-    Only the TFM head is ported; other Prediction heads raise."""
+
+class TFMLabelConverter(_BaseConverter):
+    list_token = ["[PAD]", "[GO]", "[s]", "[UNK]"]
+    PAD, GO, END, UNK = 0, 1, 2, 3
+
+
+def create_converter(config) -> _BaseConverter:
+    """Load the vocab into ``config['character']`` and build the converter
+    of the Prediction head's family."""
     from .vocab import load_vocab
 
     if not config.get("character"):
@@ -50,6 +64,8 @@ def create_converter(config) -> TFMLabelConverter:
             raise ValueError("config needs 'vocab' path or 'character' list")
         config["character"] = load_vocab(vocab_path)
     pred = config["Prediction"]["name"]
-    if pred != "TFM":
-        raise NotImplementedError(f"Prediction head {pred!r} is not ported yet")
-    return TFMLabelConverter(config["character"])
+    if pred.startswith("Attn"):
+        return AttnLabelConverter(config["character"])
+    if pred == "TFM":
+        return TFMLabelConverter(config["character"])
+    raise NotImplementedError(f"Prediction head {pred!r} is not ported yet")

@@ -1,16 +1,18 @@
 """Where the time of the port's main path goes, on a CUDA card.
 
-    python -m doc2tex_tpu_torch.tools.profile_slice [--crops 16] [--beam 10]
-        [--dtype bfloat16] [--out result.json]
+    python -m doc2tex_tpu_torch.tools.profile_slice [--version synthetic_tfm_big]
+        [--crops 16] [--beam 10] [--dtype bfloat16] [--out result.json]
 
-Runs MathRecognition with the released ``synthetic_tfm_big`` weights on
-seeded synthetic crops (the first ``--crops`` seeds whose crop needs no
-resize, as ``chip_smoke.py`` uses), once to warm up, once timed, and once
-under ``torch.profiler``.  Prints and writes: wall time, crops/s, the
-device's busy time (sum of kernel times; one stream) and idle share, the
-encoder's share, the decode attention kernel's share and launches, and the
-kernels that took the most device time (as JSON, also to ``--out`` when
-given).  Needs a card; fails without one.
+Runs MathRecognition with the released weights of ``--version``
+(``synthetic_tfm_big``, the TFM head, or ``synthetic``, the coverage-LSTM
+head) on seeded synthetic crops (the first ``--crops`` seeds whose crop
+needs no resize, as ``chip_smoke.py`` uses), once to warm up, once timed,
+and once under ``torch.profiler``.  Prints and writes: wall time, crops/s,
+the device's busy time (sum of kernel times; one stream) and idle share,
+the encoder's time on the batches the main path builds (mean of 20
+passes), the head's hand-written kernel's device time and launches, and
+the kernels that took the most device time (as JSON, also to ``--out``
+when given).  Needs a card; fails without one.
 """
 
 from __future__ import annotations
@@ -21,14 +23,16 @@ import os
 import subprocess
 import time
 
-import numpy as np
 import torch
 
-from ..data.buckets import pad_to_bucket
 from ..data.synthetic import seeded_crops
+from ..ops.attention_step import fused_attention_step
 from ..ops.decode_attention import decode_attention
 from ..recognition import MathRecognition, load_recog_config
 from ..transforms.augment import normalize
+
+
+ENCODE_REPS = 20  # the encoder's time is the mean of this many passes over the batches
 
 
 def _device_us(evt) -> float:
@@ -38,12 +42,12 @@ def _device_us(evt) -> float:
     raise AttributeError("profiler event has no device time")
 
 
-def profile(n_crops: int, beam: int, dtype: str) -> dict:
+def profile(version: str, n_crops: int, beam: int, dtype: str) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg, weights = load_recog_config(version="synthetic_tfm_big")
+    cfg, weights = load_recog_config(version=version)
     cfg["dtype"] = dtype
     cfg["quantize"] = None
     rec = MathRecognition(cfg, weights, beam_size=beam, device="cuda")
@@ -51,26 +55,32 @@ def profile(n_crops: int, beam: int, dtype: str) -> dict:
     rec(crops)
     torch.cuda.synchronize()
 
-    decode_attention.launches = 0
+    tfm = rec.model.head == "TFM"
+    kernel, kernel_name = ((decode_attention, "decode_attention") if tfm
+                           else (fused_attention_step, "attention_step"))
+    kernel.launches = 0
     t = time.perf_counter()
     rec(crops)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
-    launches = decode_attention.launches
+    launches = kernel.launches
+    steps = launches // (2 * rec.model.predicter.num_layers) if tfm else launches
 
-    # encoder alone, on the batch the main path builds (all crops coalesce
-    # into the largest bucket at the release ratio)
+    # the encoder alone, on the batches the main path builds
     prepped = [rec._preprocess(c) for c in crops]
-    bucket = max((rec.table.lookup(*p.shape) for p in prepped), key=lambda b: b[0] * b[1])
-    batch = np.stack([pad_to_bucket(p, bucket) for p in prepped])[..., None]
-    x = normalize(torch.from_numpy(batch).cuda())
+    groups = rec.group(prepped)
+    batches = [normalize(torch.from_numpy(rec.make_batch([prepped[i] for i in idxs], b)).cuda())
+               for b, idxs in groups.items()]
     with torch.inference_mode():
-        rec.model.encode(x)
+        for x in batches:
+            rec.model.encode(x)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        rec.model.encode(x)
+        for _ in range(ENCODE_REPS):
+            for x in batches:
+                rec.model.encode(x)
         torch.cuda.synchronize()
-    encode_s = time.perf_counter() - t
+    encode_s = (time.perf_counter() - t) / ENCODE_REPS
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -81,18 +91,19 @@ def profile(n_crops: int, beam: int, dtype: str) -> dict:
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(_device_us(e) for e in kernels)
     top = sorted(kernels, key=_device_us, reverse=True)[:12]
-    attn_us = sum(_device_us(e) for e in kernels if "decode_attention" in e.key)
+    kernel_us = sum(_device_us(e) for e in kernels if kernel_name in e.key)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     return {
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-        "dtype": dtype, "beam": beam, "crops": n_crops, "batch_bucket": list(bucket),
-        "wall_s": wall, "crops_per_s": n_crops / wall, "decode_attention_launches": launches,
-        "decode_steps": launches // (2 * rec.model.predicter.num_layers),
-        "encode_s": encode_s,
+        "version": version, "dtype": dtype, "beam": beam, "crops": n_crops,
+        "batches": [{"bucket": list(b), "crops": len(idxs), "rows": int(x.shape[0])}
+                    for (b, idxs), x in zip(groups.items(), batches)],
+        "wall_s": wall, "crops_per_s": n_crops / wall, "kernel": kernel_name,
+        "kernel_launches": launches, "decode_steps": steps, "encode_s": encode_s,
         "profiled_wall_s": prof_wall, "device_busy_s": busy_us / 1e6,
         "device_idle_share": 1.0 - busy_us / 1e6 / prof_wall,
-        "decode_attention_device_s": attn_us / 1e6,
+        "kernel_device_s": kernel_us / 1e6,
         "top_kernels": [{"name": e.key[:120], "device_s": _device_us(e) / 1e6,
                          "count": e.count} for e in top],
     }
@@ -100,12 +111,14 @@ def profile(n_crops: int, beam: int, dtype: str) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--version", default="synthetic_tfm_big",
+                    choices=["synthetic_tfm_big", "synthetic"])
     ap.add_argument("--crops", type=int, default=16)
     ap.add_argument("--beam", type=int, default=10)
     ap.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
-    result = profile(args.crops, args.beam, args.dtype)
+    result = profile(args.version, args.crops, args.beam, args.dtype)
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:

@@ -8,7 +8,10 @@ state-dict key ``a.b.leaf``:
 
 - conv kernels (4-D ``kernel``) turn from HWIO to OIHW;
 - Dense kernels stay ``(in, out)`` (the port applies them as ``x @ W``);
-- ``batch_stats`` ``mean``/``var`` are the BatchNorm running statistics.
+- ``batch_stats`` ``mean``/``var`` are the BatchNorm running statistics;
+- the heads' flat parameters (``predicter/<name>``) keep their names and
+  layouts, the LSTM head's 3-D ``loc_conv_w`` (k, 1, Kd) included: the
+  head applies it in that layout.
 
 Every leaf but ``step`` must be consumed and every state-dict entry
 filled; anything left over or missing raises.  Values are stored as

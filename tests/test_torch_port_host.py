@@ -1,6 +1,6 @@
 """The port's host-side copies against the JAX package's originals: the
 YAML reader, the msgpack reader, the bucket ladder, coalescing, the
-converter, postprocessing and the PIL-free resize."""
+converter, postprocessing and the PIL-free resize (equal bytes)."""
 
 from __future__ import annotations
 
@@ -104,15 +104,37 @@ def test_converter_and_postprocess_equal_jax():
         assert flow.postprocess_prediction(s) == jax_flow.postprocess_prediction(s)
 
 
-def test_resize_without_pil_stays_near_pil():
-    """The port resizes with F.interpolate, the JAX package with PIL.
-    Upscaling (bilinear) is equal; downscaling (antialiased bilinear vs
-    LANCZOS) is not bit-equal and stays within 8 gray levels on average."""
-    img, _ = synth_hard_sample(np.random.default_rng(3), max_h=448, max_w=960)
-    h, w = img.shape
-    up = (_resize_area(img, 2 * h, 2 * w), jax_resize(img, 2 * h, 2 * w))
-    np.testing.assert_array_equal(*up)
-    for size in ((h // 2, w // 2), (40, 300)):
-        ours, ref = _resize_area(img, *size), jax_resize(img, *size)
-        assert ours.shape == ref.shape == size and ours.dtype == np.uint8
-        assert np.abs(ours.astype(int) - ref.astype(int)).mean() < 8.0
+def _resize_cases():
+    """(image, seed, out_h, out_w) for 28 sizes.  24 seeded: 8 where both
+    sides shrink, 8 where both grow and 8 where one side grows and the
+    other shrinks, on a synthetic crop (even seeds) or noise (odd seeds).
+    Then the seed-3 synthetic crop up, down, to 40 x 300 and mixed.  A
+    float is a factor of the image's side, an int a size in pixels."""
+    rng = np.random.default_rng(11)
+    cases = []
+    for i in range(24):
+        kind = i % 3
+        fh, fw = rng.uniform(0.2, 0.95, 2) if kind == 0 else rng.uniform(1.05, 3.0, 2)
+        if kind == 2:
+            fh = rng.uniform(0.2, 0.95)
+        cases.append(("noise" if i % 2 else "synth", i, float(fh), float(fw)))
+    cases += [("synth", 3, 2.0, 2.0), ("synth", 3, 0.5, 0.5), ("synth", 3, 40, 300),
+              ("synth", 3, 2.0, 1 / 3)]
+    return cases
+
+
+@pytest.mark.parametrize("image,seed,fh,fw", _resize_cases())
+def test_resize_without_pil_equals_pil(image, seed, fh, fw):
+    """The port's resize (no PIL) against the JAX package's (PIL LANCZOS
+    when a side shrinks, BILINEAR when both grow): equal bytes."""
+    rng = np.random.default_rng(seed)
+    if image == "noise":
+        img = rng.integers(0, 256, (int(rng.integers(8, 300)), int(rng.integers(8, 900))),
+                           dtype=np.uint8)
+    else:
+        img, _ = synth_hard_sample(rng, max_h=448, max_w=960)
+    h, w = (f if isinstance(f, int) else max(1, round(side * f))
+            for f, side in ((fh, img.shape[0]), (fw, img.shape[1])))
+    ours, ref = _resize_area(img, h, w), jax_resize(img, h, w)
+    assert ours.shape == ref.shape == (h, w) and ours.dtype == np.uint8
+    np.testing.assert_array_equal(ours, ref)

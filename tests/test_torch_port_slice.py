@@ -4,9 +4,10 @@
 ``chip_smoke.py`` decodes on the GPU, each crop's seed, shape and sha256 and
 the strings the JAX package's ``MathRecognition`` gives on the CPU with the
 released ``synthetic_tfm_big`` weights in float32 (beam 10, and greedy).
-It is written once by ``write_golden``
-(``PYTHONPATH=. python tests/test_torch_port_slice.py --write-golden``); the
-tests below only read it.
+``tests/torch_port_golden_synthetic.json`` holds the same for the released
+coverage-LSTM ``synthetic``.  Each is written once by ``write_golden``
+(``PYTHONPATH=. python tests/test_torch_port_slice.py --write-golden
+[version]``); the tests only read them.
 """
 
 from __future__ import annotations
@@ -25,7 +26,10 @@ from doc2tex_tpu_torch.data.synthetic import seeded_crops, synth_hard_sample
 from doc2tex_tpu_torch.recognition import MathRecognition, load_recog_config
 from doc2tex_tpu_torch.weights import convert_variables, load_variables
 
-GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_port_golden.json")
+HERE = os.path.dirname(os.path.abspath(__file__))
+GOLDEN = os.path.join(HERE, "torch_port_golden.json")
+GOLDEN_FILES = {"synthetic_tfm_big": GOLDEN,
+                "synthetic": os.path.join(HERE, "torch_port_golden_synthetic.json")}
 VERSION = "synthetic_tfm_big"
 N_CROPS = 16
 CROP_MAX = (224, 704)
@@ -46,9 +50,10 @@ def sha256(img: np.ndarray) -> str:
     return hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
 
 
-def write_golden(path: str = GOLDEN) -> None:
-    """Run the JAX package's MathRecognition on the 16 crops (CPU, float32,
-    no quantization) and write the golden file.  Not part of the tests."""
+def write_golden(version: str = VERSION) -> None:
+    """Run the JAX package's MathRecognition with the released ``version``
+    on the 16 crops (CPU, float32, no quantization) and write its golden
+    file.  Not part of the tests."""
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -59,7 +64,7 @@ def write_golden(path: str = GOLDEN) -> None:
 
     seeds = golden_crop_seeds()
     crops = [make_crop(s) for s in seeds]
-    cfg, weights = jax_load(version=VERSION)
+    cfg, weights = jax_load(version=version)
     cfg["dtype"] = "float32"
     cfg.pop("quantize", None)
     outputs = {}
@@ -82,17 +87,17 @@ def write_golden(path: str = GOLDEN) -> None:
             "beam10": outputs["beam10"][i], "greedy": outputs["greedy"][i],
         })
     golden = {
-        "version": VERSION, "dtype": "float32", "quantize": None,
+        "version": version, "dtype": "float32", "quantize": None,
         "crop_max": list(CROP_MAX), "coalesce_ratio": cfg.get("coalesce_ratio"),
         "crops": entries,
     }
-    with open(path, "w") as f:
+    with open(GOLDEN_FILES[version], "w") as f:
         json.dump(golden, f, indent=1, ensure_ascii=False)
         f.write("\n")
 
 
-def load_golden() -> dict:
-    with open(GOLDEN) as f:
+def load_golden(version: str = VERSION) -> dict:
+    with open(GOLDEN_FILES[version]) as f:
         return json.load(f)
 
 
@@ -162,7 +167,37 @@ def test_weight_converter_consumes_every_release_leaf():
                        torch.from_numpy(variables["params"]["predicter"]["b_proj"].astype(np.float32)))
 
 
+def compare_bfloat16(version: str = VERSION) -> list[dict]:
+    """Decode the 16 golden crops in bfloat16 (beam 10, as one call, as
+    ``chip_smoke.py`` does on the card) with the JAX package and with the
+    port, both on the CPU, and return the crops where either string differs
+    from the float32 golden.  Not part of the tests: a check of where
+    bfloat16 differences come from."""
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    from doc2tex_tpu.recognition.flow import MathRecognition as JaxRecognition
+    from doc2tex_tpu.recognition.flow import load_recog_config as jax_load
+
+    golden = load_golden(version)
+    crops = [make_crop(c["seed"])[0] for c in golden["crops"]]
+    jcfg, weights = jax_load(version=version)
+    jcfg["dtype"] = "bfloat16"
+    jcfg.pop("quantize", None)
+    jax_out = JaxRecognition(jcfg, weights, beam_size=10)(crops)
+    cfg, weights = load_recog_config(version=version)
+    cfg["dtype"], cfg["quantize"] = "bfloat16", None
+    port_out = MathRecognition(cfg, weights, beam_size=10, device="cpu")(crops)
+    return [{"crop": i, "float32_golden": c["beam10"], "jax_bfloat16": j, "port_bfloat16": t}
+            for i, (c, j, t) in enumerate(zip(golden["crops"], jax_out, port_out))
+            if not j == t == c["beam10"]]
+
+
 if __name__ == "__main__":
-    if sys.argv[1:] != ["--write-golden"]:
-        sys.exit("usage: PYTHONPATH=. python tests/test_torch_port_slice.py --write-golden")
-    write_golden()
+    if sys.argv[1:2] == ["--compare-bfloat16"] and len(sys.argv) <= 3:
+        print(json.dumps(compare_bfloat16(*sys.argv[2:]), indent=1, ensure_ascii=False))
+        sys.exit(0)
+    if sys.argv[1:2] != ["--write-golden"] or len(sys.argv) > 3:
+        sys.exit("usage: PYTHONPATH=. python tests/test_torch_port_slice.py --write-golden "
+                 f"[{'|'.join(GOLDEN_FILES)}] | --compare-bfloat16 [version]")
+    write_golden(*sys.argv[2:])
