@@ -8,14 +8,24 @@ Needs one CUDA card; exits non-zero without one.  Phases, one line each:
 1. device  — the card's name, and its name and power limit from nvidia-smi;
 2. build   — nvcc builds both kernels at once, one process per source
    (seconds taken);
-3. kernel  — beam decode attention (B1) against its plain PyTorch version
-   on the card, at the decode shapes of the TFM release model
-   (self-attention with a random beam-ancestry mask, cross-attention over
-   623 memory tokens), in float32 and bfloat16; then times at the release
-   shape (batch 64, beam 10, step 151) beside the plain version,
-   F.scaled_dot_product_attention (a yardstick only; the port never calls
-   it) and the bound;
-4. kernel  — the coverage-attention step (B2) against its plain version at
+3. slice   — MathRecognition with the released ``synthetic_tfm_big``
+   weights, beam 10, on 16 seeded synthetic crops: float32 (the strings
+   must equal the JAX package's golden strings on >= 15 of 16) and
+   bfloat16, the release compute type (agreement printed, not gated).  B1's
+   launch count must rise in each run; the float32 run's decode steps give
+   the slice's B1 launch shapes (``tfm_launch_shapes``);
+4. kernel  — beam decode attention (B1) against its plain PyTorch version
+   on the card, in float32 and bfloat16: at the decode shapes of the TFM
+   release model (self-attention with a random beam-ancestry mask,
+   cross-attention over 623 memory tokens), at the slice's own launch
+   shapes, and where the kernel splits M over a cluster (batch 1 and 8, M
+   5010); bit for bit in bf16 and f16 on inputs that show where the
+   probabilities are rounded.  Then times (each a call's share of a CUDA
+   graph of 20 calls) at the release shape (batch 64, beam 10, step 151;
+   the JSON record), at the slice's shapes and at the split shapes, beside
+   the plain version, F.scaled_dot_product_attention (a yardstick only; the
+   port never calls it) and the bound;
+5. kernel  — the coverage-attention step (B2) against its plain version at
    rows {1, 10, 37, 640} x S {83, 623, 2525} x (D, H, Kl) {(128, 128, 64),
    (256, 256, 128)}, and at the (rows, S) of every batch the ``synthetic``
    slice phase decodes, x valid_len {None, S - 17}, float32 and bfloat16
@@ -23,11 +33,6 @@ Needs one CUDA card; exits non-zero without one.  Phases, one line each:
    release shape (640 rows = 64 crops x beam 10, S 623) beside the plain
    version and the bound.  The JSON record holds the slice's largest
    launch;
-5. slice   — MathRecognition with the released ``synthetic_tfm_big``
-   weights, beam 10, on 16 seeded synthetic crops: float32 (the strings
-   must equal the JAX package's golden strings on >= 15 of 16) and
-   bfloat16, the release compute type (agreement printed, not gated).  B1's
-   launch count must rise in each run;
 6. slice   — the same with the released coverage-LSTM ``synthetic``
    against its own golden file; B2's launch count must rise in each run.
 
@@ -94,11 +99,12 @@ def cuda_time_ms(fn, reps: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def attention_inputs(B, K, M, nh, hd, dtype, device, masked, seed, last_step=False):
+def attention_inputs(B, K, M, nh, hd, dtype, device, masked, seed, step=None):
     """Random q/k/v and, if ``masked``, a random beam-ancestry mask over
     M = T*K flat positions: each hypothesis's prefix picks one slot per
     position up to the current step, and its own slot at that step.  The
-    current step is random per sample, or T-1 with ``last_step``."""
+    current step is ``step`` for every sample (the positions after it are
+    the cache's dead tail), or random per sample when ``step`` is None."""
     import torch
 
     g = torch.Generator(device="cpu").manual_seed(seed)
@@ -109,7 +115,7 @@ def attention_inputs(B, K, M, nh, hd, dtype, device, masked, seed, last_step=Fal
     if masked:
         T = M // K
         slot = torch.randint(0, K, (B, K, T), generator=g)
-        t_cur = (torch.full((B,), T - 1) if last_step
+        t_cur = (torch.full((B,), step) if step is not None
                  else torch.randint(0, T, (B,), generator=g))
         slot[torch.arange(B)[:, None], torch.arange(K)[None, :], t_cur[:, None]] = torch.arange(K)
         live = torch.arange(T)[None, None, :, None] <= t_cur[:, None, None, None]
@@ -118,77 +124,160 @@ def attention_inputs(B, K, M, nh, hd, dtype, device, masked, seed, last_step=Fal
     return q, k, v, mask
 
 
-def kernel_phase(t0):
-    """Kernel vs plain version at the decode shapes; timings at the release
-    shape.  Returns the JSON record of the kernel (launches filled later);
-    its numbers are those of the self-attention shape."""
+ROUNDING_POINT_CASES = ((3, 1.25), (7, 1.25), (7, 5.0))  # (attended positions, v)
+
+
+def rounding_point_inputs(n, v0, dtype, device, B=1, K=1, nh=1, hd=32, spread=1, seed=0):
+    """Inputs on which rounding the normalised probabilities to v's type
+    before P.V (the reference's order) and keeping them in float32 give
+    different results: q = 0, so the ``n`` attended positions (every
+    ``spread``-th of M = n * spread) score alike and p = 1/n; V is ``v0`` at
+    position 0 and 0 elsewhere.  Every output element is then
+    round(round(1/n) * v0), one product summed with zeros."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    M = n * spread
+    q = torch.zeros(B, K, nh, hd)
+    k = torch.randn(B, M, nh, hd, generator=g)
+    v = torch.zeros(B, M, nh, hd)
+    v[:, 0] = v0
+    mask = None
+    if spread > 1:
+        mask = torch.zeros(B, K, M, dtype=torch.bool)
+        mask[:, :, ::spread] = True
+        mask = mask.to(device)
+    return q.to(device, dtype), k.to(device, dtype), v.to(device, dtype), mask
+
+
+def check_attention(B, K, M, nh, hd, dtype, masked, seed, step=None):
+    """B1 against its plain version at one shape; returns the max abs error."""
+    import torch
+
+    from doc2tex_tpu_torch.ops.decode_attention import (
+        decode_attention, decode_attention_reference)
+
+    name = str(dtype).split(".")[-1]
+    atol, rtol = TOL[name]
+    q, k, v, mask = attention_inputs(B, K, M, nh, hd, dtype, "cuda", masked, seed, step)
+    out = decode_attention(q, k, v, mask)
+    ref = decode_attention_reference(q, k, v, mask)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"non-finite kernel output at B{B} K{K} M{M} {name}")
+    err = (out.float() - ref.float()).abs()
+    if (err > atol + rtol * ref.float().abs()).any():
+        raise AssertionError(f"kernel disagrees with plain version at B{B} K{K} M{M} "
+                             f"mask={masked} step={step} {name}: max abs err "
+                             f"{err.max().item():.3e}")
+    return err.max().item()
+
+
+def attention_timing(B, K, M, masked, step, nh=8, hd=32):
+    """B1, its plain version and SDPA (a yardstick; the port never calls
+    it) timed at one bf16 shape, and the bound of the same work.  Each time
+    is one call's share of a CUDA graph of 20 calls, so host time between
+    launches is not counted."""
+    import torch
+
+    from doc2tex_tpu_torch.ops.decode_attention import (
+        decode_attention, decode_attention_reference, launch_plan)
+    from doc2tex_tpu_torch.tools.bench_decode_attention import graph_ms
+
+    q, k, v, mask = attention_inputs(B, K, M, nh, hd, torch.bfloat16, "cuda", masked,
+                                     seed=7, step=step)
+    sdpa_mask = None if mask is None else mask[:, None]
+    qt, kt, vt = (x.permute(0, 2, 1, 3) for x in (q, k, v))
+    before = decode_attention.launches
+    ms = graph_ms(lambda: decode_attention(q, k, v, mask))
+    plain_ms = graph_ms(lambda: decode_attention_reference(q, k, v, mask))
+    library_ms = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=sdpa_mask, scale=1.0))
+    err = (decode_attention(q, k, v, mask).float()
+           - decode_attention_reference(q, k, v, mask).float()).abs().max().item()
+    decode_attention.launches = before  # timing launches are not main-path launches
+    elem = 2  # bf16
+    # bytes this data needs: q read, out written, the mask, and the K/V
+    # rows that at least one beam of the sample attends
+    kv_rows = B * M if mask is None else int(mask.any(dim=1).sum().item())
+    nbytes = (2 * q.numel() + 2 * kv_rows * nh * hd) * elem
+    nbytes += 0 if mask is None else mask.numel()
+    attended = B * K * M if mask is None else int(mask.sum().item())
+    flops = 4 * attended * nh * hd  # q.k and p.v over the attended positions
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_FLOPS * 1e3
+    bound = max(bytes_ms, ops_ms)
+    plan = launch_plan(B, K, M, nh, hd, torch.bfloat16)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations", max_abs_err=err,
+                text=f"B{B} K{K} M{M} {'step ' + str(step) if masked else 'no mask'} nh{nh} "
+                     f"hd{hd} bf16 (cluster {plan.cluster}, chunk {plan.chunk}, "
+                     f"{plan.smem_bytes} B smem): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                     f"sdpa (yardstick) {library_ms:.4f} ms, bound {bound:.4f} ms "
+                     f"({nbytes / 1e6:.2f} MB), {bound / ms:.0%} of bound, achieved "
+                     f"{nbytes / (ms * 1e-3) / 1e9:.0f} GB/s")
+
+
+def kernel_phase(t0, slice_shapes):
+    """B1 against its plain version over the listed grid, the launch shapes
+    of the ``synthetic_tfm_big`` slice, shapes where M is split over a
+    cluster, and bit for bit on the rounding-point inputs; then times at
+    the release shape (the JSON record), the slice's shapes and the split
+    shapes.  Returns the kernel's JSON record (launches filled later)."""
     import torch
 
     from doc2tex_tpu_torch.ops.decode_attention import (
         decode_attention, decode_attention_reference)
 
     nh, hd, S = 8, 32, 623
+    grid = [(B, K, M, masked, None) for B in (1, 16, 64) for K in (1, 5, 10)
+            for M, masked in ((31 * K, True), (151 * K, True), (S, False))]
+    grid += [(B, K, M, t is not None, t) for B, K, M, t in slice_shapes]
+    grid += [(B, 10, M, masked, None) for B in (1, 8) for M, masked in ((1510, True), (623, False))]
+    grid += [(1, 10, 5010, True, 500), (64, 10, 5010, True, None)]
     worst = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
-        atol, rtol = TOL[name]
-        worst[name] = 0.0
-        for B in (1, 16, 64):
-            for K in (1, 5, 10):
-                for M, masked in ((31 * K, True), (151 * K, True), (S, False)):
-                    q, k, v, mask = attention_inputs(B, K, M, nh, hd, dtype, "cuda", masked,
-                                                     seed=B * 1000 + K * 10 + masked)
-                    out = decode_attention(q, k, v, mask)
-                    ref = decode_attention_reference(q, k, v, mask)
-                    torch.cuda.synchronize()
-                    if not torch.isfinite(out).all():
-                        raise AssertionError(f"non-finite kernel output at B{B} K{K} M{M} {name}")
-                    err = (out.float() - ref.float()).abs()
-                    bound = atol + rtol * ref.float().abs()
-                    if (err > bound).any():
-                        raise AssertionError(
-                            f"kernel disagrees with plain version at B{B} K{K} M{M} "
-                            f"mask={masked} {name}: max abs err {err.max().item():.3e}")
-                    worst[name] = max(worst[name], err.max().item())
-    log("kernel", t0, "matches plain version at B{1,16,64} x K{1,5,10} x "
-        "{self M=31K, 151K masked; cross M=623}: max abs err "
+        worst[name] = max(check_attention(B, K, M, nh, hd, dtype, masked,
+                                          seed=B * 1000 + K * 10 + masked, step=step)
+                          for B, K, M, masked, step in grid)
+    log("kernel", t0, f"matches plain version at {len(grid)} shapes per dtype (B{{1,16,64}} x "
+        "K{1,5,10} x {self M=31K, 151K masked; cross M=623}; the slice's shapes "
+        f"{slice_shapes}; B{{1,8}} x M{{1510 masked, 623}}; M 5010 at B{{1,64}}): max abs err "
         + ", ".join(f"{n} {e:.3e} (tol {TOL[n][0]:g} abs + {TOL[n][1]:g} rel)"
                     for n, e in worst.items()))
 
+    n = 0
+    for dtype in (torch.bfloat16, torch.float16):
+        for m, v0 in ROUNDING_POINT_CASES:
+            for spread, B, K, nh_ in ((1, 1, 1, 1), (500, 1, 10, 8)):
+                q, k, v, mask = rounding_point_inputs(m, v0, dtype, "cuda", B=B, K=K, nh=nh_,
+                                                      spread=spread)
+                out = decode_attention(q, k, v, mask)
+                ref = decode_attention_reference(q, k, v, mask)
+                torch.cuda.synchronize()
+                if not torch.equal(out, ref):
+                    raise AssertionError(
+                        f"rounding point: kernel {out.flatten()[0].item()!r} != plain "
+                        f"{ref.flatten()[0].item()!r} at n {m}, v {v0}, spread {spread}, {dtype}")
+                n += 1
+    log("kernel", t0, f"equals plain version bit for bit on {n} rounding-point inputs "
+        "(p = 1/n rounded to v's type before P.V; bf16 and f16; unsplit and over 8 blocks)")
+
     timings = {}
-    for label, (B, K, M, masked) in (("self", (64, 10, 1510, True)),
-                                      ("cross", (64, 10, S, False))):
-        q, k, v, mask = attention_inputs(B, K, M, nh, hd, torch.bfloat16, "cuda", masked,
-                                         seed=7, last_step=True)
-        sdpa_mask = None if mask is None else mask[:, None]
-        qt, kt, vt = (x.permute(0, 2, 1, 3) for x in (q, k, v))
-        before = decode_attention.launches
-        ms = cuda_time_ms(lambda: decode_attention(q, k, v, mask))
-        decode_attention.launches = before  # timing launches are not main-path launches
-        plain_ms = cuda_time_ms(lambda: decode_attention_reference(q, k, v, mask))
-        library_ms = cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=sdpa_mask, scale=1.0))
-        err = (decode_attention(q, k, v, mask).float()
-               - decode_attention_reference(q, k, v, mask).float()).abs().max().item()
-        decode_attention.launches = before
-        elem = 2  # bf16
-        # bytes this data needs: q read, out written, the mask, and the K/V
-        # rows that at least one beam of the sample attends
-        kv_rows = B * M if mask is None else int(mask.any(dim=1).sum().item())
-        nbytes = (2 * q.numel() + 2 * kv_rows * nh * hd) * elem
-        nbytes += 0 if mask is None else mask.numel()
-        attended = B * K * M if mask is None else int(mask.sum().item())
-        flops = 4 * attended * nh * hd  # q.k and p.v over the attended positions
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = flops / BF16_FLOPS * 1e3
-        timings[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                              bound_ms=max(bytes_ms, ops_ms),
-                              bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                              max_abs_err=err, bytes=nbytes, flops=flops)
-        log("kernel", t0, f"{label} B{B} K{K} M{M} nh{nh} hd{hd} bf16: kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, sdpa (yardstick) {library_ms:.4f} ms, "
-            f"bound {max(bytes_ms, ops_ms):.4f} ms ({nbytes / 1e6:.1f} MB), "
-            f"achieved {nbytes / (ms * 1e-3) / 1e9:.0f} GB/s")
+    for label, shape in (("self", (64, 10, 1510, True, 150)), ("cross", (64, 10, S, False, None))):
+        timings[label] = attention_timing(*shape)
+        log("kernel", t0, f"{label} (release shape) {timings[label]['text']}")
+    slice_ms = 0.0
+    for B, K, M, step in slice_shapes:
+        timing = attention_timing(B, K, M, step is not None, step)
+        log("kernel", t0, f"synthetic_tfm_big slice {timing['text']}")
+        slice_ms += timing["ms"]
+    log("kernel", t0, f"sum over the slice's {len(slice_shapes)} shapes: {slice_ms:.4f} ms")
+    for B, K, M, masked, step in ((1, 10, 1510, True, 150), (8, 10, 1510, True, 150),
+                                  (1, 10, S, False, None), (8, 10, S, False, None),
+                                  (1, 10, 5010, True, 500), (64, 10, 5010, True, 500)):
+        log("kernel", t0, f"split {attention_timing(B, K, M, masked, step)['text']}")
     rel = timings["self"]
     return {
         "name": "decode_attention", "route": "cuda", "source": KERNEL_SOURCE,
@@ -237,6 +326,38 @@ def lstm_launch_shapes(version: str = "synthetic", beam_size: int = 10):
         rows = rec.make_batch([prepped[i] for i in idxs], bucket).shape[0] * beam_size
         shapes.add((rows, gh * gw, vit["hidden_size"], head["hidden_size"], head["kernel_dim"]))
     return sorted(shapes)
+
+
+def tfm_launch_shapes(steps: int, config=None, beam_size: int = 10):
+    """(B, K, M, t) of the B1 launches that the ``synthetic_tfm_big`` slice
+    phase makes on the golden crops when each batch decodes ``steps``
+    steps: for self-attention one entry per KV-cache chunk the decode
+    reaches (M = the chunk's end step x K, the decode's chunk schedule) with
+    t the last step decoded in it, whose ancestry mask is the densest of
+    the chunk; for cross-attention (B, K, S, None), S the patch grid and
+    the cls token.  ``config`` defaults to the release's.  Host arithmetic
+    only: no weights are read and nothing is decoded."""
+    from doc2tex_tpu_torch.decode.runner import DECODE_CHUNKS, _chunk_ends
+    from doc2tex_tpu_torch.models.vit import grid_size_for
+    from doc2tex_tpu_torch.recognition import MathRecognition, load_recog_config
+
+    if config is None:
+        config, _ = load_recog_config(version="synthetic_tfm_big")
+        config["quantize"] = None
+    _, crops = golden_crops("synthetic_tfm_big")
+    rec = MathRecognition(config, None, beam_size=beam_size, device="cpu")
+    patch = tuple(config["SequenceModeling"]["params"]["patch_size"])
+    ends = _chunk_ends(config["batch_max_length"] + 1, DECODE_CHUNKS)
+    prepped = [rec._preprocess(c) for c in crops]
+    shapes = set()
+    for bucket, idxs in rec.group(prepped).items():
+        B = rec.make_batch([prepped[i] for i in idxs], bucket).shape[0]
+        gh, gw = grid_size_for(bucket, patch)
+        shapes.add((B, beam_size, gh * gw + 1, None))
+        for start, end in zip([0] + ends, ends):
+            if start < steps:
+                shapes.add((B, beam_size, end * beam_size, min(end, steps) - 1))
+    return sorted(shapes, key=lambda s: (s[3] is None, s))
 
 
 def attention_step_timing(rows, S, D, H, Kl):
@@ -383,7 +504,9 @@ def run_slice(config, weights_path, crops, beam_size: int, device: str):
     return out, launches, steps, seconds
 
 
-def slice_phase(t0, version, record):
+def slice_phase(t0, version, kernel):
+    """Decode the golden crops of ``version`` in float32 and bfloat16;
+    returns (launches of ``kernel``, decode steps) of the float32 run."""
     from doc2tex_tpu_torch.recognition import load_recog_config
 
     golden, crops = golden_crops(version)
@@ -394,19 +517,19 @@ def slice_phase(t0, version, record):
         cfg["quantize"] = None
         out, launches, steps, seconds = run_slice(cfg, weights, crops, 10, "cuda")
         if launches <= 0:
-            raise AssertionError(f"{version} {dtype} run launched its kernel "
-                                 f"{record['name']} 0 times")
+            raise AssertionError(f"{version} {dtype} run launched its kernel {kernel} 0 times")
         misses = [i for i, (a, b) in enumerate(zip(out, want)) if a != b]
         match = len(want) - len(misses)
         log("slice", t0, f"{version} beam 10 {dtype}: {match}/{len(want)} equal to "
             f"the JAX golden (misses at crops {misses}), {len(crops) / seconds:.2f} crops/s "
-            f"({seconds:.3f} s), {steps} decode steps, {launches} {record['name']} launches")
+            f"({seconds:.3f} s), {steps} decode steps, {launches} {kernel} launches")
         if dtype == "float32":
-            record["launches"] = launches
+            counted = launches, steps
             if match < MIN_GOLDEN_MATCH:
                 raise AssertionError(
                     f"float32 strings equal the golden on {match}/16 < {MIN_GOLDEN_MATCH}: "
                     + "; ".join(f"crop {i}: {out[i]!r} != {want[i]!r}" for i in misses))
+    return counted
 
 
 def build_kernels(t0):
@@ -442,9 +565,13 @@ def main() -> int:
         f"{torch.cuda.device_count()} device(s)")
     log("device", t0, f"nvidia-smi: {nvidia_smi()}")
     build_kernels(t0)
-    records = [kernel_phase(t0), attention_step_phase(t0)]
-    slice_phase(t0, "synthetic_tfm_big", records[0])
-    slice_phase(t0, "synthetic", records[1])
+    tfm_launches, tfm_steps = slice_phase(t0, "synthetic_tfm_big", "decode_attention")
+    slice_shapes = tfm_launch_shapes(tfm_steps)
+    log("kernel", t0, "decode_attention launch shapes of the synthetic_tfm_big slice "
+        f"(B, K, M, live step; None = cross-attention): {slice_shapes}")
+    records = [kernel_phase(t0, slice_shapes), attention_step_phase(t0)]
+    records[0]["launches"] = tfm_launches
+    records[1]["launches"], _ = slice_phase(t0, "synthetic", "attention_step")
     print(json.dumps({"kernels": records}), flush=True)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -9,6 +9,9 @@ so it also runs on a machine that has only PyTorch:
 
 from __future__ import annotations
 
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -17,7 +20,11 @@ from doc2tex_tpu_torch.config import make_config
 from doc2tex_tpu_torch.decode.runner import make_decode_fn
 from doc2tex_tpu_torch.models import build_model
 from doc2tex_tpu_torch.ops.attention_step import attention_step_reference, fused_attention_step
-from doc2tex_tpu_torch.ops.decode_attention import decode_attention, decode_attention_reference
+from doc2tex_tpu_torch.ops.decode_attention import (
+    decode_attention, decode_attention_reference, launch_plan)
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import chip_smoke  # noqa: E402  (the repository root: the shared input makers)
 
 
 def _need_card():
@@ -53,6 +60,64 @@ def test_kernel_matches_plain_version(dtype, atol):
         torch.cuda.synchronize()
         assert out.dtype == dtype and out.shape == q.shape
         assert (out.float() - ref.float()).abs().max().item() <= atol, (B, K, M, nh, hd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+def test_kernel_matches_plain_version_where_m_is_split(dtype, atol):
+    """Shapes where launch_plan splits M over a cluster (B 1 and 8, M 1510
+    and 5010), the golden slice's self-attention shapes at the last step of
+    each cache chunk (a dead tail of unattended rows), and a row masked
+    everywhere (NaN, as softmax)."""
+    _need_card()
+    cases = ((1, 10, 1510, True, None), (8, 10, 1510, True, None), (1, 10, 5010, True, 500),
+             (8, 10, 623, False, None), (64, 10, 310, True, 30), (64, 10, 930, True, 71),
+             (2, 16, 4000, True, None))
+    for n, (B, K, M, masked, step) in enumerate(cases):
+        q, k, v, mask = chip_smoke.attention_inputs(B, K, M, 8, 32, dtype, "cuda", masked,
+                                                    seed=n, step=step)
+        out = decode_attention(q, k, v, mask)
+        ref = decode_attention_reference(q, k, v, mask)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs()
+        assert (err <= atol + (1e-5 if dtype == torch.float32 else 0.0) * ref.float().abs()).all(), (
+            B, K, M, launch_plan(B, K, M, 8, 32, dtype), err.max().item())
+    q, k, v, mask = chip_smoke.attention_inputs(1, 10, 1510, 8, 32, dtype, "cuda", True, seed=9)
+    mask[0, 3] = False
+    out = decode_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert out[0, 3].isnan().all() and not out[0, torch.arange(10) != 3].isnan().any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_kernel_rounds_probabilities_where_the_reference_does(dtype):
+    """On inputs where rounding p = 1/n to v's type before P.V and keeping
+    it in float32 give different results, the kernel equals the plain
+    version bit for bit: unsplit (spread 1) and over a cluster of 8 blocks
+    (spread 500, M 1500 or 3500 with every 500th position attended)."""
+    _need_card()
+    for n, v0 in chip_smoke.ROUNDING_POINT_CASES:
+        for spread, B, K, nh in ((1, 1, 1, 1), (500, 1, 10, 8)):
+            q, k, v, mask = chip_smoke.rounding_point_inputs(n, v0, dtype, "cuda", B=B, K=K,
+                                                             nh=nh, spread=spread)
+            out = decode_attention(q, k, v, mask)
+            ref = decode_attention_reference(q, k, v, mask)
+            torch.cuda.synchronize()
+            assert torch.equal(out, ref), (n, v0, spread, out.flatten()[0].item(),
+                                           ref.flatten()[0].item())
+
+
+@pytest.mark.cuda
+def test_kernel_raises_past_its_plan():
+    """An M that 8 blocks cannot hold raises before any launch."""
+    _need_card()
+    q = torch.zeros(1, 16, 8, 32, device="cuda")
+    k = torch.zeros(1, 100_000, 8, 32, device="cuda")
+    before = decode_attention.launches
+    with pytest.raises(ValueError, match="does not fit"):
+        decode_attention(q, k, k)
+    assert decode_attention.launches == before
 
 
 @pytest.mark.cuda

@@ -149,3 +149,46 @@ def test_chip_smoke_lstm_launch_shapes_are_the_slice_shapes(monkeypatch):
     cfg["quantize"], cfg["batch_max_length"] = None, 1
     MathRecognition(cfg, weights, beam_size=10, device="cpu")(crops)
     assert sorted(seen) == chip_smoke.lstm_launch_shapes()
+
+
+def test_chip_smoke_tfm_launch_shapes_are_the_slice_shapes(monkeypatch):
+    """chip_smoke.tfm_launch_shapes (the shapes its B1 kernel phase checks
+    and times) equals the (B, K, M, last live step) of the decode_attention
+    launches that the ``synthetic_tfm_big`` slice makes on the golden crops,
+    recorded on the CPU.  The release config is cut to one narrow layer
+    with random weights: the launch shapes follow from the crops, buckets,
+    batch snap, beam, chunk schedule and patch grid, which the cut keeps.
+    The random head ends no hypothesis, so the decode runs every step and
+    reaches every cache chunk."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    from doc2tex_tpu_torch.models import decoder_tfm
+    from doc2tex_tpu_torch.recognition import MathRecognition, load_recog_config
+
+    seen = {}
+    attend = decoder_tfm.decode_attention
+
+    def recording(q, k, v, mask=None):
+        B, K, M = q.shape[0], q.shape[1], k.shape[1]
+        t = None  # the last step a hypothesis attends: its slot position // K
+        if mask is not None:
+            t = int(mask.any(dim=(0, 1)).nonzero().max()) // K
+            t = max(t, seen.get((B, K, M), -1))
+        seen[(B, K, M)] = t
+        return attend(q, k, v, mask)
+
+    monkeypatch.setattr(decoder_tfm, "decode_attention", recording)
+    cfg, _ = load_recog_config(version="synthetic_tfm_big")
+    cfg["quantize"] = None
+    vit, head = cfg["SequenceModeling"]["params"], cfg["Prediction"]["params"]
+    vit["backbone"]["output_channel"] = 16
+    vit.update(depth=1, num_heads=1, hidden_size=16)
+    head.update(d_model=16, nhead=1, num_decoder_layers=1, dim_feedforward=16)
+    _, crops = chip_smoke.golden_crops("synthetic_tfm_big")
+    MathRecognition(cfg, None, beam_size=10, device="cpu")(crops)
+    steps = max(t for t in seen.values() if t is not None) + 1
+    assert steps == cfg["batch_max_length"] + 1
+    recorded = sorted(((B, K, M, t) for (B, K, M), t in seen.items()),
+                      key=lambda s: (s[3] is None, s))
+    assert recorded == chip_smoke.tfm_launch_shapes(steps, config=cfg)
+    assert recorded[0][:3] == (64, 10, 310) and recorded[-1] == (64, 10, 624, None)
