@@ -25,16 +25,21 @@ Needs one CUDA card; exits non-zero without one.  Phases, one line each:
    the JSON record), at the slice's shapes and at the split shapes, beside
    the plain version, F.scaled_dot_product_attention (a yardstick only; the
    port never calls it) and the bound;
-5. kernel  — the coverage-attention step (B2) against its plain version at
-   rows {1, 10, 37, 640} x S {83, 623, 2525} x (D, H, Kl) {(128, 128, 64),
-   (256, 256, 128)}, and at the (rows, S) of every batch the ``synthetic``
-   slice phase decodes, x valid_len {None, S - 17}, float32 and bfloat16
-   memory; then times (bf16) at each of the slice's shapes and at the
-   release shape (640 rows = 64 crops x beam 10, S 623) beside the plain
-   version and the bound.  The JSON record holds the slice's largest
-   launch;
+5. kernel  — the coverage-attention step (B2) against its plain versions.
+   The feature form (the TPU kernel's contract) at rows {1, 10, 37, 640} x
+   S {83, 623, 2525} x (D, H, Kl) {(128, 128, 64), (256, 256, 128)} and at
+   the rows and S of every batch the ``synthetic`` slice phase decodes; the
+   coverage form (the main path's: location conv folded in, memory at
+   sample rows) at samples {1, 8, 64} x K {1, 5, 10} x S {83, 445, 623,
+   2525} x the same widths and the slice's shapes, on coverage of decode
+   steps 1 and 150; each x valid_len {None, S - 17}, float32 and bfloat16
+   memory.  Then both forms timed (bf16, CUDA graphs) at each of the
+   slice's shapes and at the release shape (64 crops x beam 10, S 623)
+   beside the plain version and the bound.  The JSON record holds the
+   coverage form at the slice's largest launch;
 6. slice   — the same with the released coverage-LSTM ``synthetic``
-   against its own golden file; B2's launch count must rise in each run.
+   against its own golden file; B2's coverage-form launch count must rise
+   in each run.
 
 Then a JSON line with both kernels' numbers, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the traceback
@@ -82,21 +87,6 @@ def nvidia_smi() -> str:
     except (OSError, subprocess.TimeoutExpired) as e:
         return f"unavailable ({e})"
     return out.stdout.strip() or f"unavailable (rc {out.returncode}: {out.stderr.strip()})"
-
-
-def cuda_time_ms(fn, reps: int = 50, warmup: int = 5) -> float:
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def attention_inputs(B, K, M, nh, hd, dtype, device, masked, seed, step=None):
@@ -288,9 +278,9 @@ def kernel_phase(t0, slice_shapes):
 
 
 def attention_step_inputs(rows, S, D, H, Kl, dtype, seed):
-    """Random inputs of the coverage-attention step on the card, at the
-    scales of a decode: unit-variance memory and keys, location features of
-    a coverage conv, weights scaled by fan-in."""
+    """Random inputs of the feature form of the attention step on the card,
+    at the scales of a decode: unit-variance memory and keys, location
+    features of a coverage conv, weights scaled by fan-in."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -306,11 +296,39 @@ def attention_step_inputs(rows, S, D, H, Kl, dtype, seed):
     )
 
 
+COVERAGE_STEPS = (1, 150)  # decode steps whose coverage the B2 checks hold
+
+
+def coverage_step_inputs(Bs, K, S, D, H, Kl, dtype, t, seed, taps=5):
+    """Random inputs of the coverage form on the card, as a decode at step
+    ``t`` gives them: the memory at Bs sample rows, q at Bs*K rows, and the
+    coverage the sum of t softmax rows over S (non-negative; about 1 in
+    all at t = 1, about t at t = 150).  Weights at the released
+    ``synthetic`` head's scales (std 0.5 conv, 0.35 w_loc, 0.4 w_score)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    mem = torch.zeros(Bs * K, S, device="cuda")
+    for _ in range(t):
+        mem += torch.softmax(randn(Bs * K, S, scale=3.0), dim=-1)
+    return dict(
+        enc=randn(Bs, S, D).to(dtype), enc_proj=randn(Bs, S, H, scale=1.5).to(dtype),
+        q=randn(Bs * K, H, scale=1.5), mem=mem,
+        loc_conv_w=randn(taps, 1, Kl, scale=0.5), loc_conv_b=randn(Kl, scale=0.1),
+        w_loc=randn(Kl, H, scale=0.35), b_loc=randn(H, scale=0.17),
+        w_score=randn(H, 1, scale=0.4),
+    )
+
+
 def lstm_launch_shapes(version: str = "synthetic", beam_size: int = 10):
-    """(rows, S, D, H, Kl) of the B2 launches the ``version`` slice phase
-    makes: one shape per batch that MathRecognition builds from the golden
-    crops (rows = the padded batch x beam; S = the bucket's patch grid, the
-    v2 cls token split off).  Host arithmetic only."""
+    """(samples, K, S, D, H, Kl) of the B2 launches the ``version`` slice
+    phase makes: one shape per batch that MathRecognition builds from the
+    golden crops (samples = the padded batch, K = the beam; S = the bucket's
+    patch grid, the v2 cls token split off).  Host arithmetic only."""
     from doc2tex_tpu_torch.models.vit import grid_size_for
     from doc2tex_tpu_torch.recognition import MathRecognition, load_recog_config
 
@@ -323,8 +341,9 @@ def lstm_launch_shapes(version: str = "synthetic", beam_size: int = 10):
     shapes = set()
     for bucket, idxs in rec.group(prepped).items():
         gh, gw = grid_size_for(bucket, tuple(vit["patch_size"]))
-        rows = rec.make_batch([prepped[i] for i in idxs], bucket).shape[0] * beam_size
-        shapes.add((rows, gh * gw, vit["hidden_size"], head["hidden_size"], head["kernel_dim"]))
+        samples = rec.make_batch([prepped[i] for i in idxs], bucket).shape[0]
+        shapes.add((samples, beam_size, gh * gw, vit["hidden_size"], head["hidden_size"],
+                    head["kernel_dim"]))
     return sorted(shapes)
 
 
@@ -360,89 +379,178 @@ def tfm_launch_shapes(steps: int, config=None, beam_size: int = 10):
     return sorted(shapes, key=lambda s: (s[3] is None, s))
 
 
+def _b2_result(ms, plain_ms, got, ref, nbytes, flops, text):
+    """B2's timing record: the bound of the work, and the text line."""
+    err = max((got[0] - ref[0]).abs().max().item(), (got[1] - ref[1]).abs().max().item())
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOPS * 1e3
+    bound = max(bytes_ms, ops_ms)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations", max_abs_err=err,
+                text=f"{text}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+                     f"(bytes {bytes_ms:.4f} ms for {nbytes / 1e6:.2f} MB, operations "
+                     f"{ops_ms:.4f} ms for {flops / 1e9:.4f} GFLOP f32), {bound / ms:.0%} of "
+                     f"bound, achieved {nbytes / (ms * 1e-3) / 1e9:.0f} GB/s, "
+                     f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s")
+
+
 def attention_step_timing(rows, S, D, H, Kl):
-    """Kernel and plain version timed at one shape with bf16 memory (the
-    release compute type), and the bound of the same work."""
+    """The feature form (the TPU kernel's contract, memory at the rows of
+    q) and its plain version timed at one shape with bf16 memory, each a
+    call's share of a CUDA graph of 20 calls, and the bound of the same
+    work."""
     import torch
 
     from doc2tex_tpu_torch.ops.attention_step import (
         attention_step_reference, fused_attention_step)
+    from doc2tex_tpu_torch.tools.bench_decode_attention import graph_ms
 
     kw = attention_step_inputs(rows, S, D, H, Kl, torch.bfloat16, seed=7)
     before = fused_attention_step.launches
-    ms = cuda_time_ms(lambda: fused_attention_step(**kw))
-    plain_ms = cuda_time_ms(lambda: attention_step_reference(**kw))
+    ms = graph_ms(lambda: fused_attention_step(**kw))
+    plain_ms = graph_ms(lambda: attention_step_reference(**kw))
     got, ref = fused_attention_step(**kw), attention_step_reference(**kw)
     fused_attention_step.launches = before  # timing launches are not main-path launches
-    err = max((got[0] - ref[0]).abs().max().item(), (got[1] - ref[1]).abs().max().item())
     nbytes = sum(t.numel() * t.element_size() for t in kw.values())
     nbytes += (got[0].numel() + got[1].numel()) * 4
     # float32 work per position: loc.w_loc, the adds, tanh and w_score over
     # H, the softmax, and alpha.enc over D
     flops = rows * S * (2 * Kl * H + 5 * H + 3 + 2 * D)
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / F32_FLOPS * 1e3
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations", max_abs_err=err,
-                text=f"rows {rows} S {S} D{D} H{H} Kl{Kl} bf16: kernel {ms:.4f} ms, plain "
-                     f"{plain_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms (bytes "
-                     f"{bytes_ms:.4f} ms for {nbytes / 1e6:.1f} MB, operations {ops_ms:.4f} ms "
-                     f"for {flops / 1e9:.3f} GFLOP f32), achieved "
-                     f"{nbytes / (ms * 1e-3) / 1e9:.0f} GB/s, "
-                     f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s")
+    return _b2_result(ms, plain_ms, got, ref, nbytes, flops,
+                      f"feature form, rows {rows} S {S} D{D} H{H} Kl{Kl} bf16")
 
 
-def attention_step_phase(t0):
-    """B2 vs its plain version over the listed shapes and the shapes of the
-    ``synthetic`` slice; timings at each of the slice's shapes and at the
-    release shape.  Returns the kernel's JSON record (launches filled
-    later); its numbers are those of the slice's largest launch."""
+def coverage_step_timing(Bs, K, S, D, H, Kl):
+    """The coverage form (the main path's) and its plain version timed at
+    one shape with bf16 memory, as ``attention_step_timing``, and the bound
+    of the fused function: the memory read once per sample, the coverage,
+    q and the weights read and the outputs written once; per position 5
+    window taps times H, the adds, tanh and w_score, the softmax, and
+    alpha.enc over D."""
     import torch
 
     from doc2tex_tpu_torch.ops.attention_step import (
-        attention_step_reference, fused_attention_step)
+        COVERAGE, coverage_attention_step, coverage_attention_step_reference, launch_plan)
+    from doc2tex_tpu_torch.tools.bench_decode_attention import graph_ms
+
+    kw = coverage_step_inputs(Bs, K, S, D, H, Kl, torch.bfloat16, COVERAGE_STEPS[-1], seed=7)
+    before = coverage_attention_step.launches
+    ms = graph_ms(lambda: coverage_attention_step(**kw))
+    plain_ms = graph_ms(lambda: coverage_attention_step_reference(**kw))
+    got, ref = coverage_attention_step(**kw), coverage_attention_step_reference(**kw)
+    coverage_attention_step.launches = before  # timing launches are not main-path launches
+    taps = kw["loc_conv_w"].shape[0]
+    nbytes = sum(t.numel() * t.element_size() for t in kw.values())
+    nbytes += (got[0].numel() + got[1].numel()) * 4
+    flops = Bs * K * S * (2 * taps * H + 5 * H + 3 + 2 * D)
+    plan = launch_plan(Bs, K, S, D, H, Kl, torch.bfloat16, COVERAGE, taps)
+    return _b2_result(ms, plain_ms, got, ref, nbytes, flops,
+                      f"coverage form, {Bs} samples x K {K} S {S} D{D} H{H} Kl{Kl} bf16 "
+                      f"(cluster {plan.cluster}, chunk {plan.chunk}, zsplit {plan.zsplit}, "
+                      f"{plan.smem_bytes} B smem)")
+
+
+def _check_b2(name, got, ref, where):
+    """Both outputs of a B2 call finite and within B2_TOL of the plain
+    version's; returns (the largest error, the largest error over its
+    tolerance)."""
+    import torch
+
+    atol, rtol = B2_TOL
+    worst = (0.0, 0.0)
+    for what, a, b in (("context", got[0], ref[0]), ("alpha", got[1], ref[1])):
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"non-finite {what} at {where}")
+        err = (a - b).abs()
+        if (err > atol + rtol * b.abs()).any():
+            raise AssertionError(f"{name} disagrees with plain version ({what}) at {where}: "
+                                 f"max abs err {err.max().item():.3e}")
+        ratio = (err / (atol + rtol * b.abs())).max().item()
+        worst = (max(worst[0], err.max().item()), max(worst[1], ratio))
+    return worst
+
+
+def attention_step_phase(t0):
+    """B2 against its plain versions: the feature form over the listed
+    grid and the shapes of the ``synthetic`` slice (memory at the rows of
+    q), the coverage form over the listed grid and the slice's shapes
+    (memory at sample rows, coverage of steps 1 and 150); then both forms
+    timed at each of the slice's shapes and at the release shape.  Returns
+    the kernel's JSON record (launches filled later): the coverage form at
+    the slice's largest launch."""
+    import torch
+
+    from doc2tex_tpu_torch.ops.attention_step import (
+        attention_step_reference, coverage_attention_step, coverage_attention_step_reference,
+        fused_attention_step)
 
     main_path = lstm_launch_shapes()
-    log("kernel", t0, "attention_step launch shapes of the synthetic slice (rows, S, D, H, Kl): "
-        + ", ".join(map(str, main_path)))
-    grid = [(rows, S, D, H, Kl) for D, H, Kl in ((128, 128, 64), (256, 256, 128))
+    log("kernel", t0, "attention_step launch shapes of the synthetic slice (samples, K, S, D, H, "
+        "Kl): " + ", ".join(map(str, main_path)))
+    widths = ((128, 128, 64), (256, 256, 128))
+    grid = [(rows, S, D, H, Kl) for D, H, Kl in widths
             for S in (83, 623, 2525) for rows in (1, 10, 37, 640)]
-    atol, rtol = B2_TOL
-    worst = {"float32": 0.0, "bfloat16": 0.0}
+    grid += [(Bs * K, S, D, H, Kl) for Bs, K, S, D, H, Kl in main_path]
+    worst = {"float32": (0.0, 0.0), "bfloat16": (0.0, 0.0)}
     n = 0
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
-        for rows, S, D, H, Kl in grid + main_path:
+        for rows, S, D, H, Kl in grid:
             for valid in (None, S - 17):
                 kw = attention_step_inputs(rows, S, D, H, Kl, dtype, seed=n)
                 n += 1
                 got = fused_attention_step(**kw, valid_len=valid)
                 ref = attention_step_reference(**kw, valid_len=valid)
                 torch.cuda.synchronize()
-                for what, a, b in (("context", got[0], ref[0]), ("alpha", got[1], ref[1])):
-                    if not torch.isfinite(a).all():
-                        raise AssertionError(f"non-finite {what} at rows {rows} S {S} "
-                                             f"D {D} {name}")
-                    err = (a - b).abs()
-                    if (err > atol + rtol * b.abs()).any():
-                        raise AssertionError(
-                            f"attention step disagrees with plain version ({what}) at rows "
-                            f"{rows} S {S} D{D} H{H} Kl{Kl} valid {valid} {name}: max "
-                            f"abs err {err.max().item():.3e}")
-                    worst[name] = max(worst[name], err.max().item())
+                worst[name] = tuple(map(max, worst[name], _check_b2(
+                    "attention step (feature form)", got, ref,
+                    f"rows {rows} S {S} D{D} H{H} Kl{Kl} valid {valid} {name}")))
                 del kw, got, ref
-    log("kernel", t0, f"attention_step matches plain version at {n} shapes (rows {{1,10,37,640}} "
-        "x S {83,623,2525} x (D,H,Kl) {(128,128,64),(256,256,128)}, and the synthetic slice's "
-        "shapes; x valid {None, S-17}): max abs err "
-        + ", ".join(f"{k} {e:.3e}" for k, e in worst.items())
-        + f" (tol {atol:g} abs + {rtol:g} rel)")
+    log("kernel", t0, f"attention_step feature form matches plain version at {n} shapes (rows "
+        "{1,10,37,640} x S {83,623,2525} x (D,H,Kl) {(128,128,64),(256,256,128)}, and the "
+        "synthetic slice's shapes; x valid {None, S-17}): max abs err "
+        + ", ".join(f"{k} {e:.3e} (at most {r:.2f} of its tolerance)"
+                    for k, (e, r) in worst.items())
+        + f"; tol {B2_TOL[0]:g} abs + {B2_TOL[1]:g} rel")
 
-    timings = {shape: attention_step_timing(*shape) for shape in main_path}
-    for timing in timings.values():
-        log("kernel", t0, f"attention_step (synthetic slice) {timing['text']}")
+    cgrid = [(Bs, K, S, D, H, Kl) for D, H, Kl in widths for S in (83, 445, 623, 2525)
+             for Bs in (1, 8, 64) for K in (1, 5, 10)]
+    cgrid += [shape for shape in main_path if shape not in cgrid]
+    worst = {"float32": (0.0, 0.0), "bfloat16": (0.0, 0.0)}
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for Bs, K, S, D, H, Kl in cgrid:
+            for t in COVERAGE_STEPS:
+                kw = coverage_step_inputs(Bs, K, S, D, H, Kl, dtype, t, seed=n)
+                for valid in (None, S - 17):
+                    n += 1
+                    got = coverage_attention_step(**kw, valid_len=valid)
+                    ref = coverage_attention_step_reference(**kw, valid_len=valid)
+                    torch.cuda.synchronize()
+                    worst[name] = tuple(map(max, worst[name], _check_b2(
+                        "attention step (coverage form)", got, ref,
+                        f"{Bs} samples K {K} S {S} D{D} H{H} Kl{Kl} step {t} valid {valid} "
+                        f"{name}")))
+                    del got, ref
+                del kw
+    log("kernel", t0, f"attention_step coverage form matches plain version at {n} shapes "
+        "(samples {1,8,64} x K {1,5,10} x S {83,445,623,2525} x (D,H,Kl) {(128,128,64),"
+        "(256,256,128)}, and the synthetic slice's shapes; x coverage of step {1,150} x valid "
+        "{None, S-17}): max abs err " + ", ".join(
+            f"{k} {e:.3e} (at most {r:.2f} of its tolerance)" for k, (e, r) in worst.items())
+        + f"; tol {B2_TOL[0]:g} abs + {B2_TOL[1]:g} rel")
+
+    timings = {shape: coverage_step_timing(*shape) for shape in main_path}
+    for Bs, K, S, D, H, Kl in main_path:
+        log("kernel", t0, f"attention_step (synthetic slice) {timings[Bs, K, S, D, H, Kl]['text']}")
+        log("kernel", t0, "attention_step (synthetic slice) "
+            + attention_step_timing(Bs * K, S, D, H, Kl)["text"])
+    log("kernel", t0, "attention_step (release shape, 64 crops x beam 10) "
+        + coverage_step_timing(64, 10, 623, 128, 128, 64)["text"])
     log("kernel", t0, "attention_step (release shape, 64 crops x beam 10) "
         + attention_step_timing(640, 623, 128, 128, 64)["text"])
-    # the record: the slice's largest launch (most rows, then longest S)
+    # the record: the slice's largest launch (most samples, then longest S)
     rel = timings[max(main_path)]
     return {
         "name": "attention_step", "route": "cuda", "source": B2_SOURCE,
@@ -482,7 +590,8 @@ def run_slice(config, weights_path, crops, beam_size: int, device: str):
     the second, with every kernel's count set to 0 just before it."""
     import torch
 
-    from doc2tex_tpu_torch.ops.attention_step import fused_attention_step
+    from doc2tex_tpu_torch.ops.attention_step import (
+        coverage_attention_step, fused_attention_step)
     from doc2tex_tpu_torch.ops.decode_attention import decode_attention
     from doc2tex_tpu_torch.recognition import MathRecognition
 
@@ -491,6 +600,7 @@ def run_slice(config, weights_path, crops, beam_size: int, device: str):
     if device != "cpu":
         torch.cuda.synchronize()
     decode_attention.launches = fused_attention_step.launches = 0
+    coverage_attention_step.launches = 0
     t = time.perf_counter()
     out = rec(crops)
     if device != "cpu":
@@ -499,8 +609,8 @@ def run_slice(config, weights_path, crops, beam_size: int, device: str):
     if rec.model.head == "TFM":
         launches = decode_attention.launches
         steps = launches // (2 * rec.model.predicter.num_layers)
-    else:  # the LSTM head: one attention step per decode step
-        launches = steps = fused_attention_step.launches
+    else:  # the LSTM head: one attention step (coverage form) per decode step
+        launches = steps = coverage_attention_step.launches
     return out, launches, steps, seconds
 
 

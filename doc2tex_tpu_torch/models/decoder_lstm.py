@@ -6,17 +6,22 @@ The Attn / Attnv2 heads.  Parameters are flat and keep the flax names and
 layouts (Dense kernels ``(in, out)``, applied as ``x @ W``; ``loc_conv_w``
 ``(k, 1, Kd)`` width-in-out), so the release msgpack loads leaf for leaf.
 
-Decode, as in the JAX package:
+Decode, as in the JAX package, with the rows of the attention memory cut:
 
-- ``init_state`` repeats every leaf to B*K rows (``repeat_interleave``,
-  the row order of ``jnp.repeat``: row b*K + j is beam j of sample b),
-  the attention memory included; ``enc_proj = enc @ w_key + b_key`` is
-  computed once and kept, like ``enc``, in the compute type;
-- ``step``: the location conv over the coverage (``alpha_cum``) or the
-  last alignment (``alpha_prev``) -> the coverage-attention step
-  (``ops.attention_step.fused_attention_step``: the CUDA kernel on the
-  card, where the JAX step inlines the same math) -> LSTM cell (gate order
-  i, f, g, o) -> generator.  The carry, scores and logits are float32.
+- ``init_state`` keeps ``enc`` and ``enc_proj = enc @ w_key + b_key`` (in
+  the compute type) at sample rows, computed once per sample; the carry and
+  the coverage are repeated to B*K rows (``repeat_interleave``, the row
+  order of ``jnp.repeat``: row b*K + j is beam j of sample b).  The JAX
+  package repeats the memory too; its K rows of a sample are equal, and
+  ``lstm_gather`` leaves the memory alone, so the step reads the same
+  values;
+- ``step``: the coverage-attention step with the location conv over the
+  coverage (``alpha_cum``) or the last alignment (``alpha_prev``) folded in
+  (``ops.attention_step.coverage_attention_step``: the CUDA kernel on the
+  card; on the CPU its plain version, the conv, the memory repeated per
+  beam and the step as the JAX package inlines them) -> LSTM cell (gate
+  order i, f, g, o) -> generator.  The carry, scores and logits are
+  float32.
 
 Not ported (they raise): the ``bahdanau`` and ``luong`` attention types, the
 int8 attention memory, and the teacher-forced ``__call__``.
@@ -28,20 +33,20 @@ from typing import NamedTuple
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
-from ..ops.attention_step import fused_attention_step
+from ..ops.attention_step import coverage_attention_step
 
 
 class DecoderState(NamedTuple):
-    """Per-row decode state (leading dim B, or B*K under beam search)."""
+    """Decode state: B*K rows under beam search (B rows greedy), the
+    attention memory at the B sample rows."""
 
     h: torch.Tensor           # (B, H) f32
     c: torch.Tensor           # (B, H) f32
     alpha_cum: torch.Tensor   # (B, S) f32: coverage, the sum of past alignments
     alpha_prev: torch.Tensor  # (B, S) f32: the last alignment
-    enc: torch.Tensor         # (B, S, D) compute type: attention values
-    enc_proj: torch.Tensor    # (B, S, H) compute type: precomputed keys
+    enc: torch.Tensor         # (B, S, D) compute type: attention values, per sample
+    enc_proj: torch.Tensor    # (B, S, H) compute type: precomputed keys, per sample
     enc_scale: torch.Tensor   # (0,) placeholder of the int8 memory's scale
     proj_scale: torch.Tensor  # (0,) placeholder
 
@@ -102,8 +107,6 @@ class LSTMAttentionDecoder(nn.Module):
         return self.embedding[tokens] * (tokens != 0)[..., None]
 
     def init_state(self, batch_h, beam_size: int = 1) -> DecoderState:
-        if beam_size > 1:
-            batch_h = batch_h.repeat_interleave(beam_size, dim=0)
         enc, init_emb = self._split_enc(batch_h.to(self.dtype))
         enc = enc.contiguous()
         init_emb = init_emb.float()
@@ -115,19 +118,12 @@ class LSTMAttentionDecoder(nn.Module):
             h = torch.zeros(B, self.hidden_size, device=enc.device)
             c = torch.zeros_like(h)
         enc_proj = (enc @ self.w_key.to(self.dtype) + self.b_key).to(self.dtype)
-        zeros = torch.zeros(B, S, device=enc.device)
+        K = max(beam_size, 1)
+        if K > 1:
+            h, c = h.repeat_interleave(K, dim=0), c.repeat_interleave(K, dim=0)
+        zeros = torch.zeros(B * K, S, device=enc.device)
         placeholder = torch.zeros(0, device=enc.device)
         return DecoderState(h, c, zeros, zeros, enc, enc_proj, placeholder, placeholder)
-
-    def _location(self, mem):
-        """Location features (B, S, Kd) f32: the cross-correlation of the
-        attention memory (B, S) with ``loc_conv_w`` (k, 1, Kd), zero-padded
-        by ``kernel_size`` on each side, plus ``loc_conv_b``: the JAX
-        package's ``conv_general_dilated`` (NWC, WIO).  Written as windows
-        times the (k, Kd) kernel, so the result is already (B, S, Kd)."""
-        k = 2 * self.kernel_size + 1
-        windows = F.pad(mem, (self.kernel_size, self.kernel_size)).unfold(-1, k, 1)
-        return windows @ self.loc_conv_w[:, 0, :] + self.loc_conv_b
 
     def step(self, state: DecoderState, tokens) -> tuple[DecoderState, torch.Tensor]:
         """One decode step: tokens (B,) -> (new state, logits (B, V) f32)."""
@@ -135,12 +131,12 @@ class LSTMAttentionDecoder(nn.Module):
             raise NotImplementedError("the int8 attention memory is not ported yet")
         emb = self._embed(tokens)
         mem = state.alpha_cum if self.attn_type == "coverage" else state.alpha_prev
-        loc_feat = self._location(mem)
         q = state.h @ self.w_query + self.b_query
         # the JAX step adds b_score to every score before the softmax, which
         # does not change alpha, so the kernel is not given it
-        context, alpha = fused_attention_step(
-            state.enc, state.enc_proj, q, loc_feat, self.w_loc, self.b_loc, self.w_score)
+        context, alpha = coverage_attention_step(
+            state.enc, state.enc_proj, q, mem, self.loc_conv_w, self.loc_conv_b,
+            self.w_loc, self.b_loc, self.w_score)
         x = torch.cat([context, emb], dim=-1)
         h_new, c_new = _lstm_cell(x, state.h, state.c, self.w_ih, self.b_ih,
                                   self.w_hh, self.b_hh)

@@ -26,7 +26,7 @@ import time
 import torch
 
 from ..data.synthetic import seeded_crops
-from ..ops.attention_step import fused_attention_step
+from ..ops.attention_step import coverage_attention_step
 from ..ops.decode_attention import decode_attention
 from ..recognition import MathRecognition, load_recog_config
 from ..transforms.augment import normalize
@@ -56,8 +56,9 @@ def profile(version: str, n_crops: int, beam: int, dtype: str) -> dict:
     torch.cuda.synchronize()
 
     tfm = rec.model.head == "TFM"
+    # the LSTM head's kernel: B2 in its coverage form (one launch a step)
     kernel, kernel_name = ((decode_attention, "decode_attention") if tfm
-                           else (fused_attention_step, "attention_step"))
+                           else (coverage_attention_step, "attention_step"))
     kernel.launches = 0
     t = time.perf_counter()
     rec(crops)

@@ -19,7 +19,9 @@ import torch
 from doc2tex_tpu_torch.config import make_config
 from doc2tex_tpu_torch.decode.runner import make_decode_fn
 from doc2tex_tpu_torch.models import build_model
-from doc2tex_tpu_torch.ops.attention_step import attention_step_reference, fused_attention_step
+from doc2tex_tpu_torch.ops.attention_step import (
+    COVERAGE, attention_step_reference, coverage_attention_step,
+    coverage_attention_step_reference, fused_attention_step, launch_plan as b2_launch_plan)
 from doc2tex_tpu_torch.ops.decode_attention import (
     decode_attention, decode_attention_reference, launch_plan)
 
@@ -182,8 +184,8 @@ def test_attention_step_kernel_matches_plain_version(dtype):
 @pytest.mark.cuda
 def test_attention_step_kernel_raises_on_what_it_does_not_take():
     """A width the kernel is not built for, and an S whose scores do not
-    fit in shared memory, raise on the card; they never run the plain
-    version."""
+    fit in the shared memory of a cluster of 8 blocks, raise on the card;
+    they never run the plain version."""
     _need_card()
 
     def inputs(S, D, Kl):
@@ -191,7 +193,7 @@ def test_attention_step_kernel_raises_on_what_it_does_not_take():
         return dict(enc=z(1, S, D), enc_proj=z(1, S, D), q=z(1, D), loc_feat=z(1, S, Kl),
                     w_loc=z(Kl, D), b_loc=z(D), w_score=z(D))
 
-    for S, D, Kl in ((10, 64, 16), (100_000, 128, 64)):
+    for S, D, Kl in ((10, 64, 16), (1_000_000, 128, 64)):
         before = fused_attention_step.launches
         with pytest.raises((ValueError, RuntimeError)):
             fused_attention_step(**inputs(S, D, Kl))
@@ -225,7 +227,63 @@ def test_lstm_beam_decode_on_card_matches_cpu():
     images = np.random.default_rng(0).integers(0, 256, (4, 32, 64, 1)).astype(np.uint8)
     cpu_tokens, _ = make_decode_fn(model, cfg, beam_size=5, device="cpu")(images)
     model.cuda()
-    before = fused_attention_step.launches
+    state = model.init_decode_state(model.encode(torch.zeros(4, 32, 64, 1, device="cuda")), 41, 5)
+    assert state.enc.shape[0] == state.enc_proj.shape[0] == 4     # sample rows
+    assert state.h.shape[0] == state.alpha_cum.shape[0] == 20     # beam rows
+    before = coverage_attention_step.launches
     gpu_tokens, _ = make_decode_fn(model, cfg, beam_size=5, device="cuda")(images)
-    assert fused_attention_step.launches > before
+    assert coverage_attention_step.launches > before
     np.testing.assert_array_equal(gpu_tokens.cpu().numpy(), cpu_tokens.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_coverage_step_kernel_matches_plain_version(dtype):
+    """The coverage form (location conv folded in, memory at sample rows)
+    against its plain version on the card, within chip_smoke's B2_TOL, at
+    plans that split S over a cluster and beams over groups and plans that
+    do not: the slice's shapes, the release shape, greedy, a masked tail
+    whose conv window reads coverage past valid_len, and a narrower conv."""
+    _need_card()
+    atol, rtol = chip_smoke.B2_TOL
+    cases = ((8, 10, 445, 128, 64, None, 150), (1, 10, 623, 128, 64, 606, 1),
+             (64, 10, 623, 128, 64, None, 150), (8, 1, 135, 128, 64, None, 1),
+             (2, 5, 2525, 256, 128, 2508, 150), (3, 3, 50, 256, 16, 20, 7))
+    for n, (Bs, K, S, D, Kl, valid, t) in enumerate(cases):
+        taps = 3 if n == len(cases) - 1 else 5
+        kw = chip_smoke.coverage_step_inputs(Bs, K, S, D, D, Kl, dtype, t, seed=n, taps=taps)
+        plan = b2_launch_plan(Bs, K, S, D, D, Kl, dtype, COVERAGE, taps)
+        before = coverage_attention_step.launches
+        ctx, alpha = coverage_attention_step(**kw, valid_len=valid)
+        assert coverage_attention_step.launches == before + 1
+        ref_ctx, ref_alpha = coverage_attention_step_reference(**kw, valid_len=valid)
+        torch.cuda.synchronize()
+        assert ctx.shape == (Bs * K, D) and alpha.shape == (Bs * K, S)
+        for got, ref in ((ctx, ref_ctx), (alpha, ref_alpha)):
+            err = (got - ref).abs()
+            assert (err <= atol + rtol * ref.abs()).all(), (Bs, K, S, D, Kl, valid, t, plan,
+                                                            err.max().item())
+
+
+@pytest.mark.cuda
+def test_coverage_step_kernel_raises_on_what_it_does_not_take():
+    """On the card the coverage form raises, before any launch, on a width
+    the kernel is not built for, a conv wider than 5 taps, D != H and an S
+    no plan holds; a CUDA error is not left behind."""
+    _need_card()
+
+    def inputs(Bs, K, S, D, H, Kl, taps):
+        z = lambda *shape: torch.zeros(*shape, device="cuda")  # noqa: E731
+        return dict(enc=z(Bs, S, D), enc_proj=z(Bs, S, H), q=z(Bs * K, H), mem=z(Bs * K, S),
+                    loc_conv_w=z(taps, 1, Kl), loc_conv_b=z(Kl), w_loc=z(Kl, H), b_loc=z(H),
+                    w_score=z(H))
+
+    for args in ((1, 5, 10, 64, 64, 16, 5), (1, 5, 10, 128, 128, 16, 7),
+                 (1, 5, 10, 128, 256, 16, 5), (1, 16, 2_000_000, 128, 128, 64, 5)):
+        before = coverage_attention_step.launches
+        with pytest.raises(ValueError):
+            coverage_attention_step(**inputs(*args))
+        assert coverage_attention_step.launches == before
+    ctx, _ = coverage_attention_step(**inputs(2, 5, 83, 128, 128, 64, 5))
+    torch.cuda.synchronize()
+    assert ctx.shape == (10, 128)

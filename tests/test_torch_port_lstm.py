@@ -9,7 +9,9 @@
 - A tiny Attnv2 coverage model (ViT depth 1, width 64; LSTM hidden 64, 16
   location features), every variable drawn with numpy and carried into the
   port by ``weights.load_variables``: encoder memory, ``init_state`` leaves
-  and per-step logits within 1e-4 (float32), through beam reorders;
+  (the port keeps the attention memory at sample rows: its row b against
+  JAX's row b*K, whose K rows of a sample are equal) and per-step logits
+  within 1e-4 (float32), through beam reorders;
   greedy and beam-5 tokens equal, on a batch where some rows never finish.
 - The released ``synthetic`` weights: every leaf consumed, and two crops
   of ``tests/torch_port_golden_synthetic.json`` (one greedy, one beam 10)
@@ -174,10 +176,20 @@ def test_encode_init_state_and_step_logits_match_jax(pair):
         penc = port.encode(torch.from_numpy(x))
         pstate = port.init_decode_state(penc, 41, K)
     np.testing.assert_allclose(penc.numpy(), np.asarray(jenc), atol=1e-4, rtol=0)
-    for name in ("h", "c", "alpha_cum", "alpha_prev", "enc", "enc_proj"):
+    for name in ("h", "c", "alpha_cum", "alpha_prev"):
         got, want = getattr(pstate, name), np.asarray(getattr(jstate, name))
         assert tuple(got.shape) == want.shape, name
         np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0, err_msg=name)
+    # the port keeps the attention memory at sample rows; JAX repeats it to
+    # B*K rows, whose K rows of a sample are equal: the port's row b is
+    # JAX's row b*K
+    for name in ("enc", "enc_proj"):
+        got, want = getattr(pstate, name), np.asarray(getattr(jstate, name))
+        assert tuple(got.shape) == (B,) + want.shape[1:], name
+        per_sample = want.reshape(B, K, *want.shape[1:])
+        np.testing.assert_array_equal(per_sample, np.repeat(per_sample[:, :1], K, axis=1),
+                                      err_msg=name)
+        np.testing.assert_allclose(got.numpy(), want[::K], atol=1e-4, rtol=0, err_msg=name)
     rng = np.random.default_rng(3)
     tokens = np.zeros(B * K, np.int32)        # the start token, [GO] = 0
     for _ in range(4):

@@ -137,13 +137,14 @@ def test_chip_smoke_lstm_launch_shapes_are_the_slice_shapes(monkeypatch):
     from doc2tex_tpu_torch.recognition import MathRecognition, load_recog_config
 
     seen = set()
-    step = decoder_lstm.fused_attention_step
+    step = decoder_lstm.coverage_attention_step
 
-    def recording(enc, enc_proj, q, loc_feat, *args, **kwargs):
-        seen.add((enc.shape[0], enc.shape[1], enc.shape[2], enc_proj.shape[2], loc_feat.shape[2]))
-        return step(enc, enc_proj, q, loc_feat, *args, **kwargs)
+    def recording(enc, enc_proj, q, mem, loc_conv_w, *args, **kwargs):
+        seen.add((enc.shape[0], q.shape[0] // enc.shape[0], enc.shape[1], enc.shape[2],
+                  enc_proj.shape[2], loc_conv_w.shape[2]))
+        return step(enc, enc_proj, q, mem, loc_conv_w, *args, **kwargs)
 
-    monkeypatch.setattr(decoder_lstm, "fused_attention_step", recording)
+    monkeypatch.setattr(decoder_lstm, "coverage_attention_step", recording)
     _, crops = chip_smoke.golden_crops("synthetic")
     cfg, weights = load_recog_config(version="synthetic")
     cfg["quantize"], cfg["batch_max_length"] = None, 1
