@@ -1,10 +1,14 @@
-"""The static bucket-shape ladder and top-left white padding.
+"""The static bucket-shape ladder, top-left white padding, and the eval
+side of bucket planning.
 
 Copied from ``doc2tex_tpu.data.buckets``: crops are padded with background
 pixels up to a bucket shape drawn from a small (H, W) ladder derived from
 the config's min/max dimensions, so a decode batch always has one of a
 bounded set of shapes.  The ladder must equal the one the weights were
 trained in (``bucket_growth`` of the model's version block).
+``plan_buckets`` and ``batch_plan`` give an eval loader's clusters and
+batches; the training side (over-padding promotion, shuffles) is not
+ported.
 """
 
 from __future__ import annotations
@@ -74,3 +78,78 @@ def pad_to_bucket(
         raise ValueError(f"image {img.shape} exceeds bucket {bucket}")
     pad = [(0, bh - h), (0, bw - w)] + [(0, 0)] * (img.ndim - 2)
     return np.pad(img, pad, mode="constant", constant_values=pad_value)
+
+
+def get_divisible_size(ori_h: float, ori_w: float, max_dimension: Sequence[int] | None = None,
+                       scale_factor: int = 32) -> tuple[int, int]:
+    """Snap (h, w) up to multiples of scale_factor; snap down if that would
+    exceed max_dimension."""
+
+    def snap(dim: float, limit: int | None) -> int:
+        up = math.ceil(dim / scale_factor) * scale_factor
+        if limit is not None and up > limit:
+            down = math.floor(dim / scale_factor) * scale_factor
+            return max(down, scale_factor)
+        return max(up, scale_factor)
+
+    new_h = snap(ori_h, max_dimension[0] if max_dimension else None)
+    new_w = snap(ori_w, max_dimension[1] if max_dimension else None)
+    return int(new_h), int(new_w)
+
+
+def get_size(ori_h: float, ori_w: float, config) -> tuple[int, int]:
+    """Target (h, w) for a raw image under the config's downsample and
+    clamp rules (the raw size when ``downsample`` is 1)."""
+    if config.get("downsample", 1) is None or config.get("downsample", 1) <= 1:
+        return int(ori_h), int(ori_w)
+    ds = config["downsample"]
+    h, w = ori_h / ds, ori_w / ds
+    min_dim, max_dim = config["min_dimension"], config["max_dimension"]
+    sf = config.get("scale_factor", 32)
+    new_h, new_w = get_divisible_size(h, w, scale_factor=sf)
+    ratios = [new_h / max_dim[0], new_w / max_dim[1]]
+    if any(r > 1 for r in ratios):
+        scale = max(ratios)
+        new_h, new_w = get_divisible_size(new_h / scale, new_w / scale, max_dim, sf)
+    ratios = [new_h / min_dim[0], new_w / min_dim[1]]
+    if any(r < 1 for r in ratios):
+        scale = max(ratios)
+        new_h, new_w = get_divisible_size(new_h / scale, new_w / scale, scale_factor=sf)
+    return int(new_h), int(new_w)
+
+
+def plan_buckets(sizes: Sequence[tuple[int, int]], config
+                 ) -> tuple[BucketTable, dict[tuple[int, int], list[int]], list[int]]:
+    """Assign each sample (by target size) to the smallest ladder bucket
+    that holds it.  Returns (table, {bucket: [sample index, ...]} in order
+    of each bucket's first sample, excluded indices: samples larger than
+    every bucket)."""
+    if config.get("bucket_mode", "ladder") != "ladder":
+        raise NotImplementedError(f"bucket_mode {config['bucket_mode']!r} is not ported yet")
+    table = make_ladder(config["min_dimension"], config["max_dimension"],
+                        config.get("scale_factor", 32),
+                        growth=config.get("bucket_growth", 1.5))
+    clusters: dict[tuple[int, int], list[int]] = {}
+    excluded: list[int] = []
+    for i, (h, w) in enumerate(sizes):
+        bucket = table.lookup(*get_size(h, w, config))
+        if bucket is None:
+            excluded.append(i)
+        else:
+            clusters.setdefault(bucket, []).append(i)
+    return table, clusters, excluded
+
+
+def batch_plan(clusters: dict[tuple[int, int], list[int]], batch_size: int,
+               keep_smaller_batches: bool = True) -> list[tuple[tuple[int, int], list[int]]]:
+    """(bucket, sample indices) batches in eval order: each cluster in turn,
+    chunked into ``batch_size``; a ragged tail is dropped unless
+    ``keep_smaller_batches``."""
+    batches = []
+    for bucket, idxs in clusters.items():
+        for s in range(0, len(idxs), batch_size):
+            chunk = list(idxs[s : s + batch_size])
+            if len(chunk) < batch_size and not keep_smaller_batches:
+                continue
+            batches.append((bucket, chunk))
+    return batches

@@ -1,4 +1,6 @@
-"""Synthetic "hard" formula crops: ``synth_hard_sample`` and what it needs.
+"""Synthetic formula crops: ``synth_hard_sample`` (the hard grammar the
+releases were trained on), ``synth_hard_dataset`` (the release eval's set)
+and the flat ``synth_sample`` (the serving selftest's load).
 
 Copied from ``doc2tex_tpu.data.synthetic`` (numpy only), with two changes
 that keep every crop and label the same: the JAX package builds the
@@ -24,10 +26,25 @@ HARD_VOCAB_PATH = os.path.join(
     "saved_models", "math_recog", "version2", "vocab.txt",
 )
 
-# glyph ids of the two delimiter tokens: their index in the JAX package's
-# flat synthetic vocabulary (``doc2tex_tpu.data.synthetic.SYNTH_VOCAB``),
-# which seeds each glyph's pattern
-_DELIM_GLYPH_ID = {"\\left(": 47, "\\right)": 48}
+# The flat synthetic vocabulary of ``synth_sample``; a token's index seeds
+# its glyph's pattern (the hard grammar's two delimiters use theirs too).
+SYNTH_VOCAB: list[str] = (
+    [chr(c) for c in range(ord("a"), ord("z") + 1)]
+    + [str(d) for d in range(10)]
+    + [
+        "\\frac", "\\sqrt", "\\sum", "\\int", "\\alpha", "\\beta", "\\gamma",
+        "\\cdot", "\\times", "\\partial", "\\infty", "\\left(", "\\right)",
+        "{", "}", "^", "_", "+", "-", "=", "(", ")", "[", "]", "|",
+    ]
+    + [
+        "\\begin{matrix}", "\\end{matrix}", "\\\\", "&",
+        "\\pi", "\\sigma", "\\mu", "\\lambda", "\\theta", "\\phi",
+        "\\psi", "\\omega", "\\delta", "\\epsilon", "\\rho", "\\tau",
+        "\\leq", "\\geq", "\\neq", "\\pm", "\\to", "\\prod", "\\lim",
+        "\\log", "\\sin", "\\cos", "\\exp", "\\nabla", "\\langle",
+        "\\rangle", ",", ".", "/", "!", "<", ">",
+    ]
+)
 
 _GLYPH_CACHE: dict[int, np.ndarray] = {}
 _GLYPH_H, _GLYPH_W = 12, 8
@@ -48,11 +65,47 @@ def _token_glyph(token_id: int) -> np.ndarray:
     return g
 
 
+def synth_sample(
+    rng: np.random.Generator,
+    min_len: int = 3,
+    max_len: int = 40,
+    min_h: int = 24,
+    max_h: int = 120,
+) -> tuple[np.ndarray, str]:
+    """One flat (image, label) pair: uint8 (H, W) white background with one
+    deterministic dark glyph per token laid out left to right (plus random
+    scale/offset jitter).  The serving selftest's load."""
+    n_tok = int(rng.integers(min_len, max_len + 1))
+    tok_ids = [int(rng.integers(len(SYNTH_VOCAB))) for _ in range(n_tok)]
+    toks = [SYNTH_VOCAB[i] for i in tok_ids]
+    h = int(rng.integers(min_h, max_h + 1))
+    # glyph scale fits the canvas height with jitter; floor of 2 when the
+    # canvas allows it
+    hi = max(h // _GLYPH_H, 2)
+    lo = 2 if hi > 2 else 1
+    scale = max(int(rng.integers(lo, hi + 1)), 1)
+    gh, gw = _GLYPH_H * scale, _GLYPH_W * scale
+    gap = int(rng.integers(1, 4)) * scale // 2 + 1
+    w = int(np.clip(n_tok * (gw + gap) + 2 * gap + int(rng.integers(0, 20)), 32, 900))
+    img = np.full((h, w), 255, dtype=np.uint8)
+    y0 = int(rng.integers(0, max(h - gh, 1)))
+    ink = int(rng.integers(0, 60))
+    x = gap
+    for tid in tok_ids:
+        if x + gw > w:
+            break
+        glyph = np.kron(_token_glyph(tid), np.ones((scale, scale), np.uint8))
+        region = img[y0 : y0 + gh, x : x + gw]
+        region[glyph[: region.shape[0], : region.shape[1]] > 0] = ink
+        x += gw + gap
+    return img, " ".join(toks)
+
+
 _WHITE = 255
 
 
 def _glyph_img(token: str, scale: int, ink: int) -> np.ndarray:
-    g = _token_glyph(_DELIM_GLYPH_ID[token])
+    g = _token_glyph(SYNTH_VOCAB.index(token))
     g = np.kron(g, np.ones((scale, scale), np.uint8))
     img = np.full(g.shape, _WHITE, np.uint8)
     img[g > 0] = ink
@@ -457,6 +510,24 @@ def synth_hard_sample(
     canvas = np.full((h, w), int(img.max()) if img.size else _WHITE, np.uint8)
     canvas[: img.shape[0], : img.shape[1]] = img
     return canvas, " ".join(toks)
+
+
+def synth_hard_dataset(n: int, seed: int = 0, **kwargs) -> tuple[list[np.ndarray], list[str]]:
+    """``n`` consecutive ``synth_hard_sample`` draws from one generator
+    seeded with ``seed``."""
+    rng = np.random.default_rng(seed)
+    images, labels = [], []
+    for _ in range(n):
+        img, label = synth_hard_sample(rng, **kwargs)
+        images.append(img)
+        labels.append(label)
+    return images, labels
+
+
+def hard_vocab() -> list[str]:
+    """The hard grammar's full vocabulary, the released ``version2`` one:
+    structural tokens, env delimiters, unary commands, then the terminals."""
+    return load_vocab(HARD_VOCAB_PATH)
 
 
 def seeded_crops(n: int, max_h: int = 224, max_w: int = 704, min_side: int = 32):

@@ -21,19 +21,33 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops import quant
+
 
 class Dense(nn.Module):
-    """flax ``nn.Dense``: ``x @ kernel + bias`` in the compute type."""
+    """flax ``nn.Dense``: ``x @ kernel + bias`` in the compute type.
+
+    With ``int8`` set (the ViT blocks' Denses under ``quantize: int8``) and
+    the shape gates of ``ops/quant.py`` passed, the product runs through
+    the int8 op instead."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
+        self.int8 = False
+        self._int8_kernel = None
         self.kernel = nn.Parameter(torch.empty(in_features, out_features))
         self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
         nn.init.trunc_normal_(self.kernel, std=0.02)
 
+    def takes_int8(self) -> bool:
+        return self.int8 and quant.gated(*self.kernel.shape)
+
     def forward(self, x):
+        if self.takes_int8():
+            w_q, w_scale = quant.layer_weight(self, quant.quantize_weight)
+            return quant.int8_linear(x, w_q, w_scale, self.bias, self.dtype)
         y = x.to(self.dtype) @ self.kernel.to(self.dtype)
         return y if self.bias is None else y + self.bias.to(self.dtype)
 

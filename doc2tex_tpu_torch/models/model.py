@@ -6,6 +6,9 @@ Ported stage combinations: FeatureExtraction 'None' + SequenceModeling 'ViT'
 'Attn'/'Attnv2' (the coverage-LSTM head).  Any other combination raises
 ``NotImplementedError``.
 
+``quantize: int8`` in the config (or ``set_quantize``) routes the
+encoder's gated products through the int8 op (``ops/quant.py``).
+
 Interface, as the JAX module's:
 - ``encode(image)``: normalized (B, H, W, C) floats -> memory (B, S, D)
 - ``init_decode_state(enc, max_steps, beam_size, live_steps)``
@@ -17,6 +20,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from ..ops.quant import parts_for_mode
 from .decoder_lstm import LSTMAttentionDecoder
 from .decoder_tfm import TransformerDecoder
 from .vit import ViTEncoder, grid_size_for
@@ -85,6 +89,18 @@ class Model(nn.Module):
                 padding_idx=0,
                 dtype=self.dtype,
             )
+
+        self.set_quantize(config.get("quantize"))
+
+    def set_quantize(self, mode) -> list[str]:
+        """Set the quantized parts from a ``quantize:`` mode (``int8`` or
+        None; see ``ops/quant.parts_for_mode``).  Only the encoder goes
+        int8: its convolutions and the ViT blocks' Denses, where the shape
+        gates pass.  Returns the names of the layers that take the int8
+        op."""
+        self.quant_parts = parts_for_mode(mode)
+        self.int8_layers = self.seqmodeler.set_int8(self.quant_parts is not None)
+        return self.int8_layers
 
     def encode(self, image):
         """image: (B, H, W, C) normalized floats -> encoder memory (B, S, D)."""

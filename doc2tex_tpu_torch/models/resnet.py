@@ -21,6 +21,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops import quant
+
 
 def feature_hw(h: int, w: int) -> tuple[int, int]:
     """Static output-shape math: (H//16 - 1, W//4 + 1) for H, W multiples
@@ -35,17 +37,31 @@ def feature_hw(h: int, w: int) -> tuple[int, int]:
 
 
 class Conv(nn.Module):
-    """flax ``nn.Conv`` on NCHW input; ``kernel`` is OIHW."""
+    """flax ``nn.Conv`` on NCHW input; ``kernel`` is OIHW.
+
+    With ``int8`` set (the encoder under ``quantize: int8``) and the shape
+    gates of ``ops/quant.py`` passed, the convolution runs through the int8
+    op instead."""
 
     def __init__(self, cin: int, cout: int, kernel=(3, 3), stride=(1, 1),
                  padding=(1, 1), bias: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.stride, self.padding, self.dtype = stride, padding, dtype
+        self.stride, self.padding, self.dtype = tuple(stride), tuple(padding), dtype
+        self.int8 = False
+        self._int8_kernel = None
         self.kernel = nn.Parameter(torch.empty(cout, cin, *kernel))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
         nn.init.kaiming_normal_(self.kernel, mode="fan_out")
 
+    def takes_int8(self) -> bool:
+        cout, cin, kh, kw = self.kernel.shape
+        return self.int8 and quant.gated(cin * kh * kw, cout)
+
     def forward(self, x):
+        if self.takes_int8():
+            w_q, w_scale = quant.layer_weight(self, quant.quantize_conv_weight)
+            return quant.int8_conv2d(x, w_q, w_scale, self.bias, tuple(self.kernel.shape[2:]),
+                                     self.stride, self.padding, self.dtype)
         kernel = self.kernel.to(self.dtype)
         if self.dtype == torch.float32 or self.bias is None:
             return F.conv2d(x.to(self.dtype), kernel, self.bias, self.stride, self.padding)

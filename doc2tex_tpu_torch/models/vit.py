@@ -16,8 +16,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import Block, LayerNorm, sincos_2d_posembed
+from .layers import Block, Dense, LayerNorm, sincos_2d_posembed
 from .resnet import Conv, ResNetFeatureExtractor, feature_hw
+
+
+_RESNET = "HybridEmbed_0.ResNetFeatureExtractor_0.FANResNet_0."
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -82,6 +85,24 @@ class ViTEncoder(nn.Module):
         for i in range(depth):
             self.add_module(f"Block_{i}", Block(embed_dim, num_heads, mlp_ratio, dtype))
         self.LayerNorm_0 = LayerNorm(embed_dim, 1e-6)
+
+    def int8_modules(self):
+        """(name, layer) of every layer the reference's int8 hook reaches:
+        the convolutions (the ResNet's, ``resnet.``, and the patch conv) and
+        the blocks' Denses (attention qkv and proj, MLP fc1 and fc2)."""
+        for name, layer in self.named_modules():
+            if isinstance(layer, (Conv, Dense)):
+                yield name.replace(_RESNET, "resnet."), layer
+
+    def set_int8(self, on: bool) -> list[str]:
+        """Route those layers through the int8 op, or back; returns the
+        names of the ones that pass the shape gates and so take it."""
+        names = []
+        for name, layer in self.int8_modules():
+            layer.int8 = on
+            if layer.takes_int8():
+                names.append(name)
+        return names
 
     def forward(self, x):
         """x: (B, H, W, C) -> (tokens (B, N+1, D) in the compute type, grid)."""

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import logging
 import os
+import sys
 from typing import Optional, Sequence
 
 import numpy as np
@@ -21,6 +22,7 @@ from ..data.buckets import make_ladder, pad_to_bucket
 from ..decode.runner import make_decode_fn
 from ..latex.postprocess import postprocess_prediction
 from ..models import build_model
+from ..ops.quant import parts_for_mode
 from ..tokenizer.converters import create_converter
 from ..transforms.preprocess import minmax_size, resize_for_inference
 from ..weights import load_weights
@@ -100,20 +102,24 @@ class MathRecognition:
         beam_size: Optional[int] = None,
         seed: int = 0,
         device="cuda",
+        coalesce_ratio: Optional[float] = None,
     ):
         """``seed`` seeds the random init used when ``weights_path`` is
-        None.  ``quantize`` other than None in the config, and ``clahe``
-        (on unless the config turns it off), are not ported yet and raise."""
+        None.  ``quantize`` in the config is ``int8`` (the encoder's gated
+        products in int8, as every release ships) or None; the modes that
+        quantize decoder memory raise, as does ``clahe`` (on unless the
+        config turns it off): neither is ported yet.  ``coalesce_ratio``
+        overrides the config's."""
         if config is None:
             raise ValueError("MathRecognition needs a config (see load_recog_config)")
         self.config = config
         self.device = device
         if self.config.get("clahe", True):
             raise NotImplementedError("CLAHE preprocessing is not ported yet")
-        if self.config.get("quantize") is not None:
-            raise NotImplementedError(
-                f"quantize={self.config['quantize']!r} is not ported yet; pass quantize=None")
-        self.coalesce_ratio = float(self.config.get("coalesce_ratio", 0.0) or 0.0)
+        parts_for_mode(self.config.get("quantize"))  # refuses what is not ported, early
+        self.coalesce_ratio = float(
+            coalesce_ratio if coalesce_ratio is not None
+            else self.config.get("coalesce_ratio", 0.0) or 0.0)
         self.converter = create_converter(self.config)
         self.config["num_class"] = self.converter.num_classes
         with torch.random.fork_rng(devices=[]):  # seeds the init without touching the caller's RNG
@@ -122,6 +128,10 @@ class MathRecognition:
         if weights_path:
             load_weights(self.model, weights_path)
         self.model.to(device).eval()
+        if self.model.quant_parts:
+            layers = self.model.int8_layers
+            print(f"MathRecognition: quantize {self.config['quantize']}: {len(layers)} int8 "
+                  f"layers: {', '.join(layers) or 'none'}", file=sys.stderr, flush=True)
         self.beam_size = (beam_size if beam_size is not None
                           else int(self.config.get("beam_size", 1)))
         self.table = make_ladder(
@@ -152,7 +162,9 @@ class MathRecognition:
     @staticmethod
     def make_batch(prepped: Sequence[np.ndarray], bucket) -> np.ndarray:
         """Preprocessed uint8 crops -> one (N, H, W, 1) batch padded to
-        ``bucket``, the batch axis snapped to the {1, 8, 64, ...} ladder."""
+        ``bucket``, the batch axis snapped to the {1, 8, 64, ...} ladder.
+        The padding rows repeat row 0, so they leave the int8 encoder's
+        per-tensor activation scale (the batch's abs-max) unchanged."""
         batch = np.stack([pad_to_bucket(img, bucket) for img in prepped])[..., None]
         n = batch.shape[0]
         padded_n = _snap_batch(n)

@@ -1,11 +1,12 @@
 """Where the time of the port's main path goes, on a CUDA card.
 
     python -m doc2tex_tpu_torch.tools.profile_slice [--version synthetic_tfm_big]
-        [--crops 16] [--beam 10] [--dtype bfloat16] [--out result.json]
+        [--crops 16] [--beam 10] [--dtype bfloat16] [--quantize int8] [--out result.json]
 
 Runs MathRecognition with the released weights of ``--version``
 (``synthetic_tfm_big``, the TFM head, or ``synthetic``, the coverage-LSTM
-head) on seeded synthetic crops (the first ``--crops`` seeds whose crop
+head; ``--quantize int8`` as the releases ship, unquantized by default) on
+seeded synthetic crops (the first ``--crops`` seeds whose crop
 needs no resize, as ``chip_smoke.py`` uses), once to warm up, once timed,
 and once under ``torch.profiler``.  Prints and writes: wall time, crops/s,
 the device's busy time (sum of kernel times; one stream) and idle share,
@@ -42,14 +43,14 @@ def _device_us(evt) -> float:
     raise AttributeError("profiler event has no device time")
 
 
-def profile(version: str, n_crops: int, beam: int, dtype: str) -> dict:
+def profile(version: str, n_crops: int, beam: int, dtype: str, quantize=None) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg, weights = load_recog_config(version=version)
     cfg["dtype"] = dtype
-    cfg["quantize"] = None
+    cfg["quantize"] = quantize
     rec = MathRecognition(cfg, weights, beam_size=beam, device="cuda")
     crops = [img for _, img, _ in seeded_crops(n_crops)]
     rec(crops)
@@ -97,7 +98,8 @@ def profile(version: str, n_crops: int, beam: int, dtype: str) -> dict:
                          capture_output=True, text=True, timeout=60).stdout.strip()
     return {
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-        "version": version, "dtype": dtype, "beam": beam, "crops": n_crops,
+        "version": version, "dtype": dtype, "quantize": quantize, "beam": beam,
+        "crops": n_crops,
         "batches": [{"bucket": list(b), "crops": len(idxs), "rows": int(x.shape[0])}
                     for (b, idxs), x in zip(groups.items(), batches)],
         "wall_s": wall, "crops_per_s": n_crops / wall, "kernel": kernel_name,
@@ -117,9 +119,10 @@ def main() -> None:
     ap.add_argument("--crops", type=int, default=16)
     ap.add_argument("--beam", type=int, default=10)
     ap.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
+    ap.add_argument("--quantize", default=None, choices=["int8"])
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
-    result = profile(args.version, args.crops, args.beam, args.dtype)
+    result = profile(args.version, args.crops, args.beam, args.dtype, args.quantize)
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:

@@ -287,3 +287,29 @@ def test_coverage_step_kernel_raises_on_what_it_does_not_take():
     ctx, _ = coverage_attention_step(**inputs(2, 5, 83, 128, 128, 64, 5))
     torch.cuda.synchronize()
     assert ctx.shape == (10, 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_ops_on_card_equal_cpu(dtype):
+    """The int8 Dense and convolutions on the card against the CPU, bit for
+    bit: at M <= 16 (the zero-row padding), at K and N that are not
+    multiples of 8 (the zero-column padding), and at encoder shapes."""
+    _need_card()
+    from doc2tex_tpu_torch.models.layers import Dense
+    from doc2tex_tpu_torch.models.resnet import Conv
+
+    g = torch.Generator().manual_seed(3)
+    cases = [(Dense(256, 128, dtype=dtype), (5, 256)), (Dense(260, 130, dtype=dtype), (3, 7, 260)),
+             (Dense(256, 768, dtype=dtype), (2, 311, 256)),
+             (Conv(64, 128, (3, 3), (1, 1), (1, 1), dtype=dtype), (2, 64, 14, 44)),
+             (Conv(128, 128, (2, 2), (2, 1), (0, 1), dtype=dtype), (2, 128, 6, 45)),
+             (Conv(256, 256, (2, 2), (2, 2), (0, 0), bias=True, dtype=dtype), (1, 256, 8, 8))]
+    for layer, shape in cases:
+        layer.int8 = True
+        assert layer.takes_int8()
+        x = torch.randn(*shape, generator=g) * 2
+        with torch.inference_mode():
+            want = layer(x)
+            got = layer.to("cuda")(x.cuda()).cpu()
+        assert torch.equal(got, want), (type(layer).__name__, shape)

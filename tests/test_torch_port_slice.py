@@ -5,9 +5,12 @@
 the strings the JAX package's ``MathRecognition`` gives on the CPU with the
 released ``synthetic_tfm_big`` weights in float32 (beam 10, and greedy).
 ``tests/torch_port_golden_synthetic.json`` holds the same for the released
-coverage-LSTM ``synthetic``.  Each is written once by ``write_golden``
+coverage-LSTM ``synthetic``.  ``tests/torch_port_golden_int8.json`` and
+``tests/torch_port_golden_synthetic_int8.json`` hold the strings of the
+same crops with the int8 encoder (``quantize: int8``, as the releases
+ship), still float32.  Each is written once by ``write_golden``
 (``PYTHONPATH=. python tests/test_torch_port_slice.py --write-golden
-[version]``); the tests only read them.
+[version] [--quantize int8]``); the tests only read them.
 """
 
 from __future__ import annotations
@@ -30,6 +33,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "torch_port_golden.json")
 GOLDEN_FILES = {"synthetic_tfm_big": GOLDEN,
                 "synthetic": os.path.join(HERE, "torch_port_golden_synthetic.json")}
+# the same crops decoded with the int8 encoder (``quantize: int8``, as the
+# releases ship), in float32
+GOLDEN_INT8_FILES = {"synthetic_tfm_big": os.path.join(HERE, "torch_port_golden_int8.json"),
+                     "synthetic": os.path.join(HERE, "torch_port_golden_synthetic_int8.json")}
 VERSION = "synthetic_tfm_big"
 N_CROPS = 16
 CROP_MAX = (224, 704)
@@ -50,10 +57,10 @@ def sha256(img: np.ndarray) -> str:
     return hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
 
 
-def write_golden(version: str = VERSION) -> None:
+def write_golden(version: str = VERSION, quantize: str | None = None) -> None:
     """Run the JAX package's MathRecognition with the released ``version``
-    on the 16 crops (CPU, float32, no quantization) and write its golden
-    file.  Not part of the tests."""
+    on the 16 crops (CPU, float32, ``quantize`` None or ``int8``) and write
+    its golden file.  Not part of the tests."""
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -66,7 +73,7 @@ def write_golden(version: str = VERSION) -> None:
     crops = [make_crop(s) for s in seeds]
     cfg, weights = jax_load(version=version)
     cfg["dtype"] = "float32"
-    cfg.pop("quantize", None)
+    cfg["quantize"] = quantize
     outputs = {}
     for name, beam in (("beam10", 10), ("greedy", 1)):
         rec = JaxRecognition(cfg.copy(), weights, beam_size=beam)
@@ -87,11 +94,11 @@ def write_golden(version: str = VERSION) -> None:
             "beam10": outputs["beam10"][i], "greedy": outputs["greedy"][i],
         })
     golden = {
-        "version": version, "dtype": "float32", "quantize": None,
+        "version": version, "dtype": "float32", "quantize": quantize,
         "crop_max": list(CROP_MAX), "coalesce_ratio": cfg.get("coalesce_ratio"),
         "crops": entries,
     }
-    with open(GOLDEN_FILES[version], "w") as f:
+    with open((GOLDEN_INT8_FILES if quantize else GOLDEN_FILES)[version], "w") as f:
         json.dump(golden, f, indent=1, ensure_ascii=False)
         f.write("\n")
 
@@ -110,6 +117,20 @@ def test_synthetic_crops_reproduce_golden_sha256():
         assert list(img.shape) == c["shape"]
         assert sha256(img) == c["sha256"]
         assert label == c["label"]
+
+
+@pytest.mark.parametrize("version", list(GOLDEN_INT8_FILES))
+def test_int8_goldens_hold_the_float32_crops(version):
+    """The int8 golden files were written on the same 16 crops, decoded in
+    the same buckets, as the float32 ones."""
+    with open(GOLDEN_INT8_FILES[version]) as f:
+        int8 = json.load(f)
+    plain = load_golden(version)
+    assert int8["version"] == version and int8["quantize"] == "int8"
+    assert int8["dtype"] == plain["dtype"] == "float32"
+    keys = ("seed", "shape", "sha256", "native_bucket", "decode_bucket", "label")
+    assert [[c[k] for k in keys] for c in int8["crops"]] == \
+        [[c[k] for k in keys] for c in plain["crops"]]
 
 
 def _recognizer(beam: int) -> MathRecognition:
@@ -197,7 +218,11 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--compare-bfloat16"] and len(sys.argv) <= 3:
         print(json.dumps(compare_bfloat16(*sys.argv[2:]), indent=1, ensure_ascii=False))
         sys.exit(0)
-    if sys.argv[1:2] != ["--write-golden"] or len(sys.argv) > 3:
+    args = sys.argv[2:]
+    quantize = None
+    if args[-2:-1] == ["--quantize"]:
+        quantize, args = args[-1], args[:-2]
+    if sys.argv[1:2] != ["--write-golden"] or len(args) > 1 or quantize not in (None, "int8"):
         sys.exit("usage: PYTHONPATH=. python tests/test_torch_port_slice.py --write-golden "
-                 f"[{'|'.join(GOLDEN_FILES)}] | --compare-bfloat16 [version]")
-    write_golden(*sys.argv[2:])
+                 f"[{'|'.join(GOLDEN_FILES)}] [--quantize int8] | --compare-bfloat16 [version]")
+    write_golden(*args, quantize=quantize)

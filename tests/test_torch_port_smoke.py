@@ -1,7 +1,8 @@
 """Guards for the port's run on the GPU machine, checked on the CPU.
 
 - the port and ``chip_smoke.py`` import with jax, flax, yaml, msgpack, PIL,
-  cv2, lmdb and the JAX package blocked (none is on the GPU machine);
+  cv2, lmdb and the JAX package blocked (none is on the GPU machine), the
+  int8, serving and release-eval modules among them;
 - ``chip_smoke.py`` exits non-zero, and never prints ``"ok": true``, on a
   machine without a card and from a directory without the repository;
 - chip_smoke's slice phase runs end to end on the CPU at a tiny size, for
@@ -21,6 +22,10 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = ("jax", "jaxlib", "flax", "yaml", "msgpack", "PIL", "cv2", "lmdb", "doc2tex_tpu")
+# the modules of the int8 encoder, the server and the release eval, which
+# the walk below must reach
+REQUIRED = ("ops.quant", "serving", "api.serve", "utils.png", "data.loader", "eval.metrics",
+            "engine.inferencing", "tools.release_eval", "tools.bench_int8")
 
 GUARD = textwrap.dedent(f"""
     import importlib, pkgutil, sys
@@ -41,6 +46,8 @@ GUARD = textwrap.dedent(f"""
                                                    "doc2tex_tpu_torch.")]
     for name in names:
         importlib.import_module(name)
+    missing = [r for r in {REQUIRED!r} if "doc2tex_tpu_torch." + r not in names]
+    assert not missing, missing
     import chip_smoke
     leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
     assert not leaked, leaked
@@ -58,7 +65,7 @@ def test_port_imports_nothing_the_gpu_machine_lacks():
     out = subprocess.run([sys.executable, "-c", GUARD], cwd=ROOT, env=_env(),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 22
+    assert int(out.stdout.split()[-1]) >= 48
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
