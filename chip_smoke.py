@@ -60,7 +60,28 @@ Needs one CUDA card; exits non-zero without one.  Phases, one line each:
    return a string, B2 launching in that request;
 10. eval   — the release-eval twin (``tools/release_eval.py``) on
    ``synthetic`` at 256 generated samples, bf16 and int8, printed (at
-   that size the interval is too wide to gate).
+   that size the interval is too wide to gate);
+11. detect — ``MathDetector`` (the released detector, float32; it turns
+   cuDNN's TF32 off for its forward) on the 3 golden pages of
+   ``tests/torch_port_golden_pages.json`` (1024x1280, 35 windows each),
+   with the process's TF32 as torch leaves it, as the app and the server
+   run: every box matched one to one with the JAX package's, within 0.5 px
+   and scores within 1e-3, at most one box over all pages unmatched and
+   only one scored within 0.01 of the threshold; the same bits with TF32
+   off process-wide.  Then SSD512's forward, the per-window NMS, the page NMS and the whole
+   ``detect_page`` timed on a page beside the SSD's float32 bound
+   (``tools/profile_page.detect_timings``);
+12. page   — ``App`` with the shared ``synthetic_tfm_big`` recognizer:
+   (a) float32, beam 10, on the golden pages: strings equal to the JAX
+   package's on every crop whose integer box equals JAX's, but at most
+   one, B1 launching; (b) the page-eval twin (``tools/page_eval.py``) on 40
+   pages of seed 35 as the reference's record ran (``quantize: int8`` as
+   shipped, beam 10, coalescing off): detection precision, recall and
+   end-to-end accuracy each inside the record's Wilson interval
+   (``tools/page_eval_r05.json``); (c) the HTTP front with ``--detect`` in
+   this process: ``POST /recognize_page`` with a PNG page returns regions,
+   B1 launching in that request.  (b) and (c) run with the process's TF32
+   as torch leaves it.
 
 Then a JSON line with both kernels' numbers, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the traceback
@@ -69,6 +90,7 @@ is printed and the exit code is 1.  A hang is cut by faulthandler.
 
 from __future__ import annotations
 
+import contextlib
 import faulthandler
 import json
 import os
@@ -83,6 +105,21 @@ GOLDEN = {"synthetic_tfm_big": os.path.join(ROOT, "tests", "torch_port_golden.js
           "synthetic": os.path.join(ROOT, "tests", "torch_port_golden_synthetic.json")}
 GOLDEN_INT8 = {"synthetic_tfm_big": os.path.join(ROOT, "tests", "torch_port_golden_int8.json"),
                "synthetic": os.path.join(ROOT, "tests", "torch_port_golden_synthetic_int8.json")}
+GOLDEN_PAGES = os.path.join(ROOT, "tests", "torch_port_golden_pages.json")
+# the reference's page-eval record this port is held to: 40 pages, seed 35,
+# synthetic_tfm_big int8 beam 10, float32 detector, page NMS, coalescing off
+PAGE_EVAL_REF = (os.path.join(ROOT, "tools", "page_eval_r05.json"),
+                 "synthetic_tfm_big_ftrecog_p40")
+PAGE_EVAL_PAGES = 40
+# cuDNN's TF32 setting as torch leaves it in a process that does not set it
+# (the app, the server); main reads it before it turns TF32 off
+USERS_CUDNN_TF32 = None
+# the detect phase's gates against the golden pages
+BOX_TOL_PX = 0.5
+SCORE_TOL = 1e-3
+NEAR_THRESHOLD = 0.01   # an unmatched box must score this close to conf_thresh
+MAX_UNMATCHED = 1
+MAX_PAGE_STRING_MISSES = 1
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor rate
 F32_FLOPS = 67e12                  # H100 SXM float32 rate outside the tensor cores
@@ -693,11 +730,10 @@ def int8_clone(layer, dtype, device):
     return clone.to(device)
 
 
-def int8_op_phase(t0, device="cuda"):
+def int8_op_phase(t0):
     """Every int8 layer of both releases on the card against the same layer
     on the CPU (equal bits), float32 and bfloat16, on the inputs a golden
-    crop gives it at the slice's largest bucket; and M <= 16 calls.
-    (``device`` "cpu" rehearses the phase without a card.)"""
+    crop gives it at the slice's largest bucket; and M <= 16 calls."""
     import torch
 
     from doc2tex_tpu_torch.models.layers import Dense
@@ -705,9 +741,9 @@ def int8_op_phase(t0, device="cuda"):
     from doc2tex_tpu_torch.tools.bench_int8 import call_batches, record_inputs
 
     def check(layer, x, dtype, where):
-        card, cpu = int8_clone(layer, dtype, device), int8_clone(layer, dtype, "cpu")
+        card, cpu = int8_clone(layer, dtype, "cuda"), int8_clone(layer, dtype, "cpu")
         with torch.inference_mode():
-            got, want = card(x.to(device, dtype)), cpu(x.to("cpu", dtype))
+            got, want = card(x.to("cuda", dtype)), cpu(x.to("cpu", dtype))
         if not (torch.isfinite(got).all() and torch.equal(got.cpu(), want)):
             err = (got.float().cpu() - want.float()).abs().max().item()
             raise AssertionError(f"int8 {where} {dtype}: card differs from CPU (max {err:.3e})")
@@ -715,7 +751,7 @@ def int8_op_phase(t0, device="cuda"):
 
     for version in ("synthetic_tfm_big", "synthetic"):
         cfg, weights = load_recog_config(version=version)   # quantize: int8, bf16, as shipped
-        rec = MathRecognition(cfg, weights, beam_size=1, device=device)
+        rec = MathRecognition(cfg, weights, beam_size=1)
         _, crops = golden_crops(version)
         batches = call_batches(rec, crops)
         largest = max(batches, key=lambda x: x.shape[1] * x.shape[2])[:1]
@@ -739,7 +775,7 @@ def int8_op_phase(t0, device="cuda"):
         del rec, batches, calls
 
 
-def serve_phase(t0, device="cuda"):
+def serve_phase(t0):
     """The serving entry point on the card: ``--selftest 32`` of the
     shipped ``synthetic`` (int8) in a child process, then the HTTP front in
     this process with one PNG request; returns B2's launches in that
@@ -753,21 +789,21 @@ def serve_phase(t0, device="cuda"):
     from doc2tex_tpu_torch.utils.png import encode_png
 
     cmd = [sys.executable, "-m", "doc2tex_tpu_torch.api.serve", "--selftest", "32",
-           "--model_version", "synthetic", "--device", device]
+           "--model_version", "synthetic"]
     proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
         raise AssertionError(f"serve --selftest failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
     stats = json.loads(proc.stdout.strip().splitlines()[-1])
     if stats["completed"] != 32 or stats["errors"] or stats["quantize"] != "int8" \
-            or stats["device"] != device:
+            or stats["device"] != "cuda":
         raise AssertionError(f"serve --selftest: {stats}")
-    log("serve", t0, f"selftest 32 synthetic int8 on {device}: {stats['batches']} batches (avg "
+    log("serve", t0, f"selftest 32 synthetic int8 on cuda: {stats['batches']} batches (avg "
         f"{stats['avg_batch']}), p50 {stats['latency_p50_ms']} ms, p99 "
         f"{stats['latency_p99_ms']} ms, {stats['crops_per_s']} crops/s over {stats['wall_s']} s "
         "(burst; includes the first calls of each bucket)")
     print(json.dumps({"serve_selftest": stats}), file=sys.stderr, flush=True)
 
-    args = serve.parse_args(["--model_version", "synthetic", "--device", device])
+    args = serve.parse_args(["--model_version", "synthetic"])
     recog, server = serve.build_server(args)
     httpd = ThreadingHTTPServer(("127.0.0.1", 0), serve.build_handler(
         server, config_info={"model_version": "synthetic", "beam_size": recog.beam_size}))
@@ -791,19 +827,18 @@ def serve_phase(t0, device="cuda"):
         server.close()
         thread.join(timeout=30)
     status, payload = replies[-1]
-    if status != 200 or not isinstance(payload.get("latex"), str) or (
-            device == "cuda" and launches <= 0):
+    if status != 200 or not isinstance(payload.get("latex"), str) or launches <= 0:
         raise AssertionError(f"POST /recognize: {status} {payload}, {launches} B2 launches")
     log("serve", t0, f"HTTP POST /recognize ({len(body)} B PNG) -> 200 in {payload['ms']} ms, "
         f"{launches} attention_step launches: {payload['latex'][:80]!r}")
     return launches
 
 
-def eval_phase(t0, device="cuda", n_gen=256):
+def eval_phase(t0, n_gen=256):
     """The release-eval twin on ``synthetic`` at ``n_gen`` generated samples."""
     from doc2tex_tpu_torch.tools.release_eval import evaluate
 
-    version, rows = evaluate("attn", False, n_gen=n_gen, modes=("bf16", "int8"), device=device)
+    version, rows = evaluate("attn", False, n_gen=n_gen, modes=("bf16", "int8"))
     for mode, row in rows.items():
         log("eval", t0, f"{version} {mode}: EM {row['em']} {row['em_ci95']} at n {row['n']}, "
             f"BLEU {row['bleu']}, char {row['char']}, {row['eval_s']} s (not gated)")
@@ -836,6 +871,247 @@ def check_int8_strings(version: str, out, chars: float) -> None:
             f"(need {INT8_MIN_CHANGED})")
 
 
+@contextlib.contextmanager
+def users_tf32():
+    """The block runs with cuDNN's TF32 as torch leaves it (USERS_CUDNN_TF32),
+    as the app and the server run; TF32 is off again after it."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = USERS_CUDNN_TF32
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+
+
+def golden_pages():
+    """The golden file of the page phases and its pages, regenerated with
+    the page-eval twin's generator; their sha256 must match."""
+    import hashlib
+
+    import numpy as np
+
+    from doc2tex_tpu_torch.tools.page_eval import synth_labelled_page
+
+    with open(GOLDEN_PAGES) as f:
+        golden = json.load(f)
+    rng = np.random.default_rng(golden["seed"])
+    pages = []
+    for g in golden["pages"]:
+        page, _, _ = synth_labelled_page(rng)
+        if hashlib.sha256(page.tobytes()).hexdigest() != g["sha256"]:
+            raise AssertionError(f"page {len(pages)} of seed {golden['seed']} differs from the "
+                                 "golden page")
+        pages.append(page)
+    return golden, pages
+
+
+def match_boxes(want_boxes, want_scores, got_boxes, got_scores):
+    """Pair each golden box with an unpaired box of ours whose corners are
+    all within BOX_TOL_PX (the closest); returns (pairs, unmatched), each
+    unmatched entry ("jax" or "port", score)."""
+    import numpy as np
+
+    want, got = np.asarray(want_boxes, np.float64), np.asarray(got_boxes, np.float64)
+    taken = np.zeros(len(got), bool)
+    pairs, unmatched = [], []
+    for i, box in enumerate(want):
+        dist = np.abs(got - box).max(axis=1) if len(got) else np.zeros(0)
+        dist[taken] = np.inf
+        j = int(np.argmin(dist)) if len(dist) else -1
+        if j >= 0 and dist[j] <= BOX_TOL_PX:
+            taken[j] = True
+            pairs.append((i, j, float(dist[j]), abs(float(got_scores[j]) - want_scores[i])))
+        else:
+            unmatched.append(("jax", float(want_scores[i])))
+    unmatched += [("port", float(got_scores[j])) for j in np.flatnonzero(~taken)]
+    return pairs, unmatched
+
+
+def check_detections(golden, results, conf_thresh):
+    """The detect phase's gates over all golden pages: paired boxes within
+    BOX_TOL_PX and SCORE_TOL, at most MAX_UNMATCHED unpaired boxes, each
+    scored within NEAR_THRESHOLD of ``conf_thresh``.  Returns (pairs,
+    worst corner distance, worst score difference, unmatched)."""
+    n_pairs, worst_px, worst_score, unmatched = 0, 0.0, 0.0, []
+    for g, (boxes, scores) in zip(golden["pages"], results):
+        pairs, miss = match_boxes(g["boxes"], g["scores"], boxes, scores)
+        n_pairs += len(pairs)
+        unmatched += miss
+        for _, _, px, ds in pairs:
+            worst_px, worst_score = max(worst_px, px), max(worst_score, ds)
+    if worst_score > SCORE_TOL:
+        raise AssertionError(f"a detection's score differs from the golden by {worst_score:.2e}"
+                             f" > {SCORE_TOL}")
+    far = [u for u in unmatched if abs(u[1] - conf_thresh) > NEAR_THRESHOLD]
+    if len(unmatched) > MAX_UNMATCHED or far:
+        raise AssertionError(f"unmatched boxes {unmatched} (at most {MAX_UNMATCHED}, each scored "
+                             f"within {NEAR_THRESHOLD} of {conf_thresh})")
+    return n_pairs, worst_px, worst_score, unmatched
+
+
+def check_page_strings(golden, regions_per_page):
+    """Page phase (a)'s gate: on every region whose integer box equals the
+    golden's, the same string, but at most MAX_PAGE_STRING_MISSES.
+    Returns (regions compared, misses)."""
+    compared, misses = 0, []
+    for p, (g, regions) in enumerate(zip(golden["pages"], regions_per_page)):
+        ours = {tuple(box): latex for box, latex in regions}
+        for r in g["regions"]:
+            if tuple(r["box"]) in ours:
+                compared += 1
+                if ours[tuple(r["box"])] != r["latex"]:
+                    misses.append((p, r["box"], ours[tuple(r["box"])], r["latex"]))
+    if len(misses) > MAX_PAGE_STRING_MISSES or compared == 0:
+        raise AssertionError(f"page strings: {len(misses)} of {compared} differ from the golden "
+                             f"(at most {MAX_PAGE_STRING_MISSES}): {misses}")
+    return compared, misses
+
+
+def detect_phase(t0):
+    """The released detector on the golden pages against JAX's boxes, run
+    as the app and the server run it (the process's cuDNN TF32 setting as
+    torch leaves it) and again with TF32 off in the whole process: the
+    boxes must not move.  Then its parts timed on a page."""
+    import numpy as np
+    import torch
+
+    from doc2tex_tpu_torch.detection.flow import SHIPPED_WEIGHTS, MathDetector
+    from doc2tex_tpu_torch.tools.profile_page import detect_timings
+
+    golden, pages = golden_pages()
+    det = MathDetector(SHIPPED_WEIGHTS, conf_thresh=golden["conf_thresh"],
+                       iou_thresh=golden["nms_iou"], expand_frac=golden["expand_frac"])
+    with users_tf32():
+        results = [det.detect_page(page) for page in pages]
+    n_pairs, worst_px, worst_score, unmatched = check_detections(
+        golden, results, golden["conf_thresh"])
+    off = [det.detect_page(page) for page in pages]       # TF32 off process-wide (main)
+    if not all(np.array_equal(a, b) for r, o in zip(results, off) for a, b in zip(r, o)):
+        raise AssertionError("the detector's boxes depend on the process's cuDNN TF32 setting")
+    # what the detector's own setting keeps out: its bare forward under the
+    # process's TF32 against the path's (printed, not gated)
+    x = det.model_input(det.page_windows(pages[0])[0])
+    with torch.inference_mode():
+        want = det.ssd(x)
+        with users_tf32():
+            got = det.model(x)
+    tf32_diff = max((g - w).abs().max().item() for g, w in zip(got, want))
+    log("detect", t0, f"{len(pages)} golden pages ({'x'.join(map(str, golden['page_hw']))}), "
+        f"cuDNN TF32 as torch leaves it ({USERS_CUDNN_TF32}): {n_pairs} boxes matched to the JAX "
+        f"package's within {worst_px:.4f} px (tol {BOX_TOL_PX}) and scores within "
+        f"{worst_score:.2e} (tol {SCORE_TOL}); unmatched {unmatched}; the same bits with TF32 "
+        f"off process-wide; SSD512's bare forward under TF32 {USERS_CUDNN_TF32} would differ "
+        f"from the path's by up to {tf32_diff:.3e} in loc/conf")
+    tm = detect_timings(det, pages[0])
+    log("detect", t0, f"page 0 ({tm['windows']} windows, float32, TF32 off): SSD512 forward "
+        f"{tm['ssd_ms']:.2f} ms (bound {tm['ssd_bound_ms']:.2f} ms: {tm['ssd_gflop']:.0f} GFLOP "
+        f"at {F32_FLOPS / 1e12:.0f} TFLOP/s; achieved {tm['ssd_tflop_per_s']:.1f} TFLOP/s), "
+        f"per-window decode + NMS {tm['window_nms_ms']:.2f} ms, page NMS "
+        f"{tm['page_nms_ms']:.2f} ms ({tm['page_nms_boxes']} candidates), detect_page whole "
+        f"{tm['detect_page_ms']:.2f} ms (host clock)")
+    print(json.dumps({"detect_timings": tm}), file=sys.stderr, flush=True)
+
+
+def page_phase(t0):
+    """App with the shared synthetic_tfm_big recognizer: (a) float32 on the
+    golden pages (TF32 off process-wide), (b) the page-eval twin against
+    the reference's record and (c) POST /recognize_page, both with the
+    process's TF32 settings as torch leaves them, as users run them."""
+    from doc2tex_tpu_torch.app import App
+    from doc2tex_tpu_torch.ops.decode_attention import decode_attention
+    from doc2tex_tpu_torch.recognition import MathRecognition, load_recog_config
+    from doc2tex_tpu_torch.tools.page_eval import evaluate
+
+    golden, pages = golden_pages()
+    cfg, weights = load_recog_config(version=golden["recognizer"]["version"])
+    cfg["dtype"], cfg["quantize"] = "float32", None
+    app = App(recognizer=MathRecognition(cfg, weights, beam_size=golden["recognizer"]["beam"]))
+    decode_attention.launches = 0
+    t = time.perf_counter()
+    regions = [app(page) for page in pages]
+    seconds = time.perf_counter() - t
+    launches = decode_attention.launches
+    compared, misses = check_page_strings(golden, regions)
+    if launches <= 0:
+        raise AssertionError("the page path launched decode_attention 0 times")
+    log("page", t0, f"(a) {len(pages)} golden pages, synthetic_tfm_big float32 beam 10: "
+        f"{sum(map(len, regions))} regions, {compared - len(misses)}/{compared} strings equal to "
+        f"the JAX package's where the boxes are equal (misses {misses}); {seconds:.2f} s, "
+        f"{launches} decode_attention launches ({launches / len(pages):.0f} a page)")
+
+    with open(PAGE_EVAL_REF[0]) as f:
+        ref = json.load(f)[PAGE_EVAL_REF[1]]
+    with users_tf32():
+        row = evaluate(pages=PAGE_EVAL_PAGES, version=ref["version"], coalesce_ratio=0)
+    # each of the port's rates inside the reference's Wilson interval
+    inside = {k: ref[f"{ci}_ci"][0] <= row[k] <= ref[f"{ci}_ci"][1] for k, ci in (
+        ("det_precision", "det_precision"), ("det_recall", "det_recall"),
+        ("end_to_end_acc", "end_to_end"))}
+    log("page", t0, f"(b) page-eval twin, {row['pages']} pages / {row['gt_regions']} regions, "
+        f"quantize {row['quantize']}, beam {row['beam']}, coalesce {row['coalesce_ratio']}: "
+        f"precision {row['det_precision']} {row['det_precision_ci']} (reference "
+        f"{ref['det_precision']} {ref['det_precision_ci']}), recall {row['det_recall']} "
+        f"{row['det_recall_ci']} (reference {ref['det_recall']} {ref['det_recall_ci']}), "
+        f"det-F1 {row['det_f1']} (reference {ref['det_f1']}), em_matched {row['em_matched']} "
+        f"(reference {ref['em_matched']}), end to end {row['end_to_end_acc']} "
+        f"{row['end_to_end_ci']} (reference {ref['end_to_end_acc']} {ref['end_to_end_ci']}); "
+        f"detect {row['detect_s_per_page']} s a page, recognize {row['recog_s_per_page']} s a "
+        "page (host clock)")
+    print(json.dumps({"page_eval": row}), file=sys.stderr, flush=True)
+    if not all(inside.values()):
+        raise AssertionError(f"page eval outside the reference's interval: {inside}")
+
+    with users_tf32():
+        page_request(t0, ref["version"], pages[0])
+
+
+def page_request(t0, version, page):
+    """Page phase (c): the HTTP front with ``--detect`` in this process,
+    one PNG page twice; B1 must launch during the second request."""
+    import threading
+    from http.client import HTTPConnection
+    from http.server import ThreadingHTTPServer
+
+    from doc2tex_tpu_torch.api import serve
+    from doc2tex_tpu_torch.ops.decode_attention import decode_attention
+    from doc2tex_tpu_torch.utils.png import encode_png
+
+    args = serve.parse_args(["--model_version", version, "--detect"])
+    recog, server = serve.build_server(args)
+    page_server = serve.build_page_server(args, recog, server)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), serve.build_handler(
+        server, page_server, config_info={"model_version": version,
+                                          "beam_size": recog.beam_size}))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        body = encode_png(page)
+        replies = []
+        for _ in range(2):      # the first request warms the page's buckets; the second is counted
+            decode_attention.launches = 0
+            conn = HTTPConnection("127.0.0.1", httpd.server_address[1], timeout=600)
+            conn.request("POST", "/recognize_page", body=body)
+            resp = conn.getresponse()
+            replies.append((resp.status, json.loads(resp.read())))
+            conn.close()
+        launches = decode_attention.launches
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        page_server.close()
+        server.close()
+        thread.join(timeout=30)
+    status, payload = replies[-1]
+    regions = payload.get("regions") or []
+    if status != 200 or not regions or launches <= 0 or not all(
+            len(r["box"]) == 4 and isinstance(r["latex"], str) for r in regions):
+        raise AssertionError(f"POST /recognize_page: {status} {payload}, {launches} B1 launches")
+    log("page", t0, f"(c) HTTP POST /recognize_page ({len(body)} B PNG, --detect, int8 as "
+        f"shipped) -> 200 in {payload['ms']} ms, {len(regions)} regions, {launches} "
+        f"decode_attention launches: {regions[0]}")
+
+
 def build_kernels(t0):
     """nvcc on both sources at once (one process each)."""
     from concurrent.futures import ThreadPoolExecutor
@@ -861,6 +1137,8 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    global USERS_CUDNN_TF32
+    USERS_CUDNN_TF32 = torch.backends.cudnn.allow_tf32
     # float32 means float32: no TF32 in matmuls or cuDNN convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -881,6 +1159,8 @@ def main() -> int:
     slice_phase(t0, "synthetic", "attention_step", quantize="int8")
     serve_phase(t0)
     eval_phase(t0)
+    detect_phase(t0)
+    page_phase(t0)
     print(json.dumps({"kernels": records}), flush=True)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

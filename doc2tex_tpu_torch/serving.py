@@ -16,7 +16,8 @@ Under ``quantize: int8`` a crop's string depends on its batch mates (the
 activation scale is per batch), so server strings are comparable only with
 a run that formed the same batches.
 
-The page server (``PageServer``) waits for detection.
+``PageServer`` runs detection page after page on its own thread and sends
+each page's crops to a shared ``RecognitionServer`` without waiting.
 """
 
 from __future__ import annotations
@@ -339,3 +340,149 @@ def _pct_ms(sorted_lat_s: list, q: float) -> float:
         return 0.0
     idx = min(int(q * len(sorted_lat_s)), len(sorted_lat_s) - 1)
     return round(sorted_lat_s[idx] * 1e3, 2)
+
+
+class PageServer:
+    """Full-page pipeline serving: detection per page, crop recognition
+    shared across pages.
+
+    The page pipeline (:meth:`doc2tex_tpu_torch.app.App.__call__`) detects, then
+    recognizes the page's crops, then moves on — the recognizer idles
+    during detection and vice versa.  Here one page thread runs
+    ``detect_and_crop`` page after page and submits each page's crops to a
+    shared :class:`RecognitionServer` WITHOUT waiting: page N's crops
+    decode while page N+1 is being detected, and crops from concurrent
+    pages coalesce into the same decode batches.  Page futures resolve via
+    crop-future callbacks, never blocking the page thread.
+
+    Parameters
+    ----------
+    detect_and_crop:
+        ``page -> (boxes, crops)`` aligned lists; normally
+        :meth:`doc2tex_tpu_torch.app.App.detect_and_crop`.
+    crop_server:
+        The shared :class:`RecognitionServer` (not owned: ``close()``
+        leaves it running, so plain ``/recognize`` traffic can share it).
+    """
+
+    def __init__(
+        self,
+        detect_and_crop: Callable[[np.ndarray], tuple],
+        crop_server: RecognitionServer,
+        max_queue: int = 32,
+    ):
+        self.detect_and_crop = detect_and_crop
+        self.crop_server = crop_server
+        self._queue: Queue = Queue(maxsize=max_queue)
+        self._closed = False
+        self._stop = False
+        self._n_pages = 0
+        self._n_regions = 0
+        self._lock = threading.Lock()
+        self._thread = threading.Thread(
+            target=self._page_loop, name="d2t-pages", daemon=True
+        )
+        self._thread.start()
+
+    def submit_page(self, page: np.ndarray) -> Future:
+        """Enqueue a page; Future resolves to ``[(box, latex), ...]``."""
+        if self._closed:
+            raise ServerClosed("page server is closed")
+        req = _Request(np.asarray(page))
+        try:
+            self._queue.put_nowait(req)
+        except Full:
+            raise ServerOverloaded(
+                f"page queue full ({self._queue.maxsize})"
+            ) from None
+        return req.future
+
+    def recognize_page(
+        self, page: np.ndarray, timeout: Optional[float] = None
+    ) -> list:
+        return self.submit_page(page).result(timeout=timeout)
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {
+                "pages": self._n_pages,
+                "regions": self._n_regions,
+                "page_queue_depth": self._queue.qsize(),
+                "crop_server": self.crop_server.stats(),
+            }
+
+    def close(self, timeout: float = 30.0) -> None:
+        self._closed = True
+        deadline = time.monotonic() + timeout
+        while not self._queue.empty() and time.monotonic() < deadline:
+            time.sleep(0.005)
+        self._stop = True
+        self._thread.join(timeout=timeout)
+        # fail anything still queued (drain deadline hit) so callers blocked
+        # in recognize_page().result() see ServerClosed instead of hanging
+        while True:
+            try:
+                req = self._queue.get_nowait()
+            except Empty:
+                break
+            if not req.future.done():
+                req.future.set_exception(ServerClosed("page server shut down"))
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+    def _page_loop(self) -> None:
+        while not self._stop:
+            try:
+                req = self._queue.get(timeout=0.05)
+            except Empty:
+                continue
+            try:
+                boxes, crops = self.detect_and_crop(req.image)
+            except Exception as exc:  # noqa: BLE001 — forwarded to caller
+                if not req.future.done():
+                    req.future.set_exception(exc)
+                continue
+            with self._lock:
+                self._n_pages += 1
+                self._n_regions += len(crops)
+            if not crops:
+                req.future.set_result([])
+                continue
+            self._gather(req.future, list(boxes), crops)
+
+    def _gather(self, page_future: Future, boxes: list, crops: list) -> None:
+        """Submit crops and resolve the page future from callbacks (the
+        page thread moves on to the next page's detection immediately)."""
+        results = [None] * len(crops)
+        remaining = [len(crops)]
+        lock = threading.Lock()
+
+        def make_cb(i):
+            def cb(fut: Future) -> None:
+                err = fut.exception()
+                with lock:
+                    if page_future.done():
+                        return
+                    if err is not None:
+                        page_future.set_exception(err)
+                        return
+                    results[i] = fut.result()
+                    remaining[0] -= 1
+                    done = remaining[0] == 0
+                if done:
+                    page_future.set_result(list(zip(boxes, results)))
+
+            return cb
+
+        try:
+            for i, crop in enumerate(crops):
+                self.crop_server.submit(crop).add_done_callback(make_cb(i))
+        except (ServerOverloaded, ServerClosed) as exc:
+            with lock:
+                if not page_future.done():
+                    page_future.set_exception(exc)

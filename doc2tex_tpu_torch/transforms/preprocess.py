@@ -104,6 +104,31 @@ def _resize_area(img: np.ndarray, h: int, w: int) -> np.ndarray:
     return out
 
 
+PAGE_WIDTH = 1280  # the page width detection runs at (the reference demo's)
+
+
+def detect_preprocess(page: np.ndarray) -> tuple[np.ndarray, float]:
+    """Resize a page to width 1280 with LANCZOS in both directions, as the
+    JAX package's ``demo/app.py`` does with PIL (equal bytes); returns
+    (resized page, scale).  A page already at the size comes back as it
+    is.  An (H, W, C) page is resized channel by channel, as PIL resizes
+    each band."""
+    h, w = page.shape[:2]
+    scale = PAGE_WIDTH / w
+    new_h = int(round(h * scale))
+    if (new_h, PAGE_WIDTH) == (h, w):
+        return page, scale
+    if page.ndim == 3:
+        resized = np.stack([detect_preprocess(page[..., c])[0] for c in range(page.shape[2])], -1)
+        return resized, scale
+    out = np.ascontiguousarray(page, dtype=np.uint8)
+    if PAGE_WIDTH != w:
+        out = _resample_rows(out, PAGE_WIDTH, "lanczos")
+    if new_h != h:
+        out = np.ascontiguousarray(_resample_rows(out.T, new_h, "lanczos").T)
+    return out, scale
+
+
 def minmax_size(
     h: int,
     w: int,

@@ -313,3 +313,30 @@ def test_int8_ops_on_card_equal_cpu(dtype):
             want = layer(x)
             got = layer.to("cuda")(x.cuda()).cpu()
         assert torch.equal(got, want), (type(layer).__name__, shape)
+
+
+@pytest.mark.cuda
+def test_detector_on_card_does_not_follow_the_process_tf32_setting():
+    """The released detector on the card, on the first page of the page
+    eval cut to 512x768 (3 windows, formulas): the same bits with the
+    process's cuDNN TF32 on (torch's default, as the app and the server
+    run) as off, and the CPU's boxes within chip_smoke's tolerances."""
+    _need_card()
+    from doc2tex_tpu_torch.detection.flow import SHIPPED_WEIGHTS, MathDetector
+    from doc2tex_tpu_torch.tools.page_eval import synth_labelled_page
+
+    page = np.ascontiguousarray(synth_labelled_page(np.random.default_rng(35))[0][:512, :768])
+    det = MathDetector(SHIPPED_WEIGHTS)
+    out = {}
+    try:
+        for flag in (True, False):
+            torch.backends.cudnn.allow_tf32 = flag
+            out[flag] = det.detect_page(page)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    for a, b in zip(out[True], out[False]):
+        np.testing.assert_array_equal(a, b)
+    boxes, scores = MathDetector(SHIPPED_WEIGHTS, device="cpu").detect_page(page)
+    assert len(boxes) >= 1 and boxes.shape == out[False][0].shape
+    np.testing.assert_allclose(out[False][0], boxes, atol=chip_smoke.BOX_TOL_PX, rtol=0)
+    np.testing.assert_allclose(out[False][1], scores, atol=chip_smoke.SCORE_TOL, rtol=0)

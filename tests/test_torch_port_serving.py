@@ -6,8 +6,12 @@ and the HTTP front (``api/serve.py``), on the CPU.
   port's copy, with the cases that repeat each other as parameters.
 - ``utils/png.decode_png`` against PIL's ``convert("L")`` over colour types
   0, 2, 3, 4 and 6 and the five row filters, and its refusals.
+- The page server cases of ``tests/test_serving.py::TestPageServer`` (round
+  trip, pages sharing crop batches, the empty page, detection and crop
+  errors reaching the page, submit after close) on a stub detector.
 - A localhost HTTP round trip and the ``--selftest`` entry point with a
-  tiny random-init recognizer on ``--device cpu``.
+  tiny random-init recognizer on ``--device cpu``; ``POST /recognize_page``
+  answers 404 without detection and regions with it.
 """
 
 from __future__ import annotations
@@ -30,7 +34,8 @@ from doc2tex_tpu_torch.config import make_config
 from doc2tex_tpu_torch.data.synthetic import HARD_VOCAB_PATH, synth_sample
 from doc2tex_tpu_torch.recognition import MathRecognition
 from doc2tex_tpu_torch.recognition.flow import coalesce_groups
-from doc2tex_tpu_torch.serving import RecognitionServer, ServerClosed, ServerOverloaded
+from doc2tex_tpu_torch.serving import (PageServer, RecognitionServer, ServerClosed,
+                                       ServerOverloaded)
 from doc2tex_tpu_torch.utils.png import decode_png, encode_png
 
 
@@ -345,6 +350,96 @@ def test_png_decoder_refuses_what_it_does_not_cover():
         decode_png(jpeg.getvalue())
 
 
+# ---- the page server (TestPageServer) ------------------------------------------
+
+def fake_detect_and_crop(page):
+    """Deterministic stand-in for App.detect_and_crop: one crop per
+    distinct value v in row 0, each crop an (8, 8) field of v."""
+    values = sorted(set(int(v) for v in np.asarray(page)[0]))
+    return [(v, 0, v + 8, 8) for v in values], [np.full((8, 8), v, np.uint8) for v in values]
+
+
+def test_page_regions_round_trip():
+    with RecognitionServer(FakeRecognizer(), batch_window_ms=5) as crop_srv:
+        ps = PageServer(fake_detect_and_crop, crop_srv)
+        page = np.zeros((4, 16), np.uint8)
+        page[0, :8] = 3
+        page[0, 8:] = 9
+        out = ps.recognize_page(page, timeout=10.0)
+        ps.close()
+    assert out == [((3, 0, 11, 8), "px3"), ((9, 0, 17, 8), "px9")]
+
+
+def test_pages_share_crop_batches():
+    """The gate holds the dispatcher inside a warm-up batch while two
+    pages' crops queue; on release all four decode in one batch."""
+    gate = threading.Event()
+    recog = FakeRecognizer(gate=gate)
+    crop_srv = RecognitionServer(recog, max_batch=64, batch_window_ms=0)
+    try:
+        warm = crop_srv.submit(np.zeros((2, 2), np.uint8))
+        assert recog.entered.wait(timeout=5.0)
+        ps = PageServer(fake_detect_and_crop, crop_srv)
+        pages = []
+        for base in (10, 20):
+            page = np.zeros((4, 16), np.uint8)
+            page[0, :8] = base
+            page[0, 8:] = base + 1
+            pages.append(ps.submit_page(page))
+        deadline = time.monotonic() + 5.0
+        while crop_srv.stats()["queue_depth"] < 4:
+            assert time.monotonic() < deadline
+            time.sleep(0.002)
+        gate.set()
+        assert warm.result(timeout=10.0) == "px0"
+        assert [lx for _, lx in pages[0].result(timeout=10.0)] == ["px10", "px11"]
+        assert [lx for _, lx in pages[1].result(timeout=10.0)] == ["px20", "px21"]
+        ps.close()
+    finally:
+        crop_srv.close()
+    assert recog.batches == [1, 4]
+
+
+def test_empty_page():
+    with RecognitionServer(FakeRecognizer(), batch_window_ms=0) as crop_srv:
+        ps = PageServer(lambda page: ([], []), crop_srv)
+        assert ps.recognize_page(np.zeros((4, 4), np.uint8), timeout=10.0) == []
+        assert ps.stats()["pages"] == 1
+        ps.close()
+
+
+def _boom(page):
+    raise RuntimeError("detector exploded")
+
+
+def _flaky(images):
+    raise ValueError("decode failed")
+
+
+@pytest.mark.parametrize("detect, recognizer, error, match", [
+    (_boom, FakeRecognizer(), RuntimeError, "detector exploded"),
+    (fake_detect_and_crop, _flaky, ValueError, "decode failed"),
+])
+def test_detect_and_crop_errors_reach_the_page(detect, recognizer, error, match):
+    with RecognitionServer(recognizer, batch_window_ms=0) as crop_srv:
+        ps = PageServer(detect, crop_srv)
+        page = np.zeros((4, 8), np.uint8)
+        page[0, :] = 5
+        with pytest.raises(error, match=match):
+            ps.recognize_page(page, timeout=10.0)
+        ps.close()
+
+
+def test_page_submit_after_close_raises():
+    with RecognitionServer(FakeRecognizer(), batch_window_ms=0) as crop_srv:
+        ps = PageServer(fake_detect_and_crop, crop_srv)
+        ps.close()
+        with pytest.raises(ServerClosed):
+            ps.submit_page(np.zeros((2, 2), np.uint8))
+        # closing the page server leaves the shared crop server running
+        assert crop_srv.recognize(np.zeros((2, 2), np.uint8), timeout=10.0) == "px0"
+
+
 # ---- the HTTP front and the CLI ----------------------------------------------
 
 @pytest.fixture(scope="module")
@@ -391,6 +486,46 @@ def test_http_recognize_round_trip(http_server):
     assert _request(port, "POST", "/recognize_page", encode_png(crop))[0] == 404
 
 
+def test_http_recognize_page_with_detect():
+    """``--detect``: ``build_page_server`` gives a PageServer over the
+    released detector (on the CPU here) and ``POST /recognize_page`` with a
+    PNG strip of a labelled page returns its regions: boxes inside the page
+    and a string each."""
+    from doc2tex_tpu_torch.tools.page_eval import synth_labelled_page
+
+    rec = tiny_recognizer()
+    srv = RecognitionServer(rec, batch_window_ms=5, bucket_key=rec.bucket_key)
+    args = serve.parse_args(["--detect", "--device", "cpu"])
+    page_srv = serve.build_page_server(args, rec, srv)
+    assert isinstance(page_srv, PageServer)
+    assert serve.build_page_server(serve.parse_args(["--device", "cpu"]), rec, srv) is None
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), serve.build_handler(
+        srv, page_srv, config_info={"model_version": "tiny", "beam_size": 1}))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        port = httpd.server_address[1]
+        strip = synth_labelled_page(np.random.default_rng(35))[0][:400]
+        status, body = _request(port, "POST", "/recognize_page", encode_png(strip))
+        assert status == 200
+        payload = json.loads(body)
+        assert payload["ms"] > 0 and len(payload["regions"]) >= 2
+        for region in payload["regions"]:
+            x1, y1, x2, y2 = region["box"]
+            assert 0 <= x1 < x2 <= 1280 and 0 <= y1 < y2 <= 400
+            assert isinstance(region["latex"], str)
+        assert json.loads(_request(port, "GET", "/config")[1])["detect"] is True
+        assert json.loads(_request(port, "GET", "/stats")[1])["pages"] == 1
+        assert _request(port, "POST", "/recognize_page", b"not an image")[0] == 400
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        page_srv.close()
+        srv.close()
+        thread.join(timeout=10)
+    assert not thread.is_alive()
+
+
 def test_cli_selftest_and_refusals(tmp_path, capsys):
     """``--selftest`` through main() with a tiny version block (no weights
     file: random init), and the flags that wait for later slices."""
@@ -433,6 +568,8 @@ tiny:
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert out["selftest"] == 6 and out["completed"] == 6 and out["errors"] == 0
     assert out["quantize"] == "int8" and out["device"] == "cpu" and out["batches"] >= 1
-    for flag in (["--detect"], ["--stitch"], ["--data_parallel", "2"], ["--platform", "cpu"]):
+    for flag in (["--stitch"], ["--data_parallel", "2"], ["--platform", "cpu"]):
         with pytest.raises(NotImplementedError):
             serve.main(base + flag)
+    with pytest.raises(SystemExit, match="needs --detect"):
+        serve.main(base + ["--detect_weights", "w.msgpack"])

@@ -1,8 +1,9 @@
 """Guards for the port's run on the GPU machine, checked on the CPU.
 
 - the port and ``chip_smoke.py`` import with jax, flax, yaml, msgpack, PIL,
-  cv2, lmdb and the JAX package blocked (none is on the GPU machine), the
-  int8, serving and release-eval modules among them;
+  cv2, lmdb, scipy and the JAX package blocked (none is on the GPU
+  machine), the int8, serving, release-eval, detection, page-app and
+  page-eval modules among them;
 - ``chip_smoke.py`` exits non-zero, and never prints ``"ok": true``, on a
   machine without a card and from a directory without the repository;
 - chip_smoke's slice phase runs end to end on the CPU at a tiny size, for
@@ -21,11 +22,15 @@ import textwrap
 import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BLOCKED = ("jax", "jaxlib", "flax", "yaml", "msgpack", "PIL", "cv2", "lmdb", "doc2tex_tpu")
-# the modules of the int8 encoder, the server and the release eval, which
-# the walk below must reach
+BLOCKED = ("jax", "jaxlib", "flax", "yaml", "msgpack", "PIL", "cv2", "lmdb", "scipy",
+           "doc2tex_tpu")
+# the modules of the int8 encoder, the server, the release eval, detection,
+# the page app and the page eval, which the walk below must reach
 REQUIRED = ("ops.quant", "serving", "api.serve", "utils.png", "data.loader", "eval.metrics",
-            "engine.inferencing", "tools.release_eval", "tools.bench_int8")
+            "engine.inferencing", "tools.release_eval", "tools.bench_int8", "detection",
+            "detection.priors", "detection.windows", "detection.ssd", "detection.boxes",
+            "detection.flow", "detection.evaluate", "app", "tools.page_eval",
+            "tools.profile_page")
 
 GUARD = textwrap.dedent(f"""
     import importlib, pkgutil, sys
@@ -65,7 +70,7 @@ def test_port_imports_nothing_the_gpu_machine_lacks():
     out = subprocess.run([sys.executable, "-c", GUARD], cwd=ROOT, env=_env(),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 48
+    assert int(out.stdout.split()[-1]) >= 58
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
@@ -200,3 +205,38 @@ def test_chip_smoke_tfm_launch_shapes_are_the_slice_shapes(monkeypatch):
                       key=lambda s: (s[3] is None, s))
     assert recorded == chip_smoke.tfm_launch_shapes(steps, config=cfg)
     assert recorded[0][:3] == (64, 10, 310) and recorded[-1] == (64, 10, 624, None)
+
+
+def test_chip_smoke_page_gates():
+    """chip_smoke's detect and page gates on the golden pages: boxes within
+    0.5 px and scores within 1e-3 pass; a box moved further, or a missing
+    box scored far from the threshold, fails; one string miss passes, two
+    fail."""
+    import pytest
+
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    golden, pages = chip_smoke.golden_pages()
+    assert len(pages) == 3 and all(p.shape == (1024, 1280) for p in pages)
+    near = [(np.asarray(g["boxes"]) + 0.3, np.asarray(g["scores"]) - 5e-4)
+            for g in golden["pages"]]
+    n_pairs, worst_px, _, unmatched = chip_smoke.check_detections(golden, near, 0.5)
+    assert n_pairs == sum(len(g["boxes"]) for g in golden["pages"]) and not unmatched
+    assert abs(worst_px - 0.3) < 1e-6
+    moved = [(b.copy(), s) for b, s in near]
+    moved[1][0][2, 0] += 0.3                  # 0.6 px from the golden box
+    with pytest.raises(AssertionError, match="unmatched"):
+        chip_smoke.check_detections(golden, moved, 0.5)
+    dropped = [(b[1:], s[1:]) if i == 0 else (b, s) for i, (b, s) in enumerate(near)]
+    with pytest.raises(AssertionError, match="unmatched"):
+        chip_smoke.check_detections(golden, dropped, 0.5)
+    assert len(chip_smoke.check_detections(golden, dropped, golden["pages"][0]["scores"][0])[3]) == 1
+    regions = [[(tuple(r["box"]), r["latex"]) for r in g["regions"]] for g in golden["pages"]]
+    compared, misses = chip_smoke.check_page_strings(golden, regions)
+    assert compared == sum(len(g["regions"]) for g in golden["pages"]) and not misses
+    regions[0][0] = (regions[0][0][0], "x")
+    assert len(chip_smoke.check_page_strings(golden, regions)[1]) == 1
+    regions[2][1] = (regions[2][1][0], "y")
+    with pytest.raises(AssertionError, match="page strings"):
+        chip_smoke.check_page_strings(golden, regions)
