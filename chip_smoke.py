@@ -81,7 +81,25 @@ Needs one CUDA card; exits non-zero without one.  Phases, one line each:
    (``tools/page_eval_r05.json``); (c) the HTTP front with ``--detect`` in
    this process: ``POST /recognize_page`` with a PNG page returns regions,
    B1 launching in that request.  (b) and (c) run with the process's TF32
-   as torch leaves it.
+   as torch leaves it;
+13. train  — the release recipe ``config/train_hard_tfm_big.yaml`` at full
+   width through the port's trainer (``engine.training``), with
+   ``synthetic_data``, ``num_iter`` and ``valInterval`` cut (printed):
+   (a) one float32 train step on the card against the same step on the CPU
+   (same batch, the shipped weights, dropout 0, warmup 0 so the first
+   update moves the weights at the peak rate): loss, grad_norm, every
+   gradient leaf and the share of weights apart after the step within
+   ``TRAIN_TOL``'s tolerances; (b) bf16 steps on one fixed batch of 32 at 224x704 from a
+   seeded random init: every loss finite and the last below the first,
+   steps/s and peak memory printed; (c) a run from the shipped weights
+   (``pretrained_weight``): its validation (greedy) launches B1, at K = 1
+   (shapes printed), B1 matches its plain version at every shape the
+   validation launched it with (``TOL``), its EM printed; (d) its ``best_*.msgpack`` load into
+   ``MathRecognition`` and give the in-memory model's greedy strings on the
+   golden crops; (e) resuming from ``last_checkpoint.msgpack`` restores
+   every tensor of the state bit for bit and gives the next step's loss bit
+   for bit, with ``torch.backends.cudnn.deterministic`` on for that step.
+   Checkpoints go to a temporary directory that is removed.
 
 Then a JSON line with both kernels' numbers, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the traceback
@@ -133,6 +151,28 @@ TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 0.0)}
 # both: float32 sums of the same terms in another order
 B2_TOL = (1e-5, 1e-5)
 MIN_GOLDEN_MATCH = 15
+TRAIN_CONFIG = os.path.join(ROOT, "config", "train_hard_tfm_big.yaml")
+TFM_BIG_WEIGHTS = os.path.join(ROOT, "saved_models", "math_recog", "synthetic_tfm_big",
+                               "best_weights.msgpack")
+# the train phase's cuts of the recipe (widths, ladder and sequence length stay)
+TRAIN_CUTS = {"synthetic_data": 3200, "num_iter": 8, "valInterval": 8, "logInterval": 1}
+TRAIN_FIXED_BUCKET = (224, 704)
+TRAIN_BF16_STEPS = 12
+# (a) card against CPU, float32, at the shipped weights: the loss, every
+# gradient leaf (relative to its norm plus grad_floor times the whole
+# gradient's norm: the attention key biases' gradient is 0 up to float
+# noise, since a bias added to every key does not move a softmax) and
+# grad_norm; after the step, the share of weights further apart than
+# 1e-6.  Adam's first update is about -lr * sign(g), so only a weight whose
+# gradient is near 0 on both sides can differ; a wrong update (lr, decay,
+# bias correction, clip) moves nearly every weight.  The H100 read 6.7e-6
+# for the loss, 2.67e-4 for the head's worst leaf (a key bias), 1.35e-4
+# for the ResNet's, 2.9e-6 for grad_norm and 0.43 % of the weights.
+TRAIN_TOL = {"loss_rtol": 1e-5, "grad_rtol": 1e-3, "grad_floor": 1e-5,
+             "grad_norm_rtol": 1e-3, "param_far_share": 0.05}
+# (c) the validation's greedy EM of the shipped weights on the run's
+# validation set, before training (the release's own EM is 0.8757)
+TRAIN_MIN_SHIPPED_EM = 0.5
 # the int8 strings' gates (see check_int8_strings)
 INT8_MIN_CHAR_MATCH = 0.85
 INT8_MIN_CHANGED = 2
@@ -265,7 +305,8 @@ def attention_timing(B, K, M, masked, step, nh=8, hd=32):
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations", max_abs_err=err,
                 text=f"B{B} K{K} M{M} {'step ' + str(step) if masked else 'no mask'} nh{nh} "
                      f"hd{hd} bf16 (cluster {plan.cluster}, chunk {plan.chunk}, "
-                     f"{plan.smem_bytes} B smem): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                     f"{plan.smem_bytes} B smem): max abs err {err:.3e}, "
+                     f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                      f"sdpa (yardstick) {library_ms:.4f} ms, bound {bound:.4f} ms "
                      f"({nbytes / 1e6:.2f} MB), {bound / ms:.0%} of bound, achieved "
                      f"{nbytes / (ms * 1e-3) / 1e9:.0f} GB/s")
@@ -1112,6 +1153,276 @@ def page_request(t0, version, page):
         f"decode_attention launches: {regions[0]}")
 
 
+def _resnet_leaf(name: str) -> bool:
+    return "ResNetFeatureExtractor_0" in name
+
+
+def train_config(**overrides):
+    """The release recipe with the phase's cuts."""
+    from doc2tex_tpu_torch.config import load_config
+
+    cfg = load_config(TRAIN_CONFIG)
+    cfg.update(TRAIN_CUTS)
+    cfg.update(overrides)
+    return cfg
+
+
+def fixed_batch(cfg, n, bucket, seed=90):
+    """``n`` hard crops of the config's generator padded into ``bucket``
+    (uint8 (n, H, W, 1)) and their encoded labels."""
+    import numpy as np
+
+    from doc2tex_tpu_torch.data.buckets import pad_to_bucket
+    from doc2tex_tpu_torch.data.synthetic import synth_hard_dataset
+    from doc2tex_tpu_torch.tokenizer.converters import create_converter
+
+    kw = dict(cfg.get("synthetic_kwargs") or {})
+    kw.update(max_h=min(kw.get("max_h", bucket[0]), bucket[0]),
+              max_w=min(kw.get("max_w", bucket[1]), bucket[1]))
+    images, labels = synth_hard_dataset(n, seed=seed, **kw)
+    batch = np.stack([pad_to_bucket(im, bucket) for im in images])[..., None]
+    text, _ = create_converter(cfg).encode([lb.split() for lb in labels],
+                                           cfg["batch_max_length"])
+    return batch, text
+
+
+def _train_step_parity(t0, cfg, weights, batch, text, device):
+    """(a): one float32 step of the same state on ``device`` and on the CPU."""
+    import copy
+
+    import torch
+
+    from doc2tex_tpu_torch.engine.training import init_training
+    from doc2tex_tpu_torch.train.trainer import loss_and_grads
+    from doc2tex_tpu_torch.transforms.augment import normalize
+
+    cfg = copy.deepcopy(cfg)
+    cfg.update(dtype="float32", warmup_epochs=0, pretrained_weight=weights)
+    cfg["Prediction"]["params"]["dropout"] = 0.0
+    runs = {}
+    for dev in ("cpu", device):
+        b = init_training(copy.deepcopy(cfg), device=dev)
+        x = normalize(torch.from_numpy(batch).to(dev))
+        _, _, grads = loss_and_grads(copy.deepcopy(b.model), b.criterion, x,
+                                     torch.from_numpy(text).to(dev).long())
+        m = b.train_step(b.state, batch, text, torch.Generator().manual_seed(5))
+        runs[dev] = (float(m["loss"]), float(m["grad_norm"]),
+                     {k: g.cpu() for k, g in grads.items()},
+                     {k: v.cpu() for k, v in b.model.state_dict().items()})
+        del b
+    (l0, n0, g0, p0), (l1, n1, g1, p1) = runs["cpu"], runs[device]
+    loss_err, norm_err = abs(l1 - l0) / abs(l0), abs(n1 - n0) / abs(n0)
+    worst = {True: (0.0, ""), False: (0.0, "")}
+    for k, g in g0.items():
+        rel = (g1[k] - g).abs().max().item() / (g.norm().item() + TRAIN_TOL["grad_floor"] * n0)
+        worst[_resnet_leaf(k)] = max(worst[_resnet_leaf(k)], (rel, k))
+    diffs = torch.cat([(p1[k] - p0[k]).abs().flatten() for k in p0])
+    far = (diffs > 1e-6).float().mean().item()
+    log("train", t0, f"(a) float32 step, {device} against cpu, batch {batch.shape[0]} at "
+        f"{batch.shape[1:3]}, lr {float(cfg['optimizer']['lr']):g}: loss {l1:.7f} / {l0:.7f} (rel {loss_err:.2e}), "
+        f"grad_norm {n1:.6f} / {n0:.6f} (rel {norm_err:.2e}), worst gradient leaf "
+        f"{worst[False][0]:.2e} of its norm ({worst[False][1]}; ResNet {worst[True][0]:.2e}, "
+        f"{worst[True][1]}), weights after the step: "
+        f"max |diff| {diffs.max().item():.3e}, {far:.4%} further than 1e-6 (tolerances "
+        f"{TRAIN_TOL})")
+    tol = TRAIN_TOL
+    if not (loss_err <= tol["loss_rtol"] and norm_err <= tol["grad_norm_rtol"]
+            and max(worst.values())[0] <= tol["grad_rtol"] and far <= tol["param_far_share"]):
+        raise AssertionError("(a) the card's float32 train step disagrees with the CPU's")
+
+
+def train_phase(t0, cfg=None, weights=TFM_BIG_WEIGHTS, recog=None, crops=None,
+                device="cuda", fixed=(32, TRAIN_FIXED_BUCKET), parity_batch=(4, (96, 352))):
+    """The training path (phase 13).  ``cfg``, ``recog`` (a recognizer
+    config) and ``crops`` default to the release recipe, the released
+    ``synthetic_tfm_big`` block and the golden crops; a test passes tiny
+    ones to rehearse the phase on the CPU."""
+    import copy
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from doc2tex_tpu_torch.engine.inferencing import validation
+    from doc2tex_tpu_torch.engine.training import init_training, train
+    from doc2tex_tpu_torch.models import decoder_tfm
+    from doc2tex_tpu_torch.ops.decode_attention import decode_attention
+    from doc2tex_tpu_torch.recognition import MathRecognition, load_recog_config
+    from doc2tex_tpu_torch.data.loader import ArrayDataset, BucketLoader
+    from doc2tex_tpu_torch.data.synthetic import synth_hard_dataset
+    from doc2tex_tpu_torch.decode.runner import make_decode_fn
+    from doc2tex_tpu_torch.weights import load_weights
+
+    cuda = device != "cpu"
+    cfg = cfg or train_config()
+    log("train", t0, f"{os.path.relpath(TRAIN_CONFIG, ROOT)} cut to "
+        f"{ {k: cfg[k] for k in TRAIN_CUTS} }; "
+        f"batch {cfg['batch_size']}, ladder {cfg['min_dimension']}..{cfg['max_dimension']} "
+        f"growth {cfg['bucket_growth']}, batch_max_length {cfg['batch_max_length']}, "
+        f"dtype {cfg['dtype']}")
+
+    # (a) float32 card step against the CPU
+    n, bucket = parity_batch
+    _train_step_parity(t0, cfg, weights, *fixed_batch(cfg, n, bucket, seed=91), device)
+
+    # (b) bf16 steps on one fixed batch from a seeded random init; steps/s
+    n, bucket = fixed
+    batch, text = fixed_batch(cfg, n, bucket)
+    b = init_training(copy.deepcopy(cfg), device=device)
+    gen = torch.Generator().manual_seed(7)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    losses, t_start = [], None
+    for i in range(TRAIN_BF16_STEPS):
+        if i == 2:
+            if cuda:
+                torch.cuda.synchronize()
+            t_start = time.perf_counter()
+        losses.append(b.train_step(b.state, batch, text, gen)["loss"])
+    losses = [float(x) for x in losses]   # the host copy syncs
+    seconds = time.perf_counter() - t_start
+    timed = TRAIN_BF16_STEPS - 2
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else float("nan")
+    log("train", t0, f"(b) {cfg['dtype']} steps on one batch of {n} at {bucket}, text "
+        f"{text.shape[1]} wide (decoder length {text.shape[1] - 1}), random init: losses "
+        f"{[round(x, 4) for x in losses]}; {timed / seconds:.3f} steps/s "
+        f"({1e3 * seconds / timed:.1f} ms/step over {timed} steps after 2), peak memory "
+        f"allocated {peak:.2f} GiB; {nvidia_smi() if cuda else 'cpu'}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"(b) losses not finite or not falling: {losses}")
+    del b
+
+    # (c) the run from the shipped weights; its validation launches B1
+    run_cfg = dict(copy.deepcopy(cfg), pretrained_weight=weights)
+    shipped = init_training(copy.deepcopy(run_cfg), device=device)
+    if weights:
+        load_weights(shipped.model, weights)      # the statistics too, for this check
+    # the run's validation split, as build_loader makes it
+    seed = run_cfg.get("manualSeed", 1111)
+    images, labels = synth_hard_dataset(max(int(run_cfg["synthetic_data"]) // 10, 4),
+                                        seed=seed + 1, **run_cfg.get("synthetic_kwargs", {}))
+    valid = BucketLoader(ArrayDataset(images, labels), run_cfg, converter=shipped.converter,
+                         seed=seed)
+    val = validation(make_decode_fn(shipped.model, run_cfg, beam_size=1, device=device),
+                     shipped.converter, valid, run_cfg)
+    log("train", t0, f"(c) validation set: {val['n_samples']} samples in full batches; the "
+        f"shipped weights (with their BatchNorm statistics), greedy: EM {val['accuracy']:.4f} "
+        f"(gate >= {TRAIN_MIN_SHIPPED_EM}), BLEU {val['bleu']:.4f}")
+    if val["n_samples"] == 0 or (weights and val["accuracy"] < TRAIN_MIN_SHIPPED_EM):
+        raise AssertionError("(c) the shipped weights do not decode the validation set")
+    del shipped
+    shapes, types = set(), set()
+    original = decoder_tfm.decode_attention
+
+    def recorded(q, k, v, mask=None):
+        shapes.add((q.shape[0], q.shape[1], k.shape[1], "self" if mask is not None else "cross"))
+        types.add((q.shape[2], q.shape[3], v.dtype))
+        return original(q, k, v, mask)
+
+    with tempfile.TemporaryDirectory() as log_dir:
+        bundle = init_training(copy.deepcopy(run_cfg), device=device)
+        decoder_tfm.decode_attention = recorded
+        decode_attention.launches = 0
+        try:
+            t_run = time.perf_counter()
+            metrics = train(run_cfg, log_dir, device=device, bundle=bundle)
+            t_run = time.perf_counter() - t_run
+        finally:
+            decoder_tfm.decode_attention = original
+        launches = decode_attention.launches
+        ks = sorted({s[1] for s in shapes})
+        log("train", t0, f"(c) {run_cfg['num_iter']} steps from the shipped weights (their "
+            f"BatchNorm statistics fresh, as the JAX engine's pretrained_weight leaves them) "
+            f"and a validation in {t_run:.1f} s: greedy EM {metrics['accuracy']:.4f}, loss "
+            f"{metrics['loss']:.4f}, {metrics['n_samples']} samples; decode_attention "
+            f"launches {launches}, K {ks}, (B, K, M, kind) shapes {sorted(shapes)[:6]} ... "
+            f"{len(shapes)} in all")
+        if cuda and (launches <= 0 or ks != [1] or len(types) != 1):
+            raise AssertionError(f"(c) validation launched B1 {launches} times at K {ks}, "
+                                 f"(heads, head dim, type) {types}")
+        if cuda:
+            _check_validation_shapes(t0, shapes, *types.pop())
+
+        # (d) the best checkpoints in MathRecognition
+        rcfg = copy.deepcopy(recog or load_recog_config(version="synthetic_tfm_big")[0])
+        rcfg.update(quantize=None, dtype=run_cfg["dtype"])
+        crops = crops if crops is not None else golden_crops("synthetic_tfm_big")[1]
+        mem = MathRecognition(copy.deepcopy(rcfg), None, beam_size=1, device=device)
+        mem.model.load_state_dict(bundle.model.state_dict())
+        want = mem(crops)
+        for name in ("best_accuracy.msgpack", "best_bleu.msgpack"):
+            rec = MathRecognition(copy.deepcopy(rcfg), os.path.join(log_dir, name),
+                                  beam_size=1, device=device)
+            got = rec(crops)
+            if got != want:
+                raise AssertionError(f"(d) {name} decodes otherwise than the in-memory model")
+        log("train", t0, f"(d) best_accuracy and best_bleu .msgpack ({os.path.getsize(os.path.join(log_dir, 'best_accuracy.msgpack')) / 2 ** 20:.1f} MiB each) "
+            f"in MathRecognition: the in-memory model's greedy strings on {len(crops)} crops")
+
+        # (e) resume from last_checkpoint: the state bit for bit, then the next step's loss
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            resumed = init_training(dict(copy.deepcopy(run_cfg), pretrained_weight=None,
+                                         resume_path=os.path.join(log_dir,
+                                                                  "last_checkpoint.msgpack")),
+                                    device=device)
+            if resumed.state.step != bundle.state.step or resumed.start_iter != run_cfg["num_iter"]:
+                raise AssertionError(f"(e) resumed at step {resumed.state.step}")
+            from doc2tex_tpu_torch.train.optim import state_to_flax
+
+            same = all(torch.equal(a, b) for a, b in zip(
+                resumed.model.state_dict().values(), bundle.model.state_dict().values()))
+            leaves = lambda s: [np.asarray(x) for x in _flat(state_to_flax(s))]   # noqa: E731
+            same = same and all(np.array_equal(a, b) for a, b in zip(
+                leaves(resumed.state.opt_state), leaves(bundle.state.opt_state)))
+            gen = torch.Generator().manual_seed(run_cfg.get("manualSeed", 1111) + 1)
+            go = bundle.train_step(bundle.state, batch, text, gen)
+            back = resumed.train_step(resumed.state, batch, text, gen)
+            after = max((a - b).abs().max().item() for a, b in zip(
+                resumed.model.state_dict().values(), bundle.model.state_dict().values()))
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        lu, lr_ = float(go["loss"]), float(back["loss"])
+        log("train", t0, f"(e) resumed from last_checkpoint at step {resumed.start_iter}: state "
+            f"{'equal' if same else 'NOT equal'} bit for bit; step {bundle.state.step} loss "
+            f"{lr_!r} resumed, {lu!r} uninterrupted (cudnn deterministic); weights after it "
+            f"within {after:.3e}")
+        if not same or lu != lr_:
+            raise AssertionError("(e) the resumed run differs from the uninterrupted one")
+
+
+def _check_validation_shapes(t0, shapes, nh, hd, dtype):
+    """B1 against its plain version at every (B, K, M, kind) the
+    validation launched it with, in the validation's type and in float32
+    (self-attention with the chunk's last step live, the densest mask it
+    had); then timed at the largest self and cross shapes (CUDA graphs)."""
+    import torch
+
+    worst = {}
+    for dt in dict.fromkeys((dtype, torch.float32)):
+        name = str(dt).split(".")[-1]
+        worst[name] = max(check_attention(B, K, M, nh, hd, dt, kind == "self",
+                                          seed=B * 1000 + M, step=M - 1 if kind == "self" else None)
+                          for B, K, M, kind in shapes)
+    log("train", t0, f"(c) B1 matches its plain version at the validation's {len(shapes)} "
+        f"shapes (nh {nh}, hd {hd}): max abs err "
+        + ", ".join(f"{n} {e:.3e} (tol {TOL[n][0]:g} abs + {TOL[n][1]:g} rel)"
+                    for n, e in worst.items()))
+    B, K, M, _ = max((s for s in shapes if s[3] == "self"), key=lambda s: (s[2], s[0]))
+    S = max(s[2] for s in shapes if s[3] == "cross")
+    for shape in ((B, K, M, True, M - 1), (B, K, S, False, None)):
+        log("train", t0, f"(c) B1 at K = 1: {attention_timing(*shape, nh=nh, hd=hd)['text']}")
+
+
+def _flat(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _flat(tree[k])
+    else:
+        yield tree
+
+
 def build_kernels(t0):
     """nvcc on both sources at once (one process each)."""
     from concurrent.futures import ThreadPoolExecutor
@@ -1161,6 +1472,7 @@ def main() -> int:
     eval_phase(t0)
     detect_phase(t0)
     page_phase(t0)
+    train_phase(t0)
     print(json.dumps({"kernels": records}), flush=True)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

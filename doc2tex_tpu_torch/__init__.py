@@ -2,7 +2,9 @@
 
 Runs batched crop recognition with the released ViT recognizers on an
 NVIDIA GPU: the Transformer head (``synthetic_tfm_big``) and the
-coverage-LSTM head (``synthetic``).  Plain tensor code is PyTorch; each TPU
+coverage-LSTM head (``synthetic``); full pages through the released
+detector; and training of the Transformer-head recognizers
+(``engine/training.py``, ``api/train.py``).  Plain tensor code is PyTorch; each TPU
 kernel is a hand-written CUDA kernel for Hopper (``csrc/decode_attention.cu``
 for beam decode attention, ``csrc/attention_step.cu`` for the
 coverage-attention step), built with nvcc at first use and loaded with

@@ -217,3 +217,18 @@ def loads_yaml(text: str) -> Any:
 def load_yaml(path: str) -> Any:
     with open(path, encoding="utf-8") as f:
         return loads_yaml(f.read())
+
+
+def load_config(path: str, **overrides: Any) -> dict:
+    """A YAML config file over the defaults, with ``overrides``; the
+    min/max dimensions must be [H, W] multiples of ``scale_factor``."""
+    cfg = make_config(load_yaml(path) or {})
+    cfg.update(overrides)
+    sf = cfg.get("scale_factor", 32)
+    for key in ("max_dimension", "min_dimension"):
+        dims = cfg.get(key)
+        if dims is not None and len(dims) != 2:
+            raise ValueError(f"{key} must be [H, W], got {dims!r}")
+        if dims and any(d % sf for d in dims):
+            raise ValueError(f"{key}={dims} must be divisible by scale_factor={sf}")
+    return cfg

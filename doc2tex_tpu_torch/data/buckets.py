@@ -6,9 +6,9 @@ pixels up to a bucket shape drawn from a small (H, W) ladder derived from
 the config's min/max dimensions, so a decode batch always has one of a
 bounded set of shapes.  The ladder must equal the one the weights were
 trained in (``bucket_growth`` of the model's version block).
-``plan_buckets`` and ``batch_plan`` give an eval loader's clusters and
-batches; the training side (over-padding promotion, shuffles) is not
-ported.
+``plan_buckets`` and ``batch_plan`` give a loader's clusters and batches,
+with the training side: over-padding promotion (``overpad_prob``) and the
+shuffles, drawn from numpy generators in the JAX package's order.
 """
 
 from __future__ import annotations
@@ -118,38 +118,62 @@ def get_size(ori_h: float, ori_w: float, config) -> tuple[int, int]:
     return int(new_h), int(new_w)
 
 
-def plan_buckets(sizes: Sequence[tuple[int, int]], config
+def plan_buckets(sizes: Sequence[tuple[int, int]], config,
+                 overpad_rng: np.random.Generator | None = None
                  ) -> tuple[BucketTable, dict[tuple[int, int], list[int]], list[int]]:
     """Assign each sample (by target size) to the smallest ladder bucket
     that holds it.  Returns (table, {bucket: [sample index, ...]} in order
     of each bucket's first sample, excluded indices: samples larger than
-    every bucket)."""
+    every bucket).
+
+    With ``overpad_rng`` (training) and ``overpad_prob`` > 0, each sample
+    is, with that probability, promoted to a random larger bucket of at
+    most ``overpad_ratio`` times its bucket's area (drawn once, when the
+    loader is built: the promotion is fixed for a run, as in the JAX
+    package)."""
     if config.get("bucket_mode", "ladder") != "ladder":
         raise NotImplementedError(f"bucket_mode {config['bucket_mode']!r} is not ported yet")
+    overpad_prob = float(config.get("overpad_prob", 0.0) or 0.0)
+    overpad_ratio = float(config.get("overpad_ratio", 4.0) or 4.0)
     table = make_ladder(config["min_dimension"], config["max_dimension"],
-                        config.get("scale_factor", 32),
-                        growth=config.get("bucket_growth", 1.5))
+                        config.get("scale_factor", 32), growth=config.get("bucket_growth", 1.5))
     clusters: dict[tuple[int, int], list[int]] = {}
     excluded: list[int] = []
     for i, (h, w) in enumerate(sizes):
         bucket = table.lookup(*get_size(h, w, config))
         if bucket is None:
             excluded.append(i)
-        else:
-            clusters.setdefault(bucket, []).append(i)
+            continue
+        if (overpad_rng is not None and overpad_prob > 0.0
+                and overpad_rng.random() < overpad_prob):
+            area = bucket[0] * bucket[1]
+            bigger = [b for b in table.shapes
+                      if b != bucket and b[0] >= bucket[0] and b[1] >= bucket[1]
+                      and b[0] * b[1] <= overpad_ratio * area]
+            if bigger:
+                bucket = bigger[int(overpad_rng.integers(len(bigger)))]
+        clusters.setdefault(bucket, []).append(i)
     return table, clusters, excluded
 
 
 def batch_plan(clusters: dict[tuple[int, int], list[int]], batch_size: int,
-               keep_smaller_batches: bool = True) -> list[tuple[tuple[int, int], list[int]]]:
-    """(bucket, sample indices) batches in eval order: each cluster in turn,
-    chunked into ``batch_size``; a ragged tail is dropped unless
-    ``keep_smaller_batches``."""
+               keep_smaller_batches: bool = True, rng: np.random.Generator | None = None,
+               shuffle: bool = False) -> list[tuple[tuple[int, int], list[int]]]:
+    """(bucket, sample indices) batches: each cluster in turn (shuffled
+    inside with ``shuffle``), chunked into ``batch_size``; a ragged tail is
+    dropped unless ``keep_smaller_batches``; with ``shuffle`` the batch
+    order is shuffled too, all from ``rng``."""
+    rng = rng or np.random.default_rng()
     batches = []
     for bucket, idxs in clusters.items():
+        idxs = list(idxs)
+        if shuffle:
+            rng.shuffle(idxs)
         for s in range(0, len(idxs), batch_size):
-            chunk = list(idxs[s : s + batch_size])
+            chunk = idxs[s : s + batch_size]
             if len(chunk) < batch_size and not keep_smaller_batches:
                 continue
             batches.append((bucket, chunk))
+    if shuffle:
+        rng.shuffle(batches)
     return batches

@@ -1,6 +1,7 @@
 """Synthetic formula crops: ``synth_hard_sample`` (the hard grammar the
-releases were trained on), ``synth_hard_dataset`` (the release eval's set)
-and the flat ``synth_sample`` (the serving selftest's load).
+releases were trained on), ``synth_hard_dataset`` (the release eval's set
+and the ``hard`` training data) and the flat ``synth_sample`` (the serving
+selftest's load) with ``synth_dataset`` (the ``flat`` training data).
 
 Copied from ``doc2tex_tpu.data.synthetic`` (numpy only), with two changes
 that keep every crop and label the same: the JAX package builds the
@@ -99,6 +100,18 @@ def synth_sample(
         region[glyph[: region.shape[0], : region.shape[1]] > 0] = ink
         x += gw + gap
     return img, " ".join(toks)
+
+
+def synth_dataset(n: int, seed: int = 0, **kwargs) -> tuple[list[np.ndarray], list[str]]:
+    """``n`` consecutive ``synth_sample`` draws from one generator seeded
+    with ``seed``."""
+    rng = np.random.default_rng(seed)
+    images, labels = [], []
+    for _ in range(n):
+        img, label = synth_sample(rng, **kwargs)
+        images.append(img)
+        labels.append(label)
+    return images, labels
 
 
 _WHITE = 255

@@ -145,5 +145,7 @@ class LSTMAttentionDecoder(nn.Module):
                                    alpha_prev=alpha)
         return new_state, logits
 
-    def forward(self, batch_h, text):
-        raise NotImplementedError("the teacher-forced pass (training) is not ported yet")
+    def forward(self, batch_h, text, train: bool = True, generator=None):
+        raise NotImplementedError(
+            "the LSTM head's teacher-forced pass (training) is not ported yet: it needs a "
+            "backward for B2's coverage form (ROADMAP A9, left item 1)")

@@ -1,5 +1,6 @@
-"""Transformer decoder head with KV-cache decoding (counterpart of
-``doc2tex_tpu.models.decoder_tfm``: ``init_state``, ``step``,
+"""Transformer decoder head: the teacher-forced pass (``forward``, for
+training and the validation loss) and KV-cache decoding (counterpart of
+``doc2tex_tpu.models.decoder_tfm``: ``__call__``, ``init_state``, ``step``,
 ``grow_decode_state``).
 
 A post-LN decoder (self-attn -> cross-attn -> relu FFN, LayerNorm eps 1e-5
@@ -21,7 +22,11 @@ Unlike the JAX package the caches and ``sel`` are updated IN PLACE (the
 step mutates and returns the state), which saves a cache copy per step.
 Types follow the JAX code: the residual stream, projections and logits are
 float32; queries, keys and values are cast to the compute type before the
-attention kernel.
+attention kernel.  The teacher-forced pass keeps JAX's attention too
+(``_mha``: plain products, float32 softmax, no fused attention call, whose
+softmax and rounding would differ): there only the queries are in the
+compute type, keys and values are the float32 products of the rounded
+inputs, as JAX's type promotion makes them.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.decode_attention import decode_attention
-from .layers import word_posenc
+from .layers import dropout, word_posenc
 
 _LAYER_PARAMS = (
     "sa_wq", "sa_wk", "sa_wv", "sa_wo", "sa_bq", "sa_bk", "sa_bv", "sa_bo",
@@ -54,12 +59,28 @@ class TFMState:
     t: int               # current step
 
 
+def _mha(q, k, v, nheads: int, mask=None):
+    """``doc2tex_tpu.models.decoder_tfm._mha``: q (B, Tq, d), k/v (B, Tk,
+    nh, hd); scores divided by sqrt(hd), softmax in float32, probabilities
+    in v's type."""
+    B, Tq, d = q.shape
+    hd = d // nheads
+    q = q.reshape(B, Tq, nheads, hd)
+    attn = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.promote_types(q.dtype, k.dtype)), k)
+    attn = (attn / math.sqrt(hd)).float()
+    if mask is not None:
+        attn = attn.masked_fill(~mask, float("-inf"))
+    attn = torch.softmax(attn, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(B, Tq, d)
+
+
 class TransformerDecoder(nn.Module):
     def __init__(self, num_classes: int, d_model: int = 256, nhead: int = 8,
                  num_decoder_layers: int = 3, dim_feedforward: int = 1024,
                  max_seq_len: int = 150, padding_idx: int = 0,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.3):
         super().__init__()
+        self.dropout = dropout
         self.d_model, self.nhead = d_model, nhead
         self.num_layers = num_decoder_layers
         self.padding_idx = padding_idx
@@ -91,6 +112,44 @@ class TransformerDecoder(nn.Module):
     def _proj(self, y, i: int, name: str):
         """y @ W + b in float32 (JAX promotes compute-type @ float32)."""
         return y.float() @ self._p(i, f"{name[:3]}w{name[3:]}") + self._p(i, f"{name[:3]}b{name[3:]}")
+
+    def _heads(self, y, i: int, name: str):
+        B, T, _ = y.shape
+        return self._proj(y, i, name).reshape(B, T, self.nhead, self.d_model // self.nhead)
+
+    def forward(self, memory, tgt_ids, train: bool = True, generator=None):
+        """Teacher-forced causal pass: memory (B, S, D), tgt_ids (B, T) ->
+        logits (B, T, V) float32.  In training the padding positions are
+        masked as keys, but key 0 always stays visible, so an all-PAD row
+        cannot make a softmax over nothing (NaN) and poison the batch's
+        loss; dropout (``generator``) follows each sublayer and the FF's
+        hidden layer."""
+        B, T = tgt_ids.shape
+        dev = tgt_ids.device
+        emb = self.word_embed[tgt_ids] * (tgt_ids != self.padding_idx)[..., None]
+        x = emb * math.sqrt(self.d_model) + self.pos_table[:T]
+        mask = torch.ones((T, T), dtype=torch.bool, device=dev).tril()[None, None]
+        if train:
+            not_pad = (tgt_ids != self.padding_idx)[:, None, None, :]
+            first = (torch.arange(T, device=dev) == 0)[None, None, None, :]
+            mask = mask & (not_pad | first)
+        mem = memory.to(self.dtype)
+        dt, rate = self.dtype, self.dropout
+
+        def drop(h):
+            return dropout(h, rate, train, generator)
+
+        for i in range(self.num_layers):
+            xd = x.to(dt)
+            h = _mha(self._proj(x, i, "sa_q").to(dt), self._heads(xd, i, "sa_k"),
+                     self._heads(xd, i, "sa_v"), self.nhead, mask)
+            x = self._ln(x + drop(self._proj(h, i, "sa_o")), i, 1)
+            h = _mha(self._proj(x, i, "ca_q").to(dt), self._heads(mem, i, "ca_k"),
+                     self._heads(mem, i, "ca_v"), self.nhead)
+            x = self._ln(x + drop(self._proj(h, i, "ca_o")), i, 2)
+            h = drop(F.relu(x.to(dt).float() @ self._p(i, "ff_w1") + self._p(i, "ff_b1")))
+            x = self._ln(x + drop(h @ self._p(i, "ff_w2") + self._p(i, "ff_b2")), i, 3)
+        return x @ self.w_proj + self.b_proj
 
     # ------------------------------------------------------------------
     def init_state(self, memory, max_steps: int, beam_size: int = 1,

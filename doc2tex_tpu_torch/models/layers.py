@@ -1,4 +1,5 @@
-"""Common layers: Dense, LayerNorm, sin-cos tables and the ViT block.
+"""Common layers: Dense, LayerNorm, sin-cos tables, dropout, drop-path and
+the ViT block.
 
 Counterparts of ``doc2tex_tpu.models.layers``.  Parameter names follow the
 flax variables (``kernel``, ``bias``, ``scale``; sub-modules named
@@ -11,6 +12,11 @@ the model's compute type (``dtype``), LayerNorm and softmax in float32.  In
 bfloat16 the rounding follows JAX's too: constants are rounded to the
 compute type (``scalar``) and the gelu rounds after each op; float32 keeps
 the fused forms.
+
+Dropout and drop-path act only when a module is called with ``train`` and
+a rate above 0; their masks are drawn from the ``torch.Generator`` the
+caller passes (on the input's device), and the kept values are divided by
+the keep rate as flax does: ``where(mask, x / keep, 0)``.
 """
 
 from __future__ import annotations
@@ -118,48 +124,85 @@ def gelu_tanh(x):
     return x * cdf
 
 
+def _keep(x, keep: float, mask):
+    return torch.where(mask, x / scalar(keep, x.dtype), torch.zeros((), dtype=x.dtype,
+                                                                      device=x.device))
+
+
+def dropout(x, rate: float, train: bool = False, generator=None):
+    """flax ``nn.Dropout(rate)``: identity at rate 0 or outside training;
+    else each element kept with probability 1 - rate."""
+    if rate == 0.0 or not train:
+        return x
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return _keep(x, keep, mask)
+
+
+def drop_path(x, rate: float, train: bool = False, generator=None):
+    """Stochastic depth (``doc2tex_tpu.models.layers.DropPath``): one keep
+    draw per sample, broadcast over the other axes."""
+    if rate == 0.0 or not train:
+        return x
+    keep = 1.0 - rate
+    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    return _keep(x, keep, mask)
+
+
 class Mlp(nn.Module):
-    def __init__(self, dim: int, hidden: int, dtype: torch.dtype):
+    def __init__(self, dim: int, hidden: int, dtype: torch.dtype, drop: float = 0.0):
         super().__init__()
+        self.drop = drop
         self.Dense_0 = Dense(dim, hidden, dtype=dtype)
         self.Dense_1 = Dense(hidden, dim, dtype=dtype)
 
-    def forward(self, x):
-        return self.Dense_1(gelu_tanh(self.Dense_0(x)))
+    def forward(self, x, train: bool = False, generator=None):
+        x = dropout(gelu_tanh(self.Dense_0(x)), self.drop, train, generator)
+        return dropout(self.Dense_1(x), self.drop, train, generator)
 
 
 class SelfAttention(nn.Module):
     """Fused-qkv multi-head self-attention: plain matmul + float32 softmax,
     as the JAX module writes it (no fused attention call)."""
 
-    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype):
+    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype,
+                 attn_drop: float = 0.0, proj_drop: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         self.dtype = dtype
+        self.attn_drop, self.proj_drop = attn_drop, proj_drop
         self.Dense_0 = Dense(dim, 3 * dim, dtype=dtype)
         self.Dense_1 = Dense(dim, dim, dtype=dtype)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False, generator=None):
         B, N, C = x.shape
         hd = C // self.num_heads
         qkv = self.Dense_0(x).reshape(B, N, 3, self.num_heads, hd)
         q, k, v = qkv.unbind(dim=2)  # (B, N, H, hd)
         attn = torch.einsum("bnhd,bmhd->bhnm", q, k) * scalar(hd ** -0.5, self.dtype)
         attn = torch.softmax(attn.float(), dim=-1).to(self.dtype)
+        attn = dropout(attn, self.attn_drop, train, generator)
         out = torch.einsum("bhnm,bmhd->bnhd", attn, v).reshape(B, N, C)
-        return self.Dense_1(out)
+        return dropout(self.Dense_1(out), self.proj_drop, train, generator)
 
 
 class Block(nn.Module):
     """Pre-LN transformer block (LayerNorm eps 1e-6)."""
 
-    def __init__(self, dim: int, num_heads: int, mlp_ratio: float, dtype: torch.dtype):
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float, dtype: torch.dtype,
+                 drop: float = 0.0, attn_drop: float = 0.0, drop_path: float = 0.0):
         super().__init__()
+        self.drop_path = drop_path
         self.LayerNorm_0 = LayerNorm(dim, 1e-6)
-        self.SelfAttention_0 = SelfAttention(dim, num_heads, dtype)
+        self.SelfAttention_0 = SelfAttention(dim, num_heads, dtype, attn_drop, drop)
         self.LayerNorm_1 = LayerNorm(dim, 1e-6)
-        self.Mlp_0 = Mlp(dim, int(dim * mlp_ratio), dtype)
+        self.Mlp_0 = Mlp(dim, int(dim * mlp_ratio), dtype, drop)
 
-    def forward(self, x):
-        x = x + self.SelfAttention_0(self.LayerNorm_0(x))
-        return x + self.Mlp_0(self.LayerNorm_1(x))
+    def forward(self, x, train: bool = False, generator=None):
+        h = self.SelfAttention_0(self.LayerNorm_0(x), train, generator)
+        x = x + drop_path(h, self.drop_path, train, generator)
+        h = self.Mlp_0(self.LayerNorm_1(x), train, generator)
+        return x + drop_path(h, self.drop_path, train, generator)

@@ -10,6 +10,10 @@ Ported stage combinations: FeatureExtraction 'None' + SequenceModeling 'ViT'
 encoder's gated products through the int8 op (``ops/quant.py``).
 
 Interface, as the JAX module's:
+- ``forward(image, text, train, generator)``: teacher-forced logits
+  (training and the validation loss; the TFM head only).  ``train`` is an
+  argument, as in JAX, not ``nn.Module.training``: decoding never runs with
+  batch statistics or dropout, whatever mode the module was left in;
 - ``encode(image)``: normalized (B, H, W, C) floats -> memory (B, S, D)
 - ``init_decode_state(enc, max_steps, beam_size, live_steps)``
 - ``decode_step(state, tokens) -> (state, logits)``
@@ -88,6 +92,7 @@ class Model(nn.Module):
                 max_seq_len=config.get("batch_max_length", 150) + 2,
                 padding_idx=0,
                 dtype=self.dtype,
+                dropout=pp.get("dropout", 0.3),
             )
 
         self.set_quantize(config.get("quantize"))
@@ -102,10 +107,17 @@ class Model(nn.Module):
         self.int8_layers = self.seqmodeler.set_int8(self.quant_parts is not None)
         return self.int8_layers
 
-    def encode(self, image):
+    def encode(self, image, train: bool = False, generator=None):
         """image: (B, H, W, C) normalized floats -> encoder memory (B, S, D)."""
-        tokens, _grid = self.seqmodeler(image.to(self.dtype))
+        tokens, _grid = self.seqmodeler(image.to(self.dtype), train, generator)
         return tokens
+
+    def forward(self, image, text, train: bool = False, generator=None):
+        """Teacher-forced logits (B, T, V) float32; ``text`` is the encoded
+        labels without their last column.  With ``train`` the BatchNorm
+        layers use (and fold in) the batch statistics and dropout draws
+        from ``generator``."""
+        return self.predicter(self.encode(image, train, generator), text, train, generator)
 
     def init_decode_state(self, enc, max_steps: int, beam_size: int = 1,
                           live_steps: int | None = None):

@@ -10,9 +10,9 @@ horizontal resolution:
   -> layer4 -> conv4_1(k2, s(2,1), p(0,1)) -> conv4_2(k2, s1, p0)
 
 Inside, the port runs NCHW convolutions (PyTorch's layout); kernels are
-stored OIHW (``weights.py`` converts flax's HWIO).  BatchNorm runs with its
-running statistics (inference only) in float32 and returns the compute
-type, as flax's BatchNorm does.
+stored OIHW (``weights.py`` converts flax's HWIO).  BatchNorm computes in
+float32 and returns the compute type, as flax's BatchNorm does: with its
+running statistics, or with ``train`` by flax's training rules (below).
 """
 
 from __future__ import annotations
@@ -73,8 +73,17 @@ class Conv(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """flax ``nn.BatchNorm(use_running_average=True, epsilon=1e-5)`` over
-    the channel axis of NCHW input."""
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over the channel
+    axis of NCHW input.
+
+    ``train=False`` normalizes with the running statistics.  ``train=True``
+    follows flax, not ``F.batch_norm(training=True)``: the batch statistics
+    are ``E[x]`` and the BIASED ``max(E[x^2] - E[x]^2, 0)`` in float32 (or
+    the input's type where it is wider, as flax computes them), both
+    used to normalize and folded into the running statistics as
+    ``0.9 * running + 0.1 * batch`` (torch would fold the unbiased variance,
+    at momentum 0.1 of the other side).  One rounding to the input's type
+    at the end, as in eval."""
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -84,12 +93,23 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
 
-    def forward(self, x):
-        # float32 arithmetic and one rounding to the input's type at the
-        # end, in one pass: flax subtracts the float32 running mean from the
-        # input, which promotes it, and casts the result to the module's type
-        return F.batch_norm(x, self.mean, self.var, self.scale, self.bias,
-                            training=False, eps=self.eps)
+    def forward(self, x, train: bool = False):
+        if not train:
+            # float32 arithmetic and one rounding to the input's type at the
+            # end, in one pass: flax subtracts the float32 running mean from
+            # the input, which promotes it, and casts the result to the
+            # module's type
+            return F.batch_norm(x, self.mean, self.var, self.scale, self.bias,
+                                training=False, eps=self.eps)
+        x32 = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = x32.mean(dim=(0, 2, 3))
+        var = torch.clamp((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.mean.copy_(0.9 * self.mean + (1 - 0.9) * mean)
+            self.var.copy_(0.9 * self.var + (1 - 0.9) * var)
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        y = (x32 - mean[None, :, None, None]) * mul[None, :, None, None]
+        return (y + self.bias[None, :, None, None]).to(x.dtype)
 
 
 class ConvBN(nn.Module):
@@ -99,8 +119,8 @@ class ConvBN(nn.Module):
         self.Conv_0 = Conv(cin, cout, kernel, stride, padding, dtype=dtype)
         self.BatchNorm_0 = BatchNorm(cout)
 
-    def forward(self, x):
-        return self.BatchNorm_0(self.Conv_0(x))
+    def forward(self, x, train: bool = False):
+        return self.BatchNorm_0(self.Conv_0(x), train)
 
 
 class BasicBlock(nn.Module):
@@ -116,9 +136,10 @@ class BasicBlock(nn.Module):
             self.Conv_0 = Conv(cin, planes, (1, 1), padding=(0, 0), dtype=dtype)
             self.BatchNorm_0 = BatchNorm(planes)
 
-    def forward(self, x):
-        out = self.ConvBN_1(F.relu(self.ConvBN_0(x)))
-        residual = self.BatchNorm_0(self.Conv_0(x)) if self.downsample else x.to(out.dtype)
+    def forward(self, x, train: bool = False):
+        out = self.ConvBN_1(F.relu(self.ConvBN_0(x, train)), train)
+        residual = (self.BatchNorm_0(self.Conv_0(x), train) if self.downsample
+                    else x.to(out.dtype))
         return F.relu(out + residual)
 
 
@@ -149,23 +170,23 @@ class FANResNet(nn.Module):
                 n, cin = n + 1, planes
             self.stages.append(names)
 
-    def _stage(self, x, i):
+    def _stage(self, x, i, train):
         for name in self.stages[i]:
-            x = getattr(self, name)(x)
+            x = getattr(self, name)(x, train)
         return x
 
-    def forward(self, x):
-        x = F.relu(self.ConvBN_0(x))
-        x = F.relu(self.ConvBN_1(x))
+    def forward(self, x, train: bool = False):
+        x = F.relu(self.ConvBN_0(x, train))
+        x = F.relu(self.ConvBN_1(x, train))
         x = F.max_pool2d(x, 2, 2)
-        x = F.relu(self.ConvBN_2(self._stage(x, 0)))
+        x = F.relu(self.ConvBN_2(self._stage(x, 0, train), train))
         x = F.max_pool2d(x, 2, 2)
-        x = F.relu(self.ConvBN_3(self._stage(x, 1)))
+        x = F.relu(self.ConvBN_3(self._stage(x, 1, train), train))
         x = F.max_pool2d(x, kernel_size=2, stride=(2, 1), padding=(0, 1))
-        x = F.relu(self.ConvBN_4(self._stage(x, 2)))
-        x = self._stage(x, 3)
-        x = F.relu(self.ConvBN_5(x))
-        return F.relu(self.ConvBN_6(x))
+        x = F.relu(self.ConvBN_4(self._stage(x, 2, train), train))
+        x = self._stage(x, 3, train)
+        x = F.relu(self.ConvBN_5(x, train))
+        return F.relu(self.ConvBN_6(x, train))
 
 
 class ResNetFeatureExtractor(nn.Module):
@@ -176,5 +197,5 @@ class ResNetFeatureExtractor(nn.Module):
         super().__init__()
         self.FANResNet_0 = FANResNet(input_channel, output_channel, dtype=dtype)
 
-    def forward(self, x):
-        return self.FANResNet_0(x)
+    def forward(self, x, train: bool = False):
+        return self.FANResNet_0(x, train)

@@ -12,11 +12,12 @@ because the weights were trained with it.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import Block, Dense, LayerNorm, sincos_2d_posembed
+from .layers import Block, Dense, LayerNorm, dropout, sincos_2d_posembed
 from .resnet import Conv, ResNetFeatureExtractor, feature_hw
 
 
@@ -53,8 +54,8 @@ class HybridEmbed(nn.Module):
                            self.patch_size, (0, 0), bias=True, dtype=dtype)
         nn.init.trunc_normal_(self.Conv_0.kernel, std=0.02)
 
-    def forward(self, x):
-        feat = self.ResNetFeatureExtractor_0(x)
+    def forward(self, x, train: bool = False):
+        feat = self.ResNetFeatureExtractor_0(x, train)
         _, _, fh, fw = feat.shape
         ph, pw = self.patch_size
         pad_h, pad_w = _ceil_to(fh, ph) - fh, _ceil_to(fw, pw) - fw
@@ -66,14 +67,19 @@ class HybridEmbed(nn.Module):
 
 
 class ViTEncoder(nn.Module):
-    """Hybrid ViT with the fixed sin-cos table ('sincos' mode)."""
+    """Hybrid ViT with the fixed sin-cos table ('sincos' mode).  The drop
+    rates act in training only; block i's drop-path rate is the i-th of
+    ``depth`` points from 0 to ``drop_path_rate``, as in the JAX module
+    (built from a config, it leaves all three at 0)."""
 
     def __init__(self, embed_dim: int = 256, depth: int = 6, num_heads: int = 8,
                  patch_size=(2, 2), max_grid=(24, 24), backbone_channels: int = 512,
                  input_channel: int = 1, mlp_ratio: float = 4.0,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, drop_rate: float = 0.0,
+                 attn_drop_rate: float = 0.0, drop_path_rate: float = 0.0):
         super().__init__()
         self.dtype = dtype
+        self.drop_rate = drop_rate
         self.HybridEmbed_0 = HybridEmbed(patch_size, embed_dim, backbone_channels,
                                          input_channel, dtype)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
@@ -82,8 +88,10 @@ class ViTEncoder(nn.Module):
             "pos_table", sincos_2d_posembed(embed_dim, *max_grid, cls_token=True),
             persistent=False)
         self.depth = depth
+        dpr = np.linspace(0.0, drop_path_rate, depth)
         for i in range(depth):
-            self.add_module(f"Block_{i}", Block(embed_dim, num_heads, mlp_ratio, dtype))
+            self.add_module(f"Block_{i}", Block(embed_dim, num_heads, mlp_ratio, dtype,
+                                                drop_rate, attn_drop_rate, float(dpr[i])))
         self.LayerNorm_0 = LayerNorm(embed_dim, 1e-6)
 
     def int8_modules(self):
@@ -104,15 +112,18 @@ class ViTEncoder(nn.Module):
                 names.append(name)
         return names
 
-    def forward(self, x):
-        """x: (B, H, W, C) -> (tokens (B, N+1, D) in the compute type, grid)."""
-        tokens, grid = self.HybridEmbed_0(x.permute(0, 3, 1, 2))
+    def forward(self, x, train: bool = False, generator=None):
+        """x: (B, H, W, C) -> (tokens (B, N+1, D) in the compute type, grid).
+        ``train`` uses the BatchNorm batch statistics (updating the running
+        ones) and the drop rates, masks drawn from ``generator``."""
+        tokens, grid = self.HybridEmbed_0(x.permute(0, 3, 1, 2), train)
         B, N, D = tokens.shape
         if N + 1 > self.pos_table.shape[0]:
             raise ValueError(f"{N} patches exceed the max-dimension grid")
         cls = self.cls_token.to(tokens.dtype).expand(B, 1, D)
         tokens = torch.cat([cls, tokens], dim=1)
         tokens = tokens + self.pos_table[: N + 1].to(tokens.dtype)[None]
+        tokens = dropout(tokens, self.drop_rate, train, generator)
         for i in range(self.depth):
-            tokens = getattr(self, f"Block_{i}")(tokens)
+            tokens = getattr(self, f"Block_{i}")(tokens, train, generator)
         return self.LayerNorm_0(tokens).to(self.dtype), grid

@@ -20,6 +20,14 @@ float32 (the release files hold float16).
 The released detector (``saved_models/math_detect``) takes the same path:
 ``detection.ssd.SSD512`` names its layers as flax does (``Conv_0`` ...
 ``Conv_38``, ``L2Norm_0``), 79 leaves in all.
+
+The other direction, for checkpoints the JAX package can read:
+``to_variables`` gives a module's ``params`` (its parameters) and
+``batch_stats`` (its persistent buffers, the BatchNorm running statistics)
+as flax nested dicts of float32 numpy arrays, conv kernels back in HWIO;
+``tree_to_flax``/``tree_from_flax`` do the same for any ``{state-dict key:
+tensor}`` dict (an optimizer's moments).  ``convert_variables(to_variables(m))``
+equals ``m.state_dict()`` bit for bit.
 """
 
 from __future__ import annotations
@@ -58,6 +66,50 @@ def convert_variables(variables: dict) -> dict[str, torch.Tensor]:
     return out
 
 
+def _leaf_to_flax(path: tuple, tensor: torch.Tensor) -> np.ndarray:
+    arr = tensor.detach().to("cpu", torch.float32).numpy().copy()
+    if path[-1] == "kernel" and arr.ndim == 4:
+        arr = np.ascontiguousarray(arr.transpose(2, 3, 1, 0))   # OIHW -> HWIO
+    return arr
+
+
+def tree_to_flax(named) -> dict:
+    """``{state-dict key: tensor}`` -> flax nested dict of numpy arrays."""
+    out: dict = {}
+    for key, tensor in named.items():
+        path = tuple(key.split("."))
+        node = out
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = _leaf_to_flax(path, tensor)
+    return out
+
+
+def tree_from_flax(tree: dict, like) -> dict[str, torch.Tensor]:
+    """A flax nested dict back to ``{key: tensor}`` with the keys, shapes,
+    types and devices of ``like``; a missing, extra or misshapen leaf raises."""
+    flat = {".".join(path): leaf for path, leaf in _flatten(tree).items()}
+    if set(flat) != set(like):
+        raise ValueError(f"tree does not fit: missing {sorted(set(like) - set(flat))[:8]}, "
+                         f"unexpected {sorted(set(flat) - set(like))[:8]}")
+    out = {}
+    for key, ref in like.items():
+        arr = np.array(flat[key], dtype=np.float32)
+        if key.split(".")[-1] == "kernel" and arr.ndim == 4:
+            arr = arr.transpose(3, 2, 0, 1)          # HWIO -> OIHW
+        if tuple(arr.shape) != tuple(ref.shape):
+            raise ValueError(f"{key}: expected shape {tuple(ref.shape)}, got {arr.shape}")
+        out[key] = torch.from_numpy(np.ascontiguousarray(arr)).to(ref.device, ref.dtype)
+    return out
+
+
+def to_variables(module: torch.nn.Module) -> dict:
+    """``module``'s flax variables: ``{"params": ..., "batch_stats": ...}``."""
+    params = dict(module.named_parameters())
+    stats = {k: v for k, v in module.state_dict().items() if k not in params}
+    return {"params": tree_to_flax(params), "batch_stats": tree_to_flax(stats)}
+
+
 def load_variables(module: torch.nn.Module, variables: dict) -> int:
     """Copy flax ``variables`` into ``module``; returns the leaf count.
 
@@ -79,5 +131,9 @@ def load_variables(module: torch.nn.Module, variables: dict) -> int:
 
 
 def load_weights(module: torch.nn.Module, path: str) -> int:
-    """Read a flax msgpack checkpoint and load it into ``module``."""
-    return load_variables(module, _msgpack.load(path))
+    """Read a flax msgpack checkpoint and load it into ``module``.  A
+    training checkpoint's ``opt_state`` (``train/checkpoint.py``) is not
+    part of the model and is skipped."""
+    variables = _msgpack.load(path)
+    variables.pop("opt_state", None)
+    return load_variables(module, variables)

@@ -2,8 +2,8 @@
 
 - the port and ``chip_smoke.py`` import with jax, flax, yaml, msgpack, PIL,
   cv2, lmdb, scipy and the JAX package blocked (none is on the GPU
-  machine), the int8, serving, release-eval, detection, page-app and
-  page-eval modules among them;
+  machine), the int8, serving, release-eval, detection, page-app,
+  page-eval and training modules among them;
 - ``chip_smoke.py`` exits non-zero, and never prints ``"ok": true``, on a
   machine without a card and from a directory without the repository;
 - chip_smoke's slice phase runs end to end on the CPU at a tiny size, for
@@ -25,12 +25,14 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = ("jax", "jaxlib", "flax", "yaml", "msgpack", "PIL", "cv2", "lmdb", "scipy",
            "doc2tex_tpu")
 # the modules of the int8 encoder, the server, the release eval, detection,
-# the page app and the page eval, which the walk below must reach
+# the page app, the page eval and training, which the walk below must reach
 REQUIRED = ("ops.quant", "serving", "api.serve", "utils.png", "data.loader", "eval.metrics",
             "engine.inferencing", "tools.release_eval", "tools.bench_int8", "detection",
             "detection.priors", "detection.windows", "detection.ssd", "detection.boxes",
             "detection.flow", "detection.evaluate", "app", "tools.page_eval",
-            "tools.profile_page")
+            "tools.profile_page", "train", "train.loss", "train.schedule", "train.optim",
+            "train.trainer", "train.checkpoint", "engine.training", "api.train",
+            "utils.common", "utils.profiling", "transforms.geometry")
 
 GUARD = textwrap.dedent(f"""
     import importlib, pkgutil, sys
@@ -70,7 +72,7 @@ def test_port_imports_nothing_the_gpu_machine_lacks():
     out = subprocess.run([sys.executable, "-c", GUARD], cwd=ROOT, env=_env(),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 58
+    assert int(out.stdout.split()[-1]) >= 69
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
