@@ -99,7 +99,29 @@ Needs one CUDA card; exits non-zero without one.  Phases, one line each:
    golden crops; (e) resuming from ``last_checkpoint.msgpack`` restores
    every tensor of the state bit for bit and gives the next step's loss bit
    for bit, with ``torch.backends.cudnn.deterministic`` on for that step.
-   Checkpoints go to a temporary directory that is removed.
+   Checkpoints go to a temporary directory that is removed;
+14. synthetic_tfm — the small TFM release (ViT 128x3, 3-layer head, hd
+   32) as phases 3 and 8 run the big one: float32 against its JAX golden
+   (>= 15 of 16), bfloat16 printed, int8 as shipped gated by
+   ``check_int8_strings``; every (B, K, M, kind) of B1 these runs launched
+   held against the plain version in bf16 and float32 (``release_phase``);
+15. synthetic_long — the same for the long-formula release: 16
+   ``synth_long_sample`` crops in its 448x960 bucket, decodes of up to 500
+   steps (KV cache grown over 5 chunks to 501 x 10 slots), B1 at self M
+   up to 5010 and cross M 1695; then B1 timed at those M, batch 16 and 64;
+16, 17. version1, version2 — the blocks that ship no weights (512-channel
+   backbone, ViT 256x6, the coverage head at width 256, kernel_dim 128) at
+   random init from seed 0 with CLAHE on (``version_phase``): crops
+   (hard, long, and two long stacked, which version1 decodes at 800x800,
+   S 2525) decoded on the card, B2 launching; every B2 launch shape held
+   against the plain version and timed; one crop at 40 steps in float32,
+   the card's tokens equal to the CPU's.  Then B2 timed at the reference
+   widths at S 1694 and 2525;
+18. infer — ``python -m doc2tex_tpu_torch.api.infer`` in this process over
+   the long golden crops as PNGs with a TSV manifest
+   (``tests/torch_port_infer_synthetic_long.yaml``: float32, beam 10): its
+   predictions.csv equal to the JAX CLI's (``tests/torch_port_golden_infer.json``)
+   on >= 15 of 16 rows, B1 launching.
 
 Then a JSON line with both kernels' numbers, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the traceback
@@ -120,9 +142,29 @@ import traceback
 TIME_LIMIT_S = 1100
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = {"synthetic_tfm_big": os.path.join(ROOT, "tests", "torch_port_golden.json"),
-          "synthetic": os.path.join(ROOT, "tests", "torch_port_golden_synthetic.json")}
-GOLDEN_INT8 = {"synthetic_tfm_big": os.path.join(ROOT, "tests", "torch_port_golden_int8.json"),
-               "synthetic": os.path.join(ROOT, "tests", "torch_port_golden_synthetic_int8.json")}
+          "synthetic": os.path.join(ROOT, "tests", "torch_port_golden_synthetic.json"),
+          "synthetic_tfm": os.path.join(ROOT, "tests", "torch_port_golden_synthetic_tfm.json"),
+          "synthetic_long": os.path.join(ROOT, "tests", "torch_port_golden_synthetic_long.json")}
+GOLDEN_INT8 = {
+    "synthetic_tfm_big": os.path.join(ROOT, "tests", "torch_port_golden_int8.json"),
+    "synthetic": os.path.join(ROOT, "tests", "torch_port_golden_synthetic_int8.json"),
+    "synthetic_tfm": os.path.join(ROOT, "tests", "torch_port_golden_synthetic_tfm_int8.json"),
+    "synthetic_long": os.path.join(ROOT, "tests", "torch_port_golden_synthetic_long_int8.json")}
+# the eval CLI's golden: the JAX package's api/infer.py over the long
+# golden crops (PNGs, a TSV manifest) with the flat config below
+GOLDEN_INFER = os.path.join(ROOT, "tests", "torch_port_golden_infer.json")
+INFER_CONFIG = os.path.join(ROOT, "tests", "torch_port_infer_synthetic_long.yaml")
+MIN_INFER_MATCH = 15
+# the version blocks without weights (the reference architecture: 512-channel
+# backbone, ViT 256x6, the coverage head at width 256, kernel_dim 128), run
+# at random init from seed 0 with CLAHE on; the card-against-CPU check
+# decodes one crop for this many steps
+VERSION_BLOCKS = ("version1", "version2")
+VERSION_CUT_STEPS = 40
+# B2 timed at the reference architecture's widths (D, H, Kl) and the S of a
+# 448x960 and an 800x800 bucket, 8 samples x beam 10
+B2_WIDE = (256, 256, 128)
+B2_WIDE_S = (1694, 2525)
 GOLDEN_PAGES = os.path.join(ROOT, "tests", "torch_port_golden_pages.json")
 # the reference's page-eval record this port is held to: 40 pages, seed 35,
 # synthetic_tfm_big int8 beam 10, float32 detector, page NMS, coalescing off
@@ -574,6 +616,87 @@ def _check_b2(name, got, ref, where):
     return worst
 
 
+def check_coverage_shapes(shapes):
+    """B2's coverage form against its plain version at each (samples, K, S,
+    D, H, Kl) of ``shapes``, float32 and bfloat16 memory, on coverage of
+    the steps COVERAGE_STEPS, valid_len None and S - 17.  Returns (checks
+    made, the worst errors as text)."""
+    import torch
+
+    from doc2tex_tpu_torch.ops.attention_step import (
+        coverage_attention_step, coverage_attention_step_reference)
+
+    worst = {"float32": (0.0, 0.0), "bfloat16": (0.0, 0.0)}
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for Bs, K, S, D, H, Kl in shapes:
+            for t in COVERAGE_STEPS:
+                kw = coverage_step_inputs(Bs, K, S, D, H, Kl, dtype, t, seed=n)
+                for valid in (None, S - 17):
+                    n += 1
+                    got = coverage_attention_step(**kw, valid_len=valid)
+                    ref = coverage_attention_step_reference(**kw, valid_len=valid)
+                    torch.cuda.synchronize()
+                    worst[name] = tuple(map(max, worst[name], _check_b2(
+                        "attention step (coverage form)", got, ref,
+                        f"{Bs} samples K {K} S {S} D{D} H{H} Kl{Kl} step {t} valid {valid} "
+                        f"{name}")))
+                    del got, ref
+                del kw
+    return n, ("max abs err " + ", ".join(
+        f"{k} {e:.3e} (at most {r:.2f} of its tolerance)" for k, (e, r) in worst.items())
+        + f"; tol {B2_TOL[0]:g} abs + {B2_TOL[1]:g} rel")
+
+
+def check_b1_shapes(t0, phase, shapes, nh, hd):
+    """B1 against its plain version at every (B, K, M, kind) a phase
+    launched it with, in bfloat16 and float32; self-attention with the mask
+    of the chunk's last step live, the densest it had."""
+    import torch
+
+    worst = {}
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).split(".")[-1]
+        worst[name] = max(check_attention(B, K, M, nh, hd, dt, kind == "self",
+                                          seed=B * 1000 + M,
+                                          step=M // K - 1 if kind == "self" else None)
+                          for B, K, M, kind in shapes)
+    log(phase, t0, f"B1 matches its plain version at the {len(shapes)} (B, K, M, kind) shapes "
+        f"launched (nh {nh}, hd {hd}): {sorted(shapes)}; max abs err "
+        + ", ".join(f"{n} {e:.3e} (tol {TOL[n][0]:g} abs + {TOL[n][1]:g} rel)"
+                    for n, e in worst.items()))
+
+
+@contextlib.contextmanager
+def recorded_launches():
+    """Record the shapes the models give the kernels' wrappers while the
+    block runs: B1's (B, K, M, kind) under ``"b1"`` and its (heads, head
+    dim, type) under ``"b1_types"``, B2's (samples, K, S, D, H, Kl) under
+    ``"b2"``.  The wrappers run as they are, counting their launches."""
+    from doc2tex_tpu_torch.models import decoder_lstm, decoder_tfm
+
+    seen = {"b1": set(), "b1_types": set(), "b2": set()}
+    attend, step = decoder_tfm.decode_attention, decoder_lstm.coverage_attention_step
+
+    def b1(q, k, v, mask=None):
+        seen["b1"].add((q.shape[0], q.shape[1], k.shape[1],
+                        "self" if mask is not None else "cross"))
+        seen["b1_types"].add((q.shape[2], q.shape[3], v.dtype))
+        return attend(q, k, v, mask)
+
+    def b2(enc, enc_proj, q, mem, loc_conv_w, *args, **kwargs):
+        seen["b2"].add((enc.shape[0], q.shape[0] // enc.shape[0], enc.shape[1], enc.shape[2],
+                        enc_proj.shape[2], loc_conv_w.shape[2]))
+        return step(enc, enc_proj, q, mem, loc_conv_w, *args, **kwargs)
+
+    decoder_tfm.decode_attention, decoder_lstm.coverage_attention_step = b1, b2
+    try:
+        yield seen
+    finally:
+        decoder_tfm.decode_attention, decoder_lstm.coverage_attention_step = attend, step
+
+
 def attention_step_phase(t0):
     """B2 against its plain versions: the feature form over the listed
     grid and the shapes of the ``synthetic`` slice (memory at the rows of
@@ -584,9 +707,7 @@ def attention_step_phase(t0):
     the slice's largest launch."""
     import torch
 
-    from doc2tex_tpu_torch.ops.attention_step import (
-        attention_step_reference, coverage_attention_step, coverage_attention_step_reference,
-        fused_attention_step)
+    from doc2tex_tpu_torch.ops.attention_step import attention_step_reference, fused_attention_step
 
     main_path = lstm_launch_shapes()
     log("kernel", t0, "attention_step launch shapes of the synthetic slice (samples, K, S, D, H, "
@@ -620,30 +741,11 @@ def attention_step_phase(t0):
     cgrid = [(Bs, K, S, D, H, Kl) for D, H, Kl in widths for S in (83, 445, 623, 2525)
              for Bs in (1, 8, 64) for K in (1, 5, 10)]
     cgrid += [shape for shape in main_path if shape not in cgrid]
-    worst = {"float32": (0.0, 0.0), "bfloat16": (0.0, 0.0)}
-    n = 0
-    for dtype in (torch.float32, torch.bfloat16):
-        name = str(dtype).split(".")[-1]
-        for Bs, K, S, D, H, Kl in cgrid:
-            for t in COVERAGE_STEPS:
-                kw = coverage_step_inputs(Bs, K, S, D, H, Kl, dtype, t, seed=n)
-                for valid in (None, S - 17):
-                    n += 1
-                    got = coverage_attention_step(**kw, valid_len=valid)
-                    ref = coverage_attention_step_reference(**kw, valid_len=valid)
-                    torch.cuda.synchronize()
-                    worst[name] = tuple(map(max, worst[name], _check_b2(
-                        "attention step (coverage form)", got, ref,
-                        f"{Bs} samples K {K} S {S} D{D} H{H} Kl{Kl} step {t} valid {valid} "
-                        f"{name}")))
-                    del got, ref
-                del kw
+    n, text = check_coverage_shapes(cgrid)
     log("kernel", t0, f"attention_step coverage form matches plain version at {n} shapes "
         "(samples {1,8,64} x K {1,5,10} x S {83,445,623,2525} x (D,H,Kl) {(128,128,64),"
         "(256,256,128)}, and the synthetic slice's shapes; x coverage of step {1,150} x valid "
-        "{None, S-17}): max abs err " + ", ".join(
-            f"{k} {e:.3e} (at most {r:.2f} of its tolerance)" for k, (e, r) in worst.items())
-        + f"; tol {B2_TOL[0]:g} abs + {B2_TOL[1]:g} rel")
+        "{None, S-17}): " + text)
 
     timings = {shape: coverage_step_timing(*shape) for shape in main_path}
     for Bs, K, S, D, H, Kl in main_path:
@@ -666,20 +768,22 @@ def attention_step_phase(t0):
 
 def golden_crops(version: str = "synthetic_tfm_big", quantize=None):
     """The 16 crops of ``version``'s golden file (the int8 one with
-    ``quantize``), regenerated from their seeds; their sha256 must match,
-    so a numpy difference fails here and not as a parity miss."""
+    ``quantize``), regenerated from their seeds with the file's generator
+    (``synth_hard_sample`` unless it names another); their sha256 must
+    match, so a numpy difference fails here and not as a parity miss."""
     import hashlib
 
     import numpy as np
 
-    from doc2tex_tpu_torch.data.synthetic import synth_hard_sample
+    from doc2tex_tpu_torch.data import synthetic
 
     with open((GOLDEN_INT8 if quantize else GOLDEN)[version]) as f:
         golden = json.load(f)
     h, w = golden["crop_max"]
+    generate = getattr(synthetic, golden.get("generator", "synth_hard_sample"))
     crops = []
     for c in golden["crops"]:
-        img, _ = synth_hard_sample(np.random.default_rng(c["seed"]), max_h=h, max_w=w)
+        img, _ = generate(np.random.default_rng(c["seed"]), max_h=h, max_w=w)
         digest = hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
         if digest != c["sha256"]:
             raise AssertionError(f"crop of seed {c['seed']} differs from the golden crop")
@@ -752,6 +856,178 @@ def slice_phase(t0, version, kernel, quantize=None):
                     f"float32 strings equal the golden on {match}/16 < {MIN_GOLDEN_MATCH}: "
                     + "; ".join(f"crop {i}: {out[i]!r} != {want[i]!r}" for i in misses))
     return counted
+
+
+def release_phase(t0, version):
+    """A TFM release that ships ``quantize: int8`` (phases 14 and 15): its
+    golden crops in float32 against the JAX golden and in bfloat16, then as
+    shipped (int8) against the JAX int8 golden (``slice_phase``), every
+    (B, K, M, kind) of B1 that these runs launched held against the plain
+    version.  Returns those (B, K, M, kind)."""
+    with recorded_launches() as seen:
+        slice_phase(t0, version, "decode_attention")
+        slice_phase(t0, version, "decode_attention", quantize="int8")
+    (nh, hd), = {t[:2] for t in seen["b1_types"]}
+    check_b1_shapes(t0, version, seen["b1"], nh, hd)
+    return seen["b1"]
+
+
+def long_timings(t0, shapes):
+    """B1 timed at the ``synthetic_long`` phase's largest self-attention M,
+    at the full cache of a 500-token decode (M 5010, which the release
+    eval's longest labels reach) and at the phase's cross-attention M, at
+    batch 16 (the release eval's) and 64 (the 16-crop call's snapped
+    batch), beam 10."""
+    M_self = max(M for _, _, M, kind in shapes if kind == "self")
+    M_cross = max(M for _, _, M, kind in shapes if kind == "cross")
+    for B in (16, 64):
+        for M, masked in dict.fromkeys(((M_self, True), (5010, True), (M_cross, False))):
+            timing = attention_timing(B, 10, M, masked, M // 10 - 1 if masked else None)
+            log("synthetic_long", t0, f"B1 {timing['text']}")
+            print(json.dumps({"b1_long": {k: v for k, v in timing.items() if k != "text"}
+                              | {"B": B, "K": 10, "M": M, "masked": masked}}),
+                  file=sys.stderr, flush=True)
+
+
+def version_crops():
+    """Crops for the version phases: two golden hard crops, a long golden
+    crop and two long crops stacked (about 800x940, which ``version1``
+    decodes in its 800x800 bucket)."""
+    import numpy as np
+
+    _, hard = golden_crops("synthetic")
+    _, long = golden_crops("synthetic_long")
+    a, b = long[0], long[1]
+    w = max(a.shape[1], b.shape[1])
+    tall = np.full((a.shape[0] + b.shape[0], w), 255, np.uint8)
+    tall[:a.shape[0], :a.shape[1]] = a
+    tall[a.shape[0]:, :b.shape[1]] = b
+    return [hard[0], hard[1], long[2], tall]
+
+
+def version_phase(t0, version, crops, device="cuda"):
+    """``version`` (phases 16 and 17): a block that ships no weights, at
+    full width from a seeded random init (as the JAX package runs it),
+    CLAHE on, bfloat16 as the block leaves it, beam 10: ``crops`` decoded
+    on the card, B2 launching; every B2 launch shape held against the plain
+    version; then one crop decoded for VERSION_CUT_STEPS steps in float32 on
+    the card and on the CPU from the same init: equal tokens.  A test
+    passes ``device="cpu"`` (and a tiny block) to rehearse the phase: the
+    kernel checks and timings need the card and are left out."""
+    import copy
+
+    import torch
+
+    from doc2tex_tpu_torch.ops.attention_step import coverage_attention_step
+    from doc2tex_tpu_torch.recognition import MathRecognition, load_recog_config
+
+    cfg, weights = load_recog_config(version=version)
+    if weights is not None:
+        raise AssertionError(f"{version} ships weights {weights}; the phase expects none")
+    cuda = device != "cpu"
+    rec = MathRecognition(copy.deepcopy(cfg), None, beam_size=10, device=device)
+    if not rec.use_clahe or rec.model.head == "TFM":
+        raise AssertionError(f"{version}: CLAHE {rec.use_clahe}, head {rec.model.head}")
+    buckets = sorted({rec.bucket_key(c) for c in crops})
+    with recorded_launches() as seen:
+        coverage_attention_step.launches = 0
+        t = time.perf_counter()
+        out = rec(crops)
+        if cuda:
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launches = coverage_attention_step.launches
+    if (cuda and launches <= 0) or not all(isinstance(x, str) for x in out):
+        raise AssertionError(f"{version}: {launches} attention_step launches, {out!r:.200}")
+    log(version, t0, f"random init (seed 0), CLAHE on, {cfg['dtype']}, beam 10, "
+        f"batch_max_length {cfg['batch_max_length']}: {len(crops)} crops "
+        f"{[c.shape for c in crops]} in buckets {buckets} decoded in {seconds:.2f} s, "
+        f"{launches} attention_step launches; B2 shapes (samples, K, S, D, H, Kl) "
+        f"{sorted(seen['b2'])}; strings {[len(x.split()) for x in out]} tokens long")
+    if cuda:
+        n, text = check_coverage_shapes(sorted(seen["b2"]))
+        log(version, t0, f"attention_step coverage form matches plain version at {n} checks of "
+            f"the phase's shapes (x coverage of step {{1,150}} x valid {{None, S-17}}): {text}")
+        for shape in sorted(seen["b2"]):
+            log(version, t0, f"attention_step (path) {coverage_step_timing(*shape)['text']}")
+
+    cut = dict(copy.deepcopy(cfg), batch_max_length=VERSION_CUT_STEPS, dtype="float32")
+    tokens = {}
+    for dev in dict.fromkeys((device, "cpu")):
+        r = MathRecognition(copy.deepcopy(cut), None, beam_size=10, device=dev)
+        prepped = [r._preprocess(crops[0])]
+        (bucket, _), = r.group(prepped).items()
+        tokens[dev] = r._decode(r.make_batch(prepped, bucket))[0].cpu()
+    if not torch.equal(tokens[device], tokens["cpu"]):
+        raise AssertionError(f"{version}: the card's tokens differ from the CPU's at "
+                             f"{VERSION_CUT_STEPS} steps")
+    log(version, t0, f"float32, {VERSION_CUT_STEPS} steps, crop {crops[0].shape} in bucket "
+        f"{bucket}: the card's beam-10 tokens equal the CPU's ({tuple(tokens['cpu'].shape)})")
+    return launches, seen["b2"]
+
+
+def write_manifest(directory, crops, labels, names) -> str:
+    """The crops as PNGs in ``directory`` and a TSV manifest (name, label;
+    a header row) beside them, as the eval CLI reads them; returns the
+    manifest's path."""
+    from doc2tex_tpu_torch.utils.png import encode_png
+
+    for img, name in zip(crops, names):
+        with open(os.path.join(directory, name), "wb") as f:
+            f.write(encode_png(img))
+    path = os.path.join(directory, "labels.tsv")
+    with open(path, "w", newline="") as f:
+        f.write("name\tlabel\n")
+        f.writelines(f"{n}\t{lb}\n" for n, lb in zip(names, labels))
+    return path
+
+
+def infer_manifest(directory):
+    """The long golden crops written by ``write_manifest``, named by
+    seed; returns (manifest path, the golden file)."""
+    golden, crops = golden_crops("synthetic_long")
+    names = [f"long_{c['seed']:05d}.png" for c in golden["crops"]]
+    return write_manifest(directory, crops, [c["label"] for c in golden["crops"]], names), golden
+
+
+def infer_phase(t0):
+    """The eval CLI's twin (phase 18): ``python -m
+    doc2tex_tpu_torch.api.infer`` in this process, from the repository
+    root, over the long golden crops as PNGs with a TSV manifest and the
+    flat config INFER_CONFIG (``synthetic_long``'s block, float32, beam 10):
+    its predictions.csv equal to the JAX CLI's (GOLDEN_INFER) on at least
+    MIN_INFER_MATCH of 16 rows, B1 launching."""
+    import csv
+    import tempfile
+
+    from doc2tex_tpu_torch.api import infer
+    from doc2tex_tpu_torch.ops.decode_attention import decode_attention
+
+    with open(GOLDEN_INFER) as f:
+        want = {r["name"]: r["pred"] for r in json.load(f)["rows"]}
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(ROOT):
+        manifest, _ = infer_manifest(tmp)
+        out_dir = os.path.join(tmp, "out")
+        decode_attention.launches = 0
+        t = time.perf_counter()
+        infer.main(["--config", os.path.relpath(INFER_CONFIG, ROOT), "--csv_dir", manifest,
+                    "--data_dir", tmp, "--log_path", out_dir])
+        seconds = time.perf_counter() - t
+        launches = decode_attention.launches
+        with open(os.path.join(out_dir, "predictions.csv"), newline="") as f:
+            got = {r["name"]: r["pred"] for r in csv.DictReader(f)}
+        with open(os.path.join(out_dir, "metrics.json")) as f:
+            metrics = json.load(f)
+    match = sum(got.get(name) == pred for name, pred in want.items())
+    log("infer", t0, f"api.infer over {len(got)} PNGs ({os.path.relpath(INFER_CONFIG, ROOT)}): "
+        f"{match}/{len(want)} predictions equal to the JAX CLI's; EM {metrics['accuracy']:.4f}, "
+        f"BLEU {metrics['bleu']:.4f}, {metrics['images_per_sec']:.2f} images/s, {seconds:.1f} s "
+        f"with set-up; {launches} decode_attention launches")
+    if launches <= 0:
+        raise AssertionError("the infer CLI launched decode_attention 0 times")
+    if match < MIN_INFER_MATCH:
+        raise AssertionError(f"infer: {match}/{len(want)} predictions equal the JAX CLI's "
+                             f"(need {MIN_INFER_MATCH})")
 
 
 def int8_clone(layer, dtype, device):
@@ -1245,7 +1521,6 @@ def train_phase(t0, cfg=None, weights=TFM_BIG_WEIGHTS, recog=None, crops=None,
 
     from doc2tex_tpu_torch.engine.inferencing import validation
     from doc2tex_tpu_torch.engine.training import init_training, train
-    from doc2tex_tpu_torch.models import decoder_tfm
     from doc2tex_tpu_torch.ops.decode_attention import decode_attention
     from doc2tex_tpu_torch.recognition import MathRecognition, load_recog_config
     from doc2tex_tpu_torch.data.loader import ArrayDataset, BucketLoader
@@ -1311,24 +1586,14 @@ def train_phase(t0, cfg=None, weights=TFM_BIG_WEIGHTS, recog=None, crops=None,
     if val["n_samples"] == 0 or (weights and val["accuracy"] < TRAIN_MIN_SHIPPED_EM):
         raise AssertionError("(c) the shipped weights do not decode the validation set")
     del shipped
-    shapes, types = set(), set()
-    original = decoder_tfm.decode_attention
-
-    def recorded(q, k, v, mask=None):
-        shapes.add((q.shape[0], q.shape[1], k.shape[1], "self" if mask is not None else "cross"))
-        types.add((q.shape[2], q.shape[3], v.dtype))
-        return original(q, k, v, mask)
-
     with tempfile.TemporaryDirectory() as log_dir:
         bundle = init_training(copy.deepcopy(run_cfg), device=device)
-        decoder_tfm.decode_attention = recorded
         decode_attention.launches = 0
-        try:
+        with recorded_launches() as seen:
             t_run = time.perf_counter()
             metrics = train(run_cfg, log_dir, device=device, bundle=bundle)
             t_run = time.perf_counter() - t_run
-        finally:
-            decoder_tfm.decode_attention = original
+        shapes, types = seen["b1"], seen["b1_types"]
         launches = decode_attention.launches
         ks = sorted({s[1] for s in shapes})
         log("train", t0, f"(c) {run_cfg['num_iter']} steps from the shipped weights (their "
@@ -1341,7 +1606,7 @@ def train_phase(t0, cfg=None, weights=TFM_BIG_WEIGHTS, recog=None, crops=None,
             raise AssertionError(f"(c) validation launched B1 {launches} times at K {ks}, "
                                  f"(heads, head dim, type) {types}")
         if cuda:
-            _check_validation_shapes(t0, shapes, *types.pop())
+            _check_validation_shapes(t0, shapes, *types.pop()[:2])
 
         # (d) the best checkpoints in MathRecognition
         rcfg = copy.deepcopy(recog or load_recog_config(version="synthetic_tfm_big")[0])
@@ -1392,23 +1657,11 @@ def train_phase(t0, cfg=None, weights=TFM_BIG_WEIGHTS, recog=None, crops=None,
             raise AssertionError("(e) the resumed run differs from the uninterrupted one")
 
 
-def _check_validation_shapes(t0, shapes, nh, hd, dtype):
-    """B1 against its plain version at every (B, K, M, kind) the
-    validation launched it with, in the validation's type and in float32
-    (self-attention with the chunk's last step live, the densest mask it
-    had); then timed at the largest self and cross shapes (CUDA graphs)."""
-    import torch
-
-    worst = {}
-    for dt in dict.fromkeys((dtype, torch.float32)):
-        name = str(dt).split(".")[-1]
-        worst[name] = max(check_attention(B, K, M, nh, hd, dt, kind == "self",
-                                          seed=B * 1000 + M, step=M - 1 if kind == "self" else None)
-                          for B, K, M, kind in shapes)
-    log("train", t0, f"(c) B1 matches its plain version at the validation's {len(shapes)} "
-        f"shapes (nh {nh}, hd {hd}): max abs err "
-        + ", ".join(f"{n} {e:.3e} (tol {TOL[n][0]:g} abs + {TOL[n][1]:g} rel)"
-                    for n, e in worst.items()))
+def _check_validation_shapes(t0, shapes, nh, hd):
+    """(c): B1 against its plain version at every (B, K, M, kind) the
+    validation launched it with (``check_b1_shapes``); then timed at the
+    largest self and cross shapes (CUDA graphs)."""
+    check_b1_shapes(t0, "train", shapes, nh, hd)
     B, K, M, _ = max((s for s in shapes if s[3] == "self"), key=lambda s: (s[2], s[0]))
     S = max(s[2] for s in shapes if s[3] == "cross")
     for shape in ((B, K, M, True, M - 1), (B, K, S, False, None)):
@@ -1473,6 +1726,15 @@ def main() -> int:
     detect_phase(t0)
     page_phase(t0)
     train_phase(t0)
+    release_phase(t0, "synthetic_tfm")
+    long_timings(t0, release_phase(t0, "synthetic_long"))
+    crops = version_crops()
+    for version in VERSION_BLOCKS:
+        version_phase(t0, version, crops)
+    for S in B2_WIDE_S:
+        log("kernel", t0, "attention_step (reference widths, 8 crops x beam 10) "
+            + coverage_step_timing(8, 10, S, *B2_WIDE)["text"])
+    infer_phase(t0)
     print(json.dumps({"kernels": records}), flush=True)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,6 +1,8 @@
 """Synthetic formula crops: ``synth_hard_sample`` (the hard grammar the
 releases were trained on), ``synth_hard_dataset`` (the release eval's set
-and the ``hard`` training data) and the flat ``synth_sample`` (the serving
+and the ``hard`` training data), ``synth_long_sample`` and
+``synth_long_dataset`` (multi-line displays up to 500 tokens on 448x960
+canvases, the ``synthetic_long`` release's eval set) and the flat ``synth_sample`` (the serving
 selftest's load) with ``synth_dataset`` (the ``flat`` training data).
 
 Copied from ``doc2tex_tpu.data.synthetic`` (numpy only), with two changes
@@ -536,6 +538,120 @@ def synth_hard_dataset(n: int, seed: int = 0, **kwargs) -> tuple[list[np.ndarray
         labels.append(label)
     return images, labels
 
+
+def synth_long_sample(
+    rng: np.random.Generator,
+    min_len: int = 120,
+    max_len: int = 500,
+    max_h: int = 448,
+    max_w: int = 960,
+    noise: float = 1.0,
+    fonts: int = _HARD_FONTS,
+    scale: int = 3,
+) -> tuple[np.ndarray, str]:
+    """One LONG multi-line (image, label) of the reference eval contract's
+    regime (``config/test.yaml``: 448x960 canvases, decode up to 500
+    tokens): the ``synthetic_long`` release's eval set.
+
+    Layout: an align-style display — K left-aligned lines stacked
+    vertically, labelled as a single-column ``matrix`` environment (rows
+    joined by ``\\\\``), which keeps the label inside the released
+    ``hard_vocab`` (no new embedding rows; the shipped checkpoints can be
+    fine-tuned directly).  Each line is a ``_HardGen`` expression at
+    shallow depth, so height stays bounded while token count climbs; lines
+    are added until the sampled token target or the canvas height is
+    reached — fit by construction, labels exactly decodable from pixels
+    (same contract as ``synth_hard_sample``)."""
+    target = int(rng.integers(min_len, max_len + 1))
+    ink = int(rng.integers(0, 60))
+    pad = int(rng.integers(2, 8))
+    gap = 3 * scale
+    lines: list[tuple[np.ndarray, list[str]]] = []
+    n_toks = 2  # \begin{matrix} ... \end{matrix}
+    h_used = 2 * pad
+    for _ in range(96):
+        room = target - n_toks - (1 if lines else 0)
+        if room < 8:
+            break
+        # a row = 1-2 cells ('&'-separated) for token density: two
+        # side-by-side expressions double tokens-per-row at the same
+        # height, the way real align displays carry eq + annotation
+        n_cells = 2 if room >= 64 and rng.random() < 0.6 else 1
+        cells: list[tuple[np.ndarray, list[str]]] = []
+        for _c in range(n_cells):
+            cell_budget = min(int(rng.integers(28, 64)),
+                              max(room // n_cells - 1, 8))
+            gen = _HardGen(rng, scale, ink, max_tokens=cell_budget,
+                           max_depth=2, fonts=fonts)
+            # a group may hold at most ONE infix command (\over/\choose —
+            # KaTeX Parser.js:191); the flat grammar's short groups dodge
+            # that, long '&'-joined rows would not: drop infix terminals
+            gen.terms = [t for t in gen.terms if t not in ("\\over", "\\choose")]
+            # depth starts at 1: no matrix envs INSIDE a line (they need
+            # depth 0), so line height stays a few glyph rows and the
+            # token target — not canvas height — bounds the sample.
+            # expr() draws a uniform atom count, which underfills long
+            # cells — keep appending chunks until the budget is spent
+            imgs_c: list[np.ndarray] = []
+            toks: list[str] = []
+            while gen.budget > 2:
+                im, tk = gen.expr(1, 6)
+                imgs_c.append(im)
+                toks.extend(tk)
+            img = _hstack(imgs_c, gap=2 * scale)
+            if toks and img.shape[0] <= 22 * scale:
+                cells.append((img, toks))
+        if not cells:
+            continue
+        row_h = max(im.shape[0] for im, _ in cells)
+        row_w = sum(im.shape[1] for im, _ in cells) + 8 * scale * (len(cells) - 1)
+        if row_w > max_w - 2 * pad:
+            continue  # too wide: resample the row
+        if h_used + row_h + (gap if lines else 0) > max_h - 2 * pad:
+            break
+        row_img = np.full((row_h, row_w), _WHITE, np.uint8)
+        x = 0
+        row_toks: list[str] = []
+        for ci, (im, toks) in enumerate(cells):
+            if ci:
+                row_toks.append("&")
+            y0 = (row_h - im.shape[0]) // 2
+            row_img[y0 : y0 + im.shape[0], x : x + im.shape[1]] = im
+            x += im.shape[1] + 8 * scale
+            row_toks.extend(toks)
+        h_used += row_h + (gap if lines else 0)
+        n_toks += len(row_toks) + (1 if lines else 0)
+        lines.append((row_img, row_toks))
+    if not lines:  # degenerate canvas budget: one guaranteed-small line
+        gen = _HardGen(rng, scale, 0, max_tokens=8, max_depth=0, fonts=fonts)
+        img, toks = gen.expr(0, max_atoms=4)
+        lines = [(img, toks)]
+    w = max(img.shape[1] for img, _ in lines) + 2 * pad
+    h = sum(img.shape[0] for img, _ in lines) + gap * (len(lines) - 1) + 2 * pad
+    canvas = np.full((max(h, 24), max(w, 32)), _WHITE, np.uint8)
+    y = pad
+    label_toks = ["\\begin{matrix}"]
+    for i, (img, toks) in enumerate(lines):
+        canvas[y : y + img.shape[0], pad : pad + img.shape[1]] = img
+        y += img.shape[0] + gap
+        if i:
+            label_toks.append("\\\\")
+        label_toks.extend(toks)
+    label_toks.append("\\end{matrix}")
+    canvas = apply_render_noise(canvas, rng, level=noise, scale=scale)
+    return canvas, " ".join(label_toks)
+
+
+def synth_long_dataset(n: int, seed: int = 0, **kwargs) -> tuple[list[np.ndarray], list[str]]:
+    """``n`` consecutive ``synth_long_sample`` draws from one generator
+    seeded with ``seed``."""
+    rng = np.random.default_rng(seed)
+    images, labels = [], []
+    for _ in range(n):
+        img, label = synth_long_sample(rng, **kwargs)
+        images.append(img)
+        labels.append(label)
+    return images, labels
 
 def hard_vocab() -> list[str]:
     """The hard grammar's full vocabulary, the released ``version2`` one:

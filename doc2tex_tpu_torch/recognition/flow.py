@@ -1,7 +1,8 @@
 """Per-crop math recognition (counterpart of
 ``doc2tex_tpu.recognition.flow``).
 
-Crops are preprocessed, grouped into the bucket ladder the weights were
+Crops are preprocessed (grey, CLAHE where the version block leaves it on,
+the resize), grouped into the bucket ladder the weights were
 trained in (``bucket_growth`` of the model's version block), optionally
 coalesced into containing buckets, batched on a {1, 8, 64, ...} ladder and
 decoded on the device; tokens are cut at [s], joined and postprocessed.
@@ -24,7 +25,7 @@ from ..latex.postprocess import postprocess_prediction
 from ..models import build_model
 from ..ops.quant import parts_for_mode
 from ..tokenizer.converters import create_converter
-from ..transforms.preprocess import minmax_size, resize_for_inference
+from ..transforms.preprocess import clahe, minmax_size, resize_for_inference
 from ..weights import load_weights
 
 __all__ = ["MathRecognition", "load_recog_config", "coalesce_groups",
@@ -101,21 +102,23 @@ class MathRecognition:
         weights_path: Optional[str] = None,
         beam_size: Optional[int] = None,
         seed: int = 0,
+        use_clahe: Optional[bool] = None,
         device="cuda",
         coalesce_ratio: Optional[float] = None,
     ):
         """``seed`` seeds the random init used when ``weights_path`` is
-        None.  ``quantize`` in the config is ``int8`` (the encoder's gated
-        products in int8, as every release ships) or None; the modes that
-        quantize decoder memory raise, as does ``clahe`` (on unless the
-        config turns it off): neither is ported yet.  ``coalesce_ratio``
-        overrides the config's."""
+        None.  ``use_clahe`` overrides the config's ``clahe`` (on unless the
+        block turns it off, as the releases trained without it do): CLAHE
+        (clip 2, a 2x2 grid) before the resize, as the reference's demo
+        recognizer applies it.  ``quantize`` in the config is ``int8`` (the
+        encoder's gated products in int8, as every release ships) or None;
+        the modes that quantize decoder memory raise: they are not ported
+        yet.  ``coalesce_ratio`` overrides the config's."""
         if config is None:
             raise ValueError("MathRecognition needs a config (see load_recog_config)")
         self.config = config
         self.device = device
-        if self.config.get("clahe", True):
-            raise NotImplementedError("CLAHE preprocessing is not ported yet")
+        self.use_clahe = bool(self.config.get("clahe", True) if use_clahe is None else use_clahe)
         parts_for_mode(self.config.get("quantize"))  # refuses what is not ported, early
         self.coalesce_ratio = float(
             coalesce_ratio if coalesce_ratio is not None
@@ -157,6 +160,8 @@ class MathRecognition:
     def _preprocess(self, image: np.ndarray) -> np.ndarray:
         if image.ndim == 3:
             image = np.round(image.astype(np.float32).mean(axis=-1)).astype(np.uint8)
+        if self.use_clahe:
+            image = clahe(image, clip_limit=2.0, grid=(2, 2))
         return resize_for_inference(image, self.config)
 
     @staticmethod

@@ -1,13 +1,17 @@
 """Device time of the beam decode attention kernel (B1) on a CUDA card.
 
     python -m doc2tex_tpu_torch.tools.bench_decode_attention [--sweep] [--phases]
-        [--against OTHER_CHECKOUT]
+        [--against OTHER_CHECKOUT] [--long]
 
 Times the kernel in bf16 at the shapes of the ``synthetic_tfm_big`` main
 path (batch 64, beam 10, nh 8, hd 32: self-attention at M 310, 620, 930 and
 1510 with a beam-ancestry mask at the step that ends each cache chunk, and
 cross-attention at M 623) and where ``launch_plan`` splits M (batch 1 and
-8; M 5010).  Each time is one launch's share of a CUDA graph of 20
+8; M 5010); with ``--long`` at the ``synthetic_long`` decode's shapes
+instead (batch 16, the release eval's, and 64, a 16-crop call's snapped
+batch: self-attention at the end of each of the 5 cache chunks of a
+501-step decode, M up to 5010, and cross-attention over a 448x960
+bucket, M 1695).  Each time is one launch's share of a CUDA graph of 20
 launches, so no host time between launches is counted.  ``--sweep`` also
 times every plan that fits (cluster 1..8 x ring of 2 to 6 tiles) and prints
 the fastest beside ``launch_plan``'s.  ``--phases`` builds a copy of the
@@ -41,6 +45,9 @@ SHAPES = (  # (B, K, M, step; None = no mask)
     (64, 10, 623, None), (1, 10, 1510, 150), (8, 10, 1510, 150), (1, 10, 623, None),
     (8, 10, 623, None), (1, 10, 5010, 500), (64, 10, 5010, 500),
 )
+LONG_SHAPES = tuple((B, 10, end * 10, end - 1) for B in (16, 64)
+                    for end in (101, 202, 303, 404, 501)) + ((16, 10, 1695, None),
+                                                             (64, 10, 1695, None))
 PHASES = ("mask and queries", "pass 1 (Q.K)", "row max", "exp and row sum", "normalise",
           "pass 2 (P.V)", "output")
 # phase boundaries in csrc/decode_attention.cu: (text, stamp after it)
@@ -205,6 +212,8 @@ def main() -> None:
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--phases", action="store_true")
     ap.add_argument("--against", default=None, metavar="OTHER_CHECKOUT")
+    ap.add_argument("--long", action="store_true",
+                    help="the synthetic_long decode's shapes in place of the main path's")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("bench_decode_attention needs a CUDA card")
@@ -213,7 +222,7 @@ def main() -> None:
     print(f"{torch.cuda.get_device_name(0)}; nvidia-smi: {smi}", flush=True)
     print(ptxas_summary(b1.build()), flush=True)
     lib = timed_library() if args.phases else None
-    for B, K, M, step in SHAPES:
+    for B, K, M, step in (LONG_SHAPES if args.long else SHAPES):
         q, k, v, mask = inputs(B, K, M, step)
         plan = b1.launch_plan(B, K, M, 8, 32, torch.bfloat16)
         ms = graph_ms(lambda: b1.launch(q, k, v, mask, plan))

@@ -4,10 +4,12 @@
         [--crops 16] [--beam 10] [--dtype bfloat16] [--quantize int8] [--out result.json]
 
 Runs MathRecognition with the released weights of ``--version``
-(``synthetic_tfm_big``, the TFM head, or ``synthetic``, the coverage-LSTM
-head; ``--quantize int8`` as the releases ship, unquantized by default) on
-seeded synthetic crops (the first ``--crops`` seeds whose crop
-needs no resize, as ``chip_smoke.py`` uses), once to warm up, once timed,
+(``synthetic_tfm_big``, ``synthetic_tfm`` or ``synthetic_long``, the TFM
+head, or ``synthetic``, the coverage-LSTM head; ``--quantize int8`` as the
+releases ship, unquantized by default) on seeded synthetic crops (the first
+``--crops`` seeds whose crop needs no resize, as ``chip_smoke.py`` uses;
+for ``synthetic_long`` the long generator's seeds 0, 1, ..., its golden
+crops), once to warm up, once timed,
 and once under ``torch.profiler``.  Prints and writes: wall time, crops/s,
 the device's busy time (sum of kernel times; one stream) and idle share,
 the encoder's time on the batches the main path builds (mean of 20
@@ -24,9 +26,10 @@ import os
 import subprocess
 import time
 
+import numpy as np
 import torch
 
-from ..data.synthetic import seeded_crops
+from ..data.synthetic import seeded_crops, synth_long_sample
 from ..ops.attention_step import coverage_attention_step
 from ..ops.decode_attention import decode_attention
 from ..recognition import MathRecognition, load_recog_config
@@ -52,7 +55,10 @@ def profile(version: str, n_crops: int, beam: int, dtype: str, quantize=None) ->
     cfg["dtype"] = dtype
     cfg["quantize"] = quantize
     rec = MathRecognition(cfg, weights, beam_size=beam, device="cuda")
-    crops = [img for _, img, _ in seeded_crops(n_crops)]
+    if version == "synthetic_long":     # its 448x960 regime: the long generator's seeds 0, 1, ...
+        crops = [synth_long_sample(np.random.default_rng(s))[0] for s in range(n_crops)]
+    else:
+        crops = [img for _, img, _ in seeded_crops(n_crops)]
     rec(crops)
     torch.cuda.synchronize()
 
@@ -115,7 +121,8 @@ def profile(version: str, n_crops: int, beam: int, dtype: str, quantize=None) ->
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--version", default="synthetic_tfm_big",
-                    choices=["synthetic_tfm_big", "synthetic"])
+                    choices=["synthetic_tfm_big", "synthetic", "synthetic_tfm",
+                             "synthetic_long"])
     ap.add_argument("--crops", type=int, default=16)
     ap.add_argument("--beam", type=int, default=10)
     ap.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])

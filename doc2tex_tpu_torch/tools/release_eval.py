@@ -2,16 +2,21 @@
 intervals (the port's twin of the repository's ``tools/release_eval.py``).
 
     python -m doc2tex_tpu_torch.tools.release_eval --family attn         # `synthetic`
+    python -m doc2tex_tpu_torch.tools.release_eval --family tfm          # `synthetic_tfm`
     python -m doc2tex_tpu_torch.tools.release_eval --family tfm --big    # `synthetic_tfm_big`
-        [--n_gen 1536] [--modes bf16,int8] [--out result.json] [--device cuda]
+    python -m doc2tex_tpu_torch.tools.release_eval --long                # `synthetic_long`
+        [--n_gen N] [--modes bf16,int8] [--out result.json] [--device cuda]
 
 The same evaluation as the JAX package's: the model configuration the
 release was trained with (``tools/structured_soak.py::build`` with
-``hard=True``: batch 32, bucket growth 2.2, ragged batches dropped),
-``--n_gen`` fresh samples of the hard generator at the soak's operating
-point drawn with seed 33 (never used in training), beam 5, every loader
-batch decoded as it is, exact match and edit metrics as ``validation``
-computes them.  1536 generated samples keep 1440 after the trim.
+``hard=True``: batch 32, bucket growth 2.2, ragged batches dropped; with
+``long=True``: 448x960, ``batch_max_length`` 500, batch 16, growth 4.0),
+``--n_gen`` fresh samples drawn with seed 33 (never used in training) from
+the hard generator at the soak's operating point, or with ``--long`` from
+``synth_long_dataset`` at its defaults, beam 5, every loader batch decoded
+as it is, exact match and edit metrics as ``validation`` computes them.
+1536 generated hard samples (the default) keep 1440 after the trim; the
+768 long samples of ``--long``'s default all keep.
 
 Modes: ``bf16`` (bfloat16, unquantized), ``int8`` (bfloat16 with the int8
 encoder, as the releases ship), ``f32`` and ``f32_int8``.  The weights must
@@ -35,7 +40,7 @@ import torch
 
 from ..config import make_config
 from ..data.loader import ArrayDataset, BucketLoader
-from ..data.synthetic import hard_vocab, synth_hard_dataset
+from ..data.synthetic import hard_vocab, synth_hard_dataset, synth_long_dataset
 from ..decode.runner import make_decode_fn
 from ..engine.inferencing import validation
 from ..models import build_model
@@ -49,13 +54,17 @@ EVAL_SEED = 33
 # the soak's calibrated operating point (tools/release_eval.py)
 GENERATOR = {"min_len": 8, "max_len": 150, "max_h": 220, "max_w": 696, "scale_range": (3, 5)}
 BEAM = 5
+# the long samples all fall in the 448x960 bucket, so the reference record's
+# n 768 is 768 generated
+LONG_N_GEN = 768
 MODES = {"bf16": ("bfloat16", None), "int8": ("bfloat16", "int8"),
          "f32": ("float32", None), "f32_int8": ("float32", "int8")}
 
 
-def soak_config(family: str = "attn", big: bool = False) -> dict:
+def soak_config(family: str = "attn", big: bool = False, long: bool = False) -> dict:
     """The configuration ``tools/structured_soak.py::build(steps, hard=True,
-    family=family, big=big)`` gives (its training-only keys left out)."""
+    family=family, big=big, long=long)`` gives (its training-only keys
+    left out)."""
     if family == "tfm":
         prediction = {"name": "TFM", "params": {
             "d_model": 256 if big else 128, "nhead": 8 if big else 4,
@@ -68,8 +77,9 @@ def soak_config(family: str = "attn", big: bool = False) -> dict:
             "embed_target": True, "enc_init": True, "attn_type": "coverage",
             "droprate": 0.1}}
     return make_config(dict(
-        max_dimension=[224, 704], min_dimension=[32, 32], batch_max_length=150,
-        batch_size=32, augment=False, keep_smaller_batches=False, bucket_growth=2.2,
+        max_dimension=[448, 960] if long else [224, 704], min_dimension=[32, 32],
+        batch_max_length=500 if long else 150, batch_size=16 if long else 32,
+        augment=False, keep_smaller_batches=False, bucket_growth=4.0 if long else 2.2,
         FeatureExtraction={"name": "None"},
         SequenceModeling={"name": "ViT", "params": {
             "backbone": {"name": "resnet", "input_channel": 1,
@@ -101,17 +111,26 @@ def card() -> dict:
     return {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
 
 
-def evaluate(family: str = "attn", big: bool = False, n_gen: int = 1536,
-             modes=("bf16", "int8"), device: str = "cuda") -> tuple[str, dict]:
-    """(version, {mode: row}) for one release."""
+def evaluate(family: str = "attn", big: bool = False, n_gen: int | None = None,
+             modes=("bf16", "int8"), device: str = "cuda", long: bool = False
+             ) -> tuple[str, dict]:
+    """(version, {mode: row}) for one release; ``long`` is the
+    ``synthetic_long`` release (the TFM family at the big width).
+    ``n_gen`` defaults to 1536, or LONG_N_GEN with ``long``."""
     if device != "cpu" and not torch.cuda.is_available():
         raise SystemExit("release_eval: no CUDA card; pass --device cpu to run on the CPU")
-    version = ("synthetic" if family == "attn"
+    if long:
+        family, big = "tfm", True
+    n_gen = n_gen or (LONG_N_GEN if long else 1536)
+    version = ("synthetic_long" if long else "synthetic" if family == "attn"
                else "synthetic_tfm_big" if big else "synthetic_tfm")
     weights = os.path.join(_ROOT, "saved_models", "math_recog", version, "best_weights.msgpack")
-    cfg = soak_config(family, big)
+    cfg = soak_config(family, big, long)
     t0 = time.time()
-    images, labels = synth_hard_dataset(n_gen, seed=EVAL_SEED, **GENERATOR)
+    if long:
+        images, labels = synth_long_dataset(n_gen, seed=EVAL_SEED)
+    else:
+        images, labels = synth_hard_dataset(n_gen, seed=EVAL_SEED, **GENERATOR)
     print(f"generated {n_gen} samples in {time.time() - t0:.1f} s", file=sys.stderr, flush=True)
     conv = (TFMLabelConverter if family == "tfm" else AttnLabelConverter)(hard_vocab())
     loader = BucketLoader(ArrayDataset(images, labels), cfg)
@@ -135,6 +154,10 @@ def evaluate(family: str = "attn", big: bool = False, n_gen: int = 1536,
             "em": round(res["accuracy"], 4), "em_ci95": list(wilson(k, n)),
             "bleu": round(res["bleu"], 4), "char": round(res["ED"], 4),
             "word": round(res["word_ED"], 4), "eval_s": round(time.time() - t0, 1),
+            # of which decode (host clock around each synchronised batch) and
+            # scoring (detokenize, exact match, the Python edit distance)
+            "decode_s": round(res["avg_infer_s"] * n, 1),
+            "score_s": round(res["avg_postprocess_s"] * n, 1),
             "seed": EVAL_SEED, "n_gen": n_gen, "beam": BEAM, **card(),
         }
         print(f"{version} {mode}: {json.dumps(rows[mode])}", flush=True)
@@ -145,8 +168,12 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--family", default="attn", choices=["attn", "tfm"])
     ap.add_argument("--big", action="store_true")
-    ap.add_argument("--n_gen", type=int, default=1536,
-                    help="samples generated; the trim to whole batches keeps 1440 of 1536")
+    ap.add_argument("--long", action="store_true",
+                    help="the synthetic_long release on held-out long samples (448x960, up "
+                         "to 500 tokens)")
+    ap.add_argument("--n_gen", type=int, default=None,
+                    help="samples generated: 1536 (the trim to whole batches keeps 1440), "
+                         "768 with --long (all in one bucket; the reference's record has n 768)")
     ap.add_argument("--modes", default="bf16,int8", help=f"comma list of {sorted(MODES)}")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default=OUT_PATH)
@@ -155,7 +182,7 @@ def main(argv=None) -> None:
     unknown = sorted(set(modes) - set(MODES))
     if unknown:
         raise SystemExit(f"unknown modes {unknown}; have {sorted(MODES)}")
-    version, rows = evaluate(args.family, args.big, args.n_gen, modes, args.device)
+    version, rows = evaluate(args.family, args.big, args.n_gen, modes, args.device, args.long)
     merged = {}
     if os.path.exists(args.out):
         with open(args.out) as f:

@@ -4,6 +4,7 @@ Copied from ``doc2tex_tpu.transforms.preprocess``: grayscale, optional
 downsample, clamp into [min_dimension, max_dimension] keeping the aspect
 ratio, white pad up to a multiple of ``scale_factor``.  Output is uint8;
 normalization happens on the device (``transforms.augment.normalize``).
+``clahe`` is the JAX package's numpy CLAHE, copied as it is.
 
 The JAX package resizes with PIL (LANCZOS when either side shrinks,
 BILINEAR when both grow).  This port has no PIL, so ``_resize_area``
@@ -164,3 +165,52 @@ def resize_for_inference(img: np.ndarray, config) -> np.ndarray:
     if ph or pw:
         img = np.pad(img, ((0, ph), (0, pw)), constant_values=255)
     return img
+
+
+def clahe(img: np.ndarray, clip_limit: float = 2.0, grid: tuple[int, int] = (2, 2)) -> np.ndarray:
+    """Contrast-limited adaptive histogram equalization (OpenCV-compatible),
+    as the demo recognizer applies it before normalization (``clip_limit``
+    2, a 2x2 tile grid): per-tile clip-limited histogram equalization with
+    bilinear interpolation between the four neighbouring tile mappings.
+    Same bytes as ``doc2tex_tpu.transforms.preprocess.clahe``."""
+    if img.ndim != 2:
+        raise ValueError(f"clahe expects a grayscale HxW image, got shape {img.shape}")
+    h, w = img.shape
+    gh, gw = grid
+    th, tw = -(-h // gh), -(-w // gw)  # ceil tile size (OpenCV pads)
+    pad_h, pad_w = th * gh - h, tw * gw - w
+    padded = np.pad(img, ((0, pad_h), (0, pad_w)), mode="reflect")
+
+    # per-tile clipped-CDF mapping tables (gh, gw, 256)
+    maps = np.empty((gh, gw, 256), np.float32)
+    n_tile = th * tw
+    clip = max(int(clip_limit * n_tile / 256.0), 1)
+    for i in range(gh):
+        for j in range(gw):
+            tile = padded[i * th:(i + 1) * th, j * tw:(j + 1) * tw]
+            hist = np.bincount(tile.ravel(), minlength=256).astype(np.int64)
+            excess = np.maximum(hist - clip, 0).sum()
+            hist = np.minimum(hist, clip) + excess // 256
+            # OpenCV distributes the residual over the leading bins
+            hist[: int(excess % 256)] += 1
+            cdf = np.cumsum(hist)
+            maps[i, j] = cdf * (255.0 / n_tile)
+
+    # bilinear interpolation of the mapping between tile centres
+    ys, xs = np.arange(h), np.arange(w)
+    fy = (ys + 0.5) / th - 0.5
+    fx = (xs + 0.5) / tw - 0.5
+    y0 = np.clip(np.floor(fy).astype(int), 0, gh - 1)
+    x0 = np.clip(np.floor(fx).astype(int), 0, gw - 1)
+    y1 = np.minimum(y0 + 1, gh - 1)
+    x1 = np.minimum(x0 + 1, gw - 1)
+    wy = np.clip(fy - y0, 0.0, 1.0)[:, None].astype(np.float32)
+    wx = np.clip(fx - x0, 0.0, 1.0)[None, :].astype(np.float32)
+
+    v = img.astype(int)
+    m00 = maps[y0[:, None], x0[None, :], v]
+    m01 = maps[y0[:, None], x1[None, :], v]
+    m10 = maps[y1[:, None], x0[None, :], v]
+    m11 = maps[y1[:, None], x1[None, :], v]
+    out = (1 - wy) * ((1 - wx) * m00 + wx * m01) + wy * ((1 - wx) * m10 + wx * m11)
+    return np.clip(np.round(out), 0, 255).astype(np.uint8)

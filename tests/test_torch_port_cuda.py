@@ -340,3 +340,59 @@ def test_detector_on_card_does_not_follow_the_process_tf32_setting():
     assert len(boxes) >= 1 and boxes.shape == out[False][0].shape
     np.testing.assert_allclose(out[False][0], boxes, atol=chip_smoke.BOX_TOL_PX, rtol=0)
     np.testing.assert_allclose(out[False][1], scores, atol=chip_smoke.SCORE_TOL, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+def test_kernel_matches_plain_version_at_the_long_shapes(dtype, atol):
+    """The ``synthetic_long`` decode's shapes: self-attention over every
+    cache chunk to M 5010 (501 steps x beam 10, the last step live) and
+    cross-attention over a 448x960 bucket's 1694 patches and the cls
+    token, at batch 16 (the release eval's) and 64 (a 16-crop call's
+    snapped batch)."""
+    _need_card()
+    cases = [(B, 10, M, True, M // 10 - 1) for B in (16, 64) for M in (1010, 3030, 5010)]
+    cases += [(B, 10, 1695, False, None) for B in (16, 64)]
+    for n, (B, K, M, masked, step) in enumerate(cases):
+        q, k, v, mask = chip_smoke.attention_inputs(B, K, M, 8, 32, dtype, "cuda", masked,
+                                                    seed=n, step=step)
+        out = decode_attention(q, k, v, mask)
+        ref = decode_attention_reference(q, k, v, mask)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs()
+        assert (err <= atol + (1e-5 if dtype == torch.float32 else 0.0) * ref.float().abs()).all(), (
+            B, K, M, launch_plan(B, K, M, 8, 32, dtype), err.max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_coverage_step_kernel_at_the_reference_width(dtype):
+    """B2's coverage form at the ``common`` block's widths (D = H = 256,
+    kernel_dim 128) over an 800x800 bucket's 2525 patches and a 448x960
+    bucket's 1694, 1 and 8 samples x beam 10, coverage of steps 1 and 150:
+    within chip_smoke's B2 tolerance of the plain version."""
+    _need_card()
+    n, _ = chip_smoke.check_coverage_shapes(
+        [(Bs, 10, S, 256, 256, 128) for Bs in (1, 8) for S in (1694, 2525)])
+    assert n == 2 * 4 * 2 * 2
+
+
+@pytest.mark.cuda
+def test_long_release_decode_on_card_matches_cpu():
+    """The released ``synthetic_long`` weights, float32, beam 10, one golden
+    long crop in its 448x960 bucket with ``batch_max_length`` cut to 40:
+    the same tokens on the card as on the CPU."""
+    _need_card()
+    from doc2tex_tpu_torch.recognition import MathRecognition, load_recog_config
+
+    _, crops = chip_smoke.golden_crops("synthetic_long")
+    cfg, weights = load_recog_config(version="synthetic_long")
+    cfg.update(dtype="float32", quantize=None, batch_max_length=40)
+    tokens = {}
+    for device in ("cuda", "cpu"):
+        rec = MathRecognition(dict(cfg), weights, beam_size=10, device=device)
+        prepped = [rec._preprocess(crops[0])]
+        (bucket, _), = rec.group(prepped).items()
+        assert bucket == (448, 960)
+        tokens[device] = rec._decode(rec.make_batch(prepped, bucket))[0].cpu()
+    assert torch.equal(tokens["cuda"], tokens["cpu"])

@@ -8,7 +8,10 @@ released ``synthetic_tfm_big`` weights in float32 (beam 10, and greedy).
 coverage-LSTM ``synthetic``.  ``tests/torch_port_golden_int8.json`` and
 ``tests/torch_port_golden_synthetic_int8.json`` hold the strings of the
 same crops with the int8 encoder (``quantize: int8``, as the releases
-ship), still float32.  Each is written once by ``write_golden``
+ship), still float32.  ``synthetic_tfm`` and ``synthetic_long`` have the
+same four files (``torch_port_golden_synthetic_{tfm,long}[_int8].json``);
+the long release's crops are 16 ``synth_long_sample`` displays inside
+448x960.  Each is written once by ``write_golden``
 (``PYTHONPATH=. python tests/test_torch_port_slice.py --write-golden
 [version] [--quantize int8]``); the tests only read them.
 """
@@ -25,32 +28,56 @@ import pytest
 import torch
 
 from doc2tex_tpu_torch import _msgpack
-from doc2tex_tpu_torch.data.synthetic import seeded_crops, synth_hard_sample
+from doc2tex_tpu_torch.data.synthetic import seeded_crops, synth_hard_sample, synth_long_sample
 from doc2tex_tpu_torch.recognition import MathRecognition, load_recog_config
 from doc2tex_tpu_torch.weights import convert_variables, load_variables
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "torch_port_golden.json")
 GOLDEN_FILES = {"synthetic_tfm_big": GOLDEN,
-                "synthetic": os.path.join(HERE, "torch_port_golden_synthetic.json")}
+                "synthetic": os.path.join(HERE, "torch_port_golden_synthetic.json"),
+                "synthetic_tfm": os.path.join(HERE, "torch_port_golden_synthetic_tfm.json"),
+                "synthetic_long": os.path.join(HERE, "torch_port_golden_synthetic_long.json")}
 # the same crops decoded with the int8 encoder (``quantize: int8``, as the
 # releases ship), in float32
-GOLDEN_INT8_FILES = {"synthetic_tfm_big": os.path.join(HERE, "torch_port_golden_int8.json"),
-                     "synthetic": os.path.join(HERE, "torch_port_golden_synthetic_int8.json")}
+GOLDEN_INT8_FILES = {
+    "synthetic_tfm_big": os.path.join(HERE, "torch_port_golden_int8.json"),
+    "synthetic": os.path.join(HERE, "torch_port_golden_synthetic_int8.json"),
+    "synthetic_tfm": os.path.join(HERE, "torch_port_golden_synthetic_tfm_int8.json"),
+    "synthetic_long": os.path.join(HERE, "torch_port_golden_synthetic_long_int8.json")}
 VERSION = "synthetic_tfm_big"
 N_CROPS = 16
 CROP_MAX = (224, 704)
+# each release's crops: its generator and the largest crop, the release
+# config's max_dimension (the long release's 448x960 multi-line displays)
+GENERATORS = {"synth_hard_sample": synth_hard_sample, "synth_long_sample": synth_long_sample}
+CROPS = {"synthetic_long": ("synth_long_sample", (448, 960))}
 
 
-def golden_crop_seeds(n: int = N_CROPS) -> list[int]:
+def crop_spec(version: str = VERSION) -> tuple[str, tuple[int, int]]:
+    """(generator name, crop_max) of ``version``'s golden crops."""
+    return CROPS.get(version, ("synth_hard_sample", CROP_MAX))
+
+
+def golden_crop_seeds(n: int = N_CROPS, version: str = VERSION) -> list[int]:
     """The first ``n`` seeds whose crop lies inside the release config's
     [min_dimension, max_dimension], so no crop reaches the resize."""
-    return [seed for seed, _, _ in seeded_crops(n, *CROP_MAX)]
+    generator, crop_max = crop_spec(version)
+    if generator == "synth_hard_sample":
+        return [seed for seed, _, _ in seeded_crops(n, *crop_max)]
+    seeds, seed = [], 0
+    while len(seeds) < n:
+        img, _ = make_crop(seed, version)
+        if min(img.shape) >= 32 and img.shape[0] <= crop_max[0] and img.shape[1] <= crop_max[1]:
+            seeds.append(seed)
+        seed += 1
+    return seeds
 
 
-def make_crop(seed: int):
-    return synth_hard_sample(np.random.default_rng(seed), max_h=CROP_MAX[0],
-                             max_w=CROP_MAX[1])
+def make_crop(seed: int, version: str = VERSION):
+    generator, crop_max = crop_spec(version)
+    return GENERATORS[generator](np.random.default_rng(seed), max_h=crop_max[0],
+                                 max_w=crop_max[1])
 
 
 def sha256(img: np.ndarray) -> str:
@@ -65,15 +92,22 @@ def write_golden(version: str = VERSION, quantize: str | None = None) -> None:
 
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_default_matmul_precision", "float32")
+    from doc2tex_tpu.recognition import flow as jax_flow
     from doc2tex_tpu.recognition.flow import MathRecognition as JaxRecognition
     from doc2tex_tpu.recognition.flow import coalesce_groups
     from doc2tex_tpu.recognition.flow import load_recog_config as jax_load
 
-    seeds = golden_crop_seeds()
-    crops = [make_crop(s) for s in seeds]
+    seeds = golden_crop_seeds(version=version)
+    crops = [make_crop(s, version) for s in seeds]
     cfg, weights = jax_load(version=version)
     cfg["dtype"] = "float32"
     cfg["quantize"] = quantize
+    if version == "synthetic_long":
+        # the 16 crops share one 448x960 bucket, which the batch snap pads
+        # to 64 rows; the padding rows repeat row 0, so they change neither
+        # a row's decode nor the int8 encoder's per-tensor scale, and
+        # leaving them out keeps the CPU run's memory to a quarter
+        jax_flow._snap_batch = lambda n, cap=64: n
     outputs = {}
     for name, beam in (("beam10", 10), ("greedy", 1)):
         rec = JaxRecognition(cfg.copy(), weights, beam_size=beam)
@@ -93,11 +127,14 @@ def write_golden(version: str = VERSION, quantize: str | None = None) -> None:
             "label": label,
             "beam10": outputs["beam10"][i], "greedy": outputs["greedy"][i],
         })
+    generator, crop_max = crop_spec(version)
     golden = {
         "version": version, "dtype": "float32", "quantize": quantize,
-        "crop_max": list(CROP_MAX), "coalesce_ratio": cfg.get("coalesce_ratio"),
+        "crop_max": list(crop_max), "coalesce_ratio": cfg.get("coalesce_ratio"),
         "crops": entries,
     }
+    if generator != "synth_hard_sample":
+        golden["generator"] = generator
     with open((GOLDEN_INT8_FILES if quantize else GOLDEN_FILES)[version], "w") as f:
         json.dump(golden, f, indent=1, ensure_ascii=False)
         f.write("\n")
@@ -201,7 +238,7 @@ def compare_bfloat16(version: str = VERSION) -> list[dict]:
     from doc2tex_tpu.recognition.flow import load_recog_config as jax_load
 
     golden = load_golden(version)
-    crops = [make_crop(c["seed"])[0] for c in golden["crops"]]
+    crops = [make_crop(c["seed"], version)[0] for c in golden["crops"]]
     jcfg, weights = jax_load(version=version)
     jcfg["dtype"] = "bfloat16"
     jcfg.pop("quantize", None)

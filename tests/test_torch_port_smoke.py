@@ -3,7 +3,7 @@
 - the port and ``chip_smoke.py`` import with jax, flax, yaml, msgpack, PIL,
   cv2, lmdb, scipy and the JAX package blocked (none is on the GPU
   machine), the int8, serving, release-eval, detection, page-app,
-  page-eval and training modules among them;
+  page-eval, training and eval-CLI modules among them;
 - ``chip_smoke.py`` exits non-zero, and never prints ``"ok": true``, on a
   machine without a card and from a directory without the repository;
 - chip_smoke's slice phase runs end to end on the CPU at a tiny size, for
@@ -25,14 +25,15 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = ("jax", "jaxlib", "flax", "yaml", "msgpack", "PIL", "cv2", "lmdb", "scipy",
            "doc2tex_tpu")
 # the modules of the int8 encoder, the server, the release eval, detection,
-# the page app, the page eval and training, which the walk below must reach
+# the page app, the page eval, training and the eval CLI, which the walk
+# below must reach
 REQUIRED = ("ops.quant", "serving", "api.serve", "utils.png", "data.loader", "eval.metrics",
             "engine.inferencing", "tools.release_eval", "tools.bench_int8", "detection",
             "detection.priors", "detection.windows", "detection.ssd", "detection.boxes",
             "detection.flow", "detection.evaluate", "app", "tools.page_eval",
             "tools.profile_page", "train", "train.loss", "train.schedule", "train.optim",
             "train.trainer", "train.checkpoint", "engine.training", "api.train",
-            "utils.common", "utils.profiling", "transforms.geometry")
+            "utils.common", "utils.profiling", "transforms.geometry", "api.infer")
 
 GUARD = textwrap.dedent(f"""
     import importlib, pkgutil, sys
@@ -72,7 +73,7 @@ def test_port_imports_nothing_the_gpu_machine_lacks():
     out = subprocess.run([sys.executable, "-c", GUARD], cwd=ROOT, env=_env(),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 69
+    assert int(out.stdout.split()[-1]) >= 71
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
@@ -242,3 +243,37 @@ def test_chip_smoke_page_gates():
     regions[2][1] = (regions[2][1][0], "y")
     with pytest.raises(AssertionError, match="page strings"):
         chip_smoke.check_page_strings(golden, regions)
+
+
+def test_chip_smoke_version_phase_runs_on_cpu(monkeypatch):
+    """chip_smoke.version_phase on the CPU with a tiny coverage block in
+    place of ``version1`` (no weights, CLAHE left on, random init): crops of
+    two buckets decode, the B2 launch shapes are recorded, and the cut
+    decode runs (here the CPU against itself)."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    import doc2tex_tpu_torch.recognition as recognition
+    from doc2tex_tpu_torch.config import make_config
+    from doc2tex_tpu_torch.data.synthetic import HARD_VOCAB_PATH, synth_hard_sample
+    from doc2tex_tpu_torch.models.vit import grid_size_for
+
+    cfg = make_config(dict(
+        max_dimension=[64, 256], min_dimension=[32, 32], batch_max_length=6,
+        vocab=HARD_VOCAB_PATH, beam_size=10,
+        FeatureExtraction={"name": "None"},
+        SequenceModeling={"name": "ViT", "params": {
+            "backbone": {"name": "resnet", "input_channel": 1, "output_channel": 32},
+            "fix_embed": True, "patching_style": "2d", "patch_size": [2, 2],
+            "depth": 1, "num_heads": 2, "hidden_size": 64}},
+        Prediction={"name": "Attnv2", "params": {
+            "seqmodel": "TFM", "input_size": 64, "hidden_size": 64, "kernel_size": 2,
+            "kernel_dim": 32, "enc_init": True, "attn_type": "coverage"}},
+    ))
+    monkeypatch.setattr(recognition, "load_recog_config", lambda version: (cfg, None))
+    monkeypatch.setattr(chip_smoke, "VERSION_CUT_STEPS", 4)
+    crops = [synth_hard_sample(np.random.default_rng(s), min_len=3, max_len=12, max_h=64,
+                               max_w=256)[0] for s in (0, 1)]
+    launches, shapes = chip_smoke.version_phase(0.0, "version1", crops, device="cpu")
+    assert launches == 0     # the CPU runs the plain version
+    grids = [grid_size_for(b, (2, 2)) for b in ((64, 64), (64, 192))]
+    assert sorted(shapes) == [(1, 10, gh * gw, 64, 64, 32) for gh, gw in grids]
