@@ -6,8 +6,8 @@
 Needs one CUDA card; exits non-zero without one.  Phases, one line each:
 
 1. device  — the card's name, and its name and power limit from nvidia-smi;
-2. build   — nvcc builds both kernels at once, one process per source
-   (seconds taken);
+2. build   — nvcc builds the three kernel sources at once, one process
+   per source (seconds taken): B1, B2, and B2's backward;
 3. slice   — MathRecognition with the released ``synthetic_tfm_big``
    weights, beam 10, on 16 seeded synthetic crops: float32 (the strings
    must equal the JAX package's golden strings on >= 15 of 16) and
@@ -100,6 +100,28 @@ Needs one CUDA card; exits non-zero without one.  Phases, one line each:
    every tensor of the state bit for bit and gives the next step's loss bit
    for bit, with ``torch.backends.cudnn.deterministic`` on for that step.
    Checkpoints go to a temporary directory that is removed;
+13b. train_lstm — the coverage-LSTM head trains (the ``synthetic``
+   release's recipe: ``tools/structured_soak.py --hard``, ViT 128x3 on a
+   128-channel ResNet, ``Attnv2`` hidden 128, kernel_dim 64, batch 32,
+   224x704, ``batch_max_length`` 150, the hard vocabulary): (a) one float32
+   step on the card against the CPU from the shipped ``synthetic`` weights,
+   32 hard crops at 224x704, within ``TRAIN_TOL`` (the ResNet's leaves
+   within the larger of it and 4 times the CPU's own spread, ``WEIGHT_NOISE``);
+   (b) bf16 steps on one fixed batch of 32 from a seeded random init: the
+   loss falls, steps/s and peak memory printed; (c) the soak twin
+   (``doc2tex_tpu_torch.tools.structured_soak --hard``, device pools, one
+   step per pool, then 4 steps) from the shipped weights: beam-5 EM before
+   and after printed (the shipped weights' gated at >= 0.5), B2 launching
+   at K 1 (training) and 5 (validation) and its backward launching;
+   (d) ``config/train_synth.yaml`` cut (``LSTM_TRAIN_CUTS``) through the
+   port's trainer, greedy validation through B2, its best checkpoints
+   decoding as the in-memory model, the resume bit for bit; (e) B2's
+   backward kernel against its plain version, and against itself (equal
+   bits), at every (B, S, D, H, Kl, type) that (a)-(d) launched it with, on
+   the inputs of a launch there, and at the reference widths (D = H = 256,
+   Kl 128, S 623 and 2525), coverage and loc_aware, float32 and bf16
+   (``B2_BWD_TOL``); then timed (CUDA graphs) beside its plain version,
+   autograd of the plain forward (a yardstick) and its bound;
 14. synthetic_tfm — the small TFM release (ViT 128x3, 3-layer head, hd
    32) as phases 3 and 8 run the big one: float32 against its JAX golden
    (>= 15 of 16), bfloat16 printed, int8 as shipped gated by
@@ -123,7 +145,8 @@ Needs one CUDA card; exits non-zero without one.  Phases, one line each:
    predictions.csv equal to the JAX CLI's (``tests/torch_port_golden_infer.json``)
    on >= 15 of 16 rows, B1 launching.
 
-Then a JSON line with both kernels' numbers, and last
+Then a JSON line with the three kernels' numbers (B2's backward: its
+launches in (c), timed at the recipe's largest launch), and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the traceback
 is printed and the exit code is 1.  A hang is cut by faulthandler.
 """
@@ -212,9 +235,43 @@ TRAIN_BF16_STEPS = 12
 # for the ResNet's, 2.9e-6 for grad_norm and 0.43 % of the weights.
 TRAIN_TOL = {"loss_rtol": 1e-5, "grad_rtol": 1e-3, "grad_floor": 1e-5,
              "grad_norm_rtol": 1e-3, "param_far_share": 0.05}
+# (a) of train_lstm: the ResNet's own float32 spread, from the weights scaled
+# by (1 + WEIGHT_NOISE N(0, 1)) on the CPU; its leaves are held within the
+# larger of grad_rtol and SPREAD_FACTOR times that spread (the factor of
+# tests/test_torch_port_train.py).  At the shipped synthetic weights and 32
+# hard crops at 224x704 the card read 1.20e-3 for a ResNet leaf, 1.27e-5
+# for the head's and the ViT's worst (an NVIDIA H100 80GB HBM3 at 700 W)
+WEIGHT_NOISE = 1e-7
+SPREAD_FACTOR = 4.0
 # (c) the validation's greedy EM of the shipped weights on the run's
 # validation set, before training (the release's own EM is 0.8757)
 TRAIN_MIN_SHIPPED_EM = 0.5
+# the train_lstm phase: the shipped coverage-LSTM weights, config/train_synth.yaml
+# with its cuts (widths, ladder, sequence length and batch stay), and the
+# soak twin's --hard arm (the synthetic recipe) cut to a few steps and a
+# small eval set (the precompile pass takes one step per pool on top)
+SYNTHETIC_WEIGHTS = os.path.join(ROOT, "saved_models", "math_recog", "synthetic",
+                                 "best_weights.msgpack")
+LSTM_TRAIN_CONFIG = os.path.join(ROOT, "config", "train_synth.yaml")
+LSTM_TRAIN_CUTS = {"synthetic_data": 400, "num_iter": 6, "valInterval": 6, "logInterval": 1}
+LSTM_SOAK_ARGV = ("--hard", "--steps", "4", "--n_train", "1024", "--n_eval", "256",
+                  "--eval_every", "4", "--eval_first", "--lr", "1e-4")
+# B2's backward against its plain version: float32 sums of the same terms in
+# another order (the location conv folded into w_loc, partial sums per block
+# of positions), so every output within B2_BWD_TOL of its largest magnitude;
+# d enc and d enc_proj come out in the memory's type, so in bf16 they may
+# also sit one unit in the last place (at most 2^-7 of the element) apart
+# (plus B2_BWD_FLOOR of the largest magnitude among the call's nine outputs:
+# an output whose terms cancel, such as d loc_conv_b at random weights, is
+# held to the scale of its terms rather than of its sum)
+B2_BWD_TOL = 1e-4
+B2_BWD_FLOOR = 1e-3
+B2_BWD_SOURCE = "doc2tex_tpu_torch/csrc/attention_step_backward.cu"
+# the JAX package has no backward kernel: jax.grad differentiates the step
+# in its teacher-forced scan
+B2_BWD_REPLACES = "doc2tex_tpu/models/decoder_lstm.py:279"
+B2_BWD_NAMES = ("d_enc", "d_enc_proj", "d_q", "d_mem", "d_loc_conv_w", "d_loc_conv_b",
+                "d_w_loc", "d_b_loc", "d_w_score")
 # the int8 strings' gates (see check_int8_strings)
 INT8_MIN_CHAR_MATCH = 0.85
 INT8_MIN_CHANGED = 2
@@ -673,11 +730,16 @@ def recorded_launches():
     """Record the shapes the models give the kernels' wrappers while the
     block runs: B1's (B, K, M, kind) under ``"b1"`` and its (heads, head
     dim, type) under ``"b1_types"``, B2's (samples, K, S, D, H, Kl) under
-    ``"b2"``.  The wrappers run as they are, counting their launches."""
+    ``"b2"``, and B2's backward's (B, S, D, H, Kl, type) under ``"b2_bwd"``
+    with the inputs of a call at each under ``"b2_bwd_inputs"``.  The
+    wrappers run as they are, counting their launches."""
     from doc2tex_tpu_torch.models import decoder_lstm, decoder_tfm
+    from doc2tex_tpu_torch.ops import attention_step
 
-    seen = {"b1": set(), "b1_types": set(), "b2": set()}
+    seen = {"b1": set(), "b1_types": set(), "b2": set(), "b2_bwd": set(), "b2_bwd_inputs": {}}
     attend, step = decoder_tfm.decode_attention, decoder_lstm.coverage_attention_step
+    backward = attention_step.coverage_attention_step_backward
+    live = set()
 
     def b1(q, k, v, mask=None):
         seen["b1"].add((q.shape[0], q.shape[1], k.shape[1],
@@ -690,11 +752,39 @@ def recorded_launches():
                         enc_proj.shape[2], loc_conv_w.shape[2]))
         return step(enc, enc_proj, q, mem, loc_conv_w, *args, **kwargs)
 
+    class B2Backward:
+        """The backward wrapper, recording; its launch count is the
+        wrapper's own (the wrapper counts through its module's name)."""
+
+        def __call__(self, *args):
+            enc, enc_proj, loc_conv_w = args[0], args[1], args[4]
+            shape = (*enc.shape, enc_proj.shape[2], loc_conv_w.shape[2], str(enc.dtype)[6:])
+            # the first call at a shape with a cotangent that is not zero (the
+            # last decode steps' targets are mostly padding), which in the
+            # reverse order of a backward is the one with the most coverage
+            if shape not in live and (args[10].any() or args[11].any()):
+                live.add(shape)
+                seen["b2_bwd_inputs"][shape] = [a.detach().clone() for a in args]
+            elif shape not in seen["b2_bwd"]:
+                seen["b2_bwd_inputs"][shape] = [a.detach().clone() for a in args]
+            seen["b2_bwd"].add(shape)
+            return backward(*args)
+
+        @property
+        def launches(self):
+            return backward.launches
+
+        @launches.setter
+        def launches(self, n):
+            backward.launches = n
+
     decoder_tfm.decode_attention, decoder_lstm.coverage_attention_step = b1, b2
+    attention_step.coverage_attention_step_backward = B2Backward()
     try:
         yield seen
     finally:
         decoder_tfm.decode_attention, decoder_lstm.coverage_attention_step = attend, step
+        attention_step.coverage_attention_step_backward = backward
 
 
 def attention_step_phase(t0):
@@ -1462,8 +1552,22 @@ def fixed_batch(cfg, n, bucket, seed=90):
     return batch, text
 
 
-def _train_step_parity(t0, cfg, weights, batch, text, device):
-    """(a): one float32 step of the same state on ``device`` and on the CPU."""
+def _worst_leaves(got, want, norm):
+    """The worst gradient leaf against its norm (+ grad_floor of the whole
+    gradient's), over the ResNet (key True) and the rest (False)."""
+    worst = {True: (0.0, ""), False: (0.0, "")}
+    for k, g in want.items():
+        rel = (got[k] - g).abs().max().item() / (g.norm().item() + TRAIN_TOL["grad_floor"] * norm)
+        worst[_resnet_leaf(k)] = max(worst[_resnet_leaf(k)], (rel, k))
+    return worst
+
+
+def _train_step_parity(t0, cfg, weights, batch, text, device, phase="train", spread=False):
+    """(a): one float32 step of the same state on ``device`` and on the CPU.
+    With ``spread``, the CPU's gradient again with the weights scaled by
+    (1 + WEIGHT_NOISE N(0, 1)): the ResNet's leaves are then held within
+    the larger of ``grad_rtol`` and SPREAD_FACTOR times the CPU's own
+    spread (its float32 gradient is not smooth: ReLU choices flip)."""
     import copy
 
     import torch
@@ -1474,13 +1578,24 @@ def _train_step_parity(t0, cfg, weights, batch, text, device):
 
     cfg = copy.deepcopy(cfg)
     cfg.update(dtype="float32", warmup_epochs=0, pretrained_weight=weights)
-    cfg["Prediction"]["params"]["dropout"] = 0.0
-    runs = {}
+    head = cfg["Prediction"]["params"]
+    head["droprate" if cfg["Prediction"]["name"].startswith("Attn") else "dropout"] = 0.0
+    runs, own = {}, (0.0, "")
     for dev in ("cpu", device):
         b = init_training(copy.deepcopy(cfg), device=dev)
         x = normalize(torch.from_numpy(batch).to(dev))
-        _, _, grads = loss_and_grads(copy.deepcopy(b.model), b.criterion, x,
-                                     torch.from_numpy(text).to(dev).long())
+        tokens = torch.from_numpy(text).to(dev).long()
+        _, _, grads = loss_and_grads(copy.deepcopy(b.model), b.criterion, x, tokens)
+        if spread and dev == "cpu":
+            noisy = copy.deepcopy(b.model)
+            gen = torch.Generator().manual_seed(17)
+            with torch.no_grad():
+                for p in noisy.parameters():
+                    p.mul_(1 + WEIGHT_NOISE * torch.randn(p.shape, generator=gen))
+            _, _, noisy_grads = loss_and_grads(noisy, b.criterion, x, tokens)
+            norm = float(torch.sqrt(sum((g ** 2).sum() for g in grads.values())))
+            own = _worst_leaves(noisy_grads, grads, norm)[True]
+            del noisy, noisy_grads
         m = b.train_step(b.state, batch, text, torch.Generator().manual_seed(5))
         runs[dev] = (float(m["loss"]), float(m["grad_norm"]),
                      {k: g.cpu() for k, g in grads.items()},
@@ -1488,23 +1603,120 @@ def _train_step_parity(t0, cfg, weights, batch, text, device):
         del b
     (l0, n0, g0, p0), (l1, n1, g1, p1) = runs["cpu"], runs[device]
     loss_err, norm_err = abs(l1 - l0) / abs(l0), abs(n1 - n0) / abs(n0)
-    worst = {True: (0.0, ""), False: (0.0, "")}
-    for k, g in g0.items():
-        rel = (g1[k] - g).abs().max().item() / (g.norm().item() + TRAIN_TOL["grad_floor"] * n0)
-        worst[_resnet_leaf(k)] = max(worst[_resnet_leaf(k)], (rel, k))
+    worst = _worst_leaves(g1, g0, n0)
+    resnet_tol = max(TRAIN_TOL["grad_rtol"], SPREAD_FACTOR * own[0])
     diffs = torch.cat([(p1[k] - p0[k]).abs().flatten() for k in p0])
     far = (diffs > 1e-6).float().mean().item()
-    log("train", t0, f"(a) float32 step, {device} against cpu, batch {batch.shape[0]} at "
+    log(phase, t0, f"(a) float32 step, {device} against cpu, batch {batch.shape[0]} at "
         f"{batch.shape[1:3]}, lr {float(cfg['optimizer']['lr']):g}: loss {l1:.7f} / {l0:.7f} (rel {loss_err:.2e}), "
         f"grad_norm {n1:.6f} / {n0:.6f} (rel {norm_err:.2e}), worst gradient leaf "
         f"{worst[False][0]:.2e} of its norm ({worst[False][1]}; ResNet {worst[True][0]:.2e}, "
         f"{worst[True][1]}), weights after the step: "
         f"max |diff| {diffs.max().item():.3e}, {far:.4%} further than 1e-6 (tolerances "
-        f"{TRAIN_TOL})")
+        f"{TRAIN_TOL}" + (f"; the ResNet's {resnet_tol:.2e}: the CPU against itself with "
+                          f"its weights scaled by (1 + {WEIGHT_NOISE:g} N(0, 1)) moves its "
+                          f"worst leaf by {own[0]:.2e} ({own[1]})" if spread else "") + ")")
     tol = TRAIN_TOL
     if not (loss_err <= tol["loss_rtol"] and norm_err <= tol["grad_norm_rtol"]
-            and max(worst.values())[0] <= tol["grad_rtol"] and far <= tol["param_far_share"]):
+            and worst[False][0] <= tol["grad_rtol"] and worst[True][0] <= resnet_tol
+            and far <= tol["param_far_share"]):
         raise AssertionError("(a) the card's float32 train step disagrees with the CPU's")
+
+
+def _bf16_steps(t0, phase, cfg, n, bucket, device):
+    """(b): TRAIN_BF16_STEPS steps of the config's type on one fixed batch
+    from a seeded random init: every loss finite and the last below the
+    first; steps/s and the peak memory printed.  Returns the batch."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from doc2tex_tpu_torch.engine.training import init_training
+
+    cuda = device != "cpu"
+    batch, text = fixed_batch(cfg, n, bucket)
+    b = init_training(copy.deepcopy(cfg), device=device)
+    gen = torch.Generator().manual_seed(7)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    losses, t_start = [], None
+    for i in range(TRAIN_BF16_STEPS):
+        if i == 2:
+            if cuda:
+                torch.cuda.synchronize()
+            t_start = time.perf_counter()
+        losses.append(b.train_step(b.state, batch, text, gen)["loss"])
+    losses = [float(x) for x in losses]   # the host copy syncs
+    seconds = time.perf_counter() - t_start
+    timed = TRAIN_BF16_STEPS - 2
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else float("nan")
+    log(phase, t0, f"(b) {cfg['dtype']} steps on one batch of {n} at {bucket}, text "
+        f"{text.shape[1]} wide (decoder length {text.shape[1] - 1}), random init: losses "
+        f"{[round(x, 4) for x in losses]}; {timed / seconds:.3f} steps/s "
+        f"({1e3 * seconds / timed:.1f} ms/step over {timed} steps after 2), peak memory "
+        f"allocated {peak:.2f} GiB; {nvidia_smi() if cuda else 'cpu'}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"(b) losses not finite or not falling: {losses}")
+    return batch, text
+
+
+def _checkpoint_checks(t0, phase, run_cfg, bundle, log_dir, rcfg, crops, batch, text, device,
+                       steps=("d", "e")):
+    """The run's best checkpoints in ``MathRecognition`` against the
+    in-memory model (greedy strings on ``crops``), then the resume from
+    ``last_checkpoint`` bit for bit: every tensor of the state, and the next
+    step's loss with ``torch.backends.cudnn.deterministic`` on."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from doc2tex_tpu_torch.engine.training import init_training
+    from doc2tex_tpu_torch.recognition import MathRecognition
+    from doc2tex_tpu_torch.train.optim import state_to_flax
+
+    mem = MathRecognition(copy.deepcopy(rcfg), None, beam_size=1, device=device)
+    mem.model.load_state_dict(bundle.model.state_dict())
+    want = mem(crops)
+    for name in ("best_accuracy.msgpack", "best_bleu.msgpack"):
+        rec = MathRecognition(copy.deepcopy(rcfg), os.path.join(log_dir, name),
+                              beam_size=1, device=device)
+        got = rec(crops)
+        if got != want:
+            raise AssertionError(f"({steps[0]}) {name} decodes otherwise than the in-memory "
+                                 "model")
+    log(phase, t0, f"({steps[0]}) best_accuracy and best_bleu .msgpack ({os.path.getsize(os.path.join(log_dir, 'best_accuracy.msgpack')) / 2 ** 20:.1f} MiB each) "
+        f"in MathRecognition: the in-memory model's greedy strings on {len(crops)} crops")
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        resumed = init_training(dict(copy.deepcopy(run_cfg), pretrained_weight=None,
+                                     resume_path=os.path.join(log_dir,
+                                                              "last_checkpoint.msgpack")),
+                                device=device)
+        if resumed.state.step != bundle.state.step or resumed.start_iter != run_cfg["num_iter"]:
+            raise AssertionError(f"({steps[1]}) resumed at step {resumed.state.step}")
+        same = all(torch.equal(a, b) for a, b in zip(
+            resumed.model.state_dict().values(), bundle.model.state_dict().values()))
+        leaves = lambda s: [np.asarray(x) for x in _flat(state_to_flax(s))]   # noqa: E731
+        same = same and all(np.array_equal(a, b) for a, b in zip(
+            leaves(resumed.state.opt_state), leaves(bundle.state.opt_state)))
+        gen = torch.Generator().manual_seed(run_cfg.get("manualSeed", 1111) + 1)
+        go = bundle.train_step(bundle.state, batch, text, gen)
+        back = resumed.train_step(resumed.state, batch, text, gen)
+        after = max((a - b).abs().max().item() for a, b in zip(
+            resumed.model.state_dict().values(), bundle.model.state_dict().values()))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    lu, lr_ = float(go["loss"]), float(back["loss"])
+    log(phase, t0, f"({steps[1]}) resumed from last_checkpoint at step {resumed.start_iter}: "
+        f"state {'equal' if same else 'NOT equal'} bit for bit; step {bundle.state.step} loss "
+        f"{lr_!r} resumed, {lu!r} uninterrupted (cudnn deterministic); weights after it "
+        f"within {after:.3e}")
+    if not same or lu != lr_:
+        raise AssertionError(f"({steps[1]}) the resumed run differs from the uninterrupted one")
 
 
 def train_phase(t0, cfg=None, weights=TFM_BIG_WEIGHTS, recog=None, crops=None,
@@ -1516,13 +1728,10 @@ def train_phase(t0, cfg=None, weights=TFM_BIG_WEIGHTS, recog=None, crops=None,
     import copy
     import tempfile
 
-    import numpy as np
-    import torch
-
     from doc2tex_tpu_torch.engine.inferencing import validation
     from doc2tex_tpu_torch.engine.training import init_training, train
     from doc2tex_tpu_torch.ops.decode_attention import decode_attention
-    from doc2tex_tpu_torch.recognition import MathRecognition, load_recog_config
+    from doc2tex_tpu_torch.recognition import load_recog_config
     from doc2tex_tpu_torch.data.loader import ArrayDataset, BucketLoader
     from doc2tex_tpu_torch.data.synthetic import synth_hard_dataset
     from doc2tex_tpu_torch.decode.runner import make_decode_fn
@@ -1541,31 +1750,7 @@ def train_phase(t0, cfg=None, weights=TFM_BIG_WEIGHTS, recog=None, crops=None,
     _train_step_parity(t0, cfg, weights, *fixed_batch(cfg, n, bucket, seed=91), device)
 
     # (b) bf16 steps on one fixed batch from a seeded random init; steps/s
-    n, bucket = fixed
-    batch, text = fixed_batch(cfg, n, bucket)
-    b = init_training(copy.deepcopy(cfg), device=device)
-    gen = torch.Generator().manual_seed(7)
-    if cuda:
-        torch.cuda.reset_peak_memory_stats()
-    losses, t_start = [], None
-    for i in range(TRAIN_BF16_STEPS):
-        if i == 2:
-            if cuda:
-                torch.cuda.synchronize()
-            t_start = time.perf_counter()
-        losses.append(b.train_step(b.state, batch, text, gen)["loss"])
-    losses = [float(x) for x in losses]   # the host copy syncs
-    seconds = time.perf_counter() - t_start
-    timed = TRAIN_BF16_STEPS - 2
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else float("nan")
-    log("train", t0, f"(b) {cfg['dtype']} steps on one batch of {n} at {bucket}, text "
-        f"{text.shape[1]} wide (decoder length {text.shape[1] - 1}), random init: losses "
-        f"{[round(x, 4) for x in losses]}; {timed / seconds:.3f} steps/s "
-        f"({1e3 * seconds / timed:.1f} ms/step over {timed} steps after 2), peak memory "
-        f"allocated {peak:.2f} GiB; {nvidia_smi() if cuda else 'cpu'}")
-    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"(b) losses not finite or not falling: {losses}")
-    del b
+    batch, text = _bf16_steps(t0, "train", cfg, *fixed, device)
 
     # (c) the run from the shipped weights; its validation launches B1
     run_cfg = dict(copy.deepcopy(cfg), pretrained_weight=weights)
@@ -1608,53 +1793,130 @@ def train_phase(t0, cfg=None, weights=TFM_BIG_WEIGHTS, recog=None, crops=None,
         if cuda:
             _check_validation_shapes(t0, shapes, *types.pop()[:2])
 
-        # (d) the best checkpoints in MathRecognition
+        # (d) the best checkpoints in MathRecognition; (e) resume bit for bit
         rcfg = copy.deepcopy(recog or load_recog_config(version="synthetic_tfm_big")[0])
         rcfg.update(quantize=None, dtype=run_cfg["dtype"])
         crops = crops if crops is not None else golden_crops("synthetic_tfm_big")[1]
-        mem = MathRecognition(copy.deepcopy(rcfg), None, beam_size=1, device=device)
-        mem.model.load_state_dict(bundle.model.state_dict())
-        want = mem(crops)
-        for name in ("best_accuracy.msgpack", "best_bleu.msgpack"):
-            rec = MathRecognition(copy.deepcopy(rcfg), os.path.join(log_dir, name),
-                                  beam_size=1, device=device)
-            got = rec(crops)
-            if got != want:
-                raise AssertionError(f"(d) {name} decodes otherwise than the in-memory model")
-        log("train", t0, f"(d) best_accuracy and best_bleu .msgpack ({os.path.getsize(os.path.join(log_dir, 'best_accuracy.msgpack')) / 2 ** 20:.1f} MiB each) "
-            f"in MathRecognition: the in-memory model's greedy strings on {len(crops)} crops")
+        _checkpoint_checks(t0, "train", run_cfg, bundle, log_dir, rcfg, crops, batch, text,
+                           device)
 
-        # (e) resume from last_checkpoint: the state bit for bit, then the next step's loss
-        deterministic = torch.backends.cudnn.deterministic
-        torch.backends.cudnn.deterministic = True
-        try:
-            resumed = init_training(dict(copy.deepcopy(run_cfg), pretrained_weight=None,
-                                         resume_path=os.path.join(log_dir,
-                                                                  "last_checkpoint.msgpack")),
-                                    device=device)
-            if resumed.state.step != bundle.state.step or resumed.start_iter != run_cfg["num_iter"]:
-                raise AssertionError(f"(e) resumed at step {resumed.state.step}")
-            from doc2tex_tpu_torch.train.optim import state_to_flax
 
-            same = all(torch.equal(a, b) for a, b in zip(
-                resumed.model.state_dict().values(), bundle.model.state_dict().values()))
-            leaves = lambda s: [np.asarray(x) for x in _flat(state_to_flax(s))]   # noqa: E731
-            same = same and all(np.array_equal(a, b) for a, b in zip(
-                leaves(resumed.state.opt_state), leaves(bundle.state.opt_state)))
-            gen = torch.Generator().manual_seed(run_cfg.get("manualSeed", 1111) + 1)
-            go = bundle.train_step(bundle.state, batch, text, gen)
-            back = resumed.train_step(resumed.state, batch, text, gen)
-            after = max((a - b).abs().max().item() for a, b in zip(
-                resumed.model.state_dict().values(), bundle.model.state_dict().values()))
-        finally:
-            torch.backends.cudnn.deterministic = deterministic
-        lu, lr_ = float(go["loss"]), float(back["loss"])
-        log("train", t0, f"(e) resumed from last_checkpoint at step {resumed.start_iter}: state "
-            f"{'equal' if same else 'NOT equal'} bit for bit; step {bundle.state.step} loss "
-            f"{lr_!r} resumed, {lu!r} uninterrupted (cudnn deterministic); weights after it "
-            f"within {after:.3e}")
-        if not same or lu != lr_:
-            raise AssertionError("(e) the resumed run differs from the uninterrupted one")
+def lstm_train_config(**overrides):
+    """``config/train_synth.yaml`` with the train_lstm phase's cuts."""
+    from doc2tex_tpu_torch.config import load_config
+
+    cfg = load_config(LSTM_TRAIN_CONFIG)
+    cfg.update(LSTM_TRAIN_CUTS)
+    cfg.update(overrides)
+    return cfg
+
+
+def lstm_recipe_config():
+    """The shipped ``synthetic`` recipe: the soak twin's ``--hard`` arm,
+    with the hard vocabulary and the soak's generator arguments."""
+    from doc2tex_tpu_torch.data.synthetic import hard_vocab
+    from doc2tex_tpu_torch.tools import structured_soak
+
+    cfg = structured_soak.arm_config(structured_soak.parse_args(["--hard"]))
+    cfg.update(character=hard_vocab(), synthetic_kwargs=dict(structured_soak.HARD_KW))
+    return cfg
+
+
+def train_lstm_phase(t0, recipe=None, run_cfg=None, weights=SYNTHETIC_WEIGHTS, device="cuda",
+                     fixed=(32, TRAIN_FIXED_BUCKET), soak_argv=LSTM_SOAK_ARGV):
+    """The coverage-LSTM training path (phase 13b).  ``recipe`` (the
+    ``synthetic`` recipe), ``run_cfg`` (``config/train_synth.yaml`` cut)
+    and ``weights`` default to the full-width ones; a test passes tiny ones
+    (and a soak whose ``build`` it swaps) to rehearse the phase on the CPU.
+    Returns B2's backward's JSON record (launches from (c)) on the card,
+    else None."""
+    import copy
+    import tempfile
+
+    from doc2tex_tpu_torch.data.loader import build_loader
+    from doc2tex_tpu_torch.engine.training import init_training, train
+    from doc2tex_tpu_torch.ops.attention_step import (coverage_attention_step,
+                                                      coverage_attention_step_backward)
+    from doc2tex_tpu_torch.tools import structured_soak
+
+    cuda = device != "cpu"
+    recipe = recipe or lstm_recipe_config()
+    run_cfg = run_cfg or lstm_train_config()
+    head = recipe["Prediction"]["params"]
+    log("train_lstm", t0, f"the synthetic recipe (soak --hard): batch {recipe['batch_size']}, "
+        f"ladder {recipe['min_dimension']}..{recipe['max_dimension']} growth "
+        f"{recipe['bucket_growth']}, batch_max_length {recipe['batch_max_length']}, "
+        f"{recipe['dtype']}, {recipe['Prediction']['name']} {head['attn_type']} hidden "
+        f"{head['hidden_size']} kernel_dim {head['kernel_dim']}, vocab "
+        f"{len(recipe['character'])} + 3")
+    shapes, inputs = set(), {}
+    with recorded_launches() as seen:
+        # (a) float32 card step against the CPU, from the shipped weights
+        n, bucket = fixed
+        _train_step_parity(t0, recipe, weights, *fixed_batch(recipe, n, bucket, seed=91),
+                           device, phase="train_lstm", spread=True)
+        # (b) bf16 steps on one fixed batch from a seeded random init
+        _bf16_steps(t0, "train_lstm", recipe, n, bucket, device)
+
+        # (c) the soak twin from the shipped weights, with device pools
+        argv = list(soak_argv) + (["--init_from", os.path.relpath(weights, ROOT)]
+                                  if weights else [])
+        seen["b2"].clear()
+        with tempfile.TemporaryDirectory() as ckpt_dir:
+            args = structured_soak.parse_args(argv + ["--ckpt_dir", ckpt_dir, "--device", device])
+            args.init_from = weights
+            coverage_attention_step.launches = coverage_attention_step_backward.launches = 0
+            t_run = time.perf_counter()
+            soak = structured_soak.run(args)
+            t_run = time.perf_counter() - t_run
+            fwd = coverage_attention_step.launches
+            bwd = coverage_attention_step_backward.launches
+        before, after = soak["curve"][0], soak["curve"][-1]
+        ks = sorted({s[1] for s in seen["b2"]})
+        log("train_lstm", t0, f"(c) python -m doc2tex_tpu_torch.tools.structured_soak "
+            f"{' '.join(argv)}: {len(soak['pools'])} device pools "
+            f"{[(p.bucket, p.n) for p in soak['pools']]}, {t_run:.1f} s; beam-5 EM "
+            f"{before['em']:.4f} before (the shipped weights, n {before['n']}), "
+            f"{after['em']:.4f} after step {after['step']} (BLEU {after['bleu']}); "
+            f"attention_step launches {fwd} (K {ks}), backward launches {bwd}")
+        if (len(soak["curve"]) != 2 or not soak["pools"] or before["n"] == 0
+                or (weights and before["em"] < TRAIN_MIN_SHIPPED_EM)):
+            raise AssertionError(f"(c) the soak's curve {soak['curve']}")
+        if cuda and (fwd <= 0 or bwd <= 0 or ks != [1, 5]):
+            raise AssertionError(f"(c) B2 launched {fwd} times at K {ks}, its backward {bwd}")
+        soak_bwd = bwd
+
+        # (d) config/train_synth.yaml, cut, through the port's trainer
+        with tempfile.TemporaryDirectory() as log_dir:
+            bundle = init_training(copy.deepcopy(run_cfg), device=device)
+            coverage_attention_step.launches = coverage_attention_step_backward.launches = 0
+            t_run = time.perf_counter()
+            metrics = train(run_cfg, log_dir, device=device, bundle=bundle)
+            t_run = time.perf_counter() - t_run
+            fwd, bwd = coverage_attention_step.launches, coverage_attention_step_backward.launches
+            log("train_lstm", t0, f"(d) {os.path.relpath(LSTM_TRAIN_CONFIG, ROOT)} cut to "
+                f"{ {k: run_cfg[k] for k in LSTM_TRAIN_CUTS} } ({run_cfg['dtype']}, batch "
+                f"{run_cfg['batch_size']}, augment {run_cfg['augment']}, "
+                f"{bundle.converter.num_classes} classes) in {t_run:.1f} s: greedy EM "
+                f"{metrics['accuracy']:.4f}, loss {metrics['loss']:.4f}, "
+                f"{metrics['n_samples']} samples; attention_step launches {fwd}, backward {bwd}")
+            if cuda and (fwd <= 0 or bwd <= 0):
+                raise AssertionError(f"(d) B2 launched {fwd} times, its backward {bwd}")
+            # the run's first validation batch and crops, as build_loader makes them
+            _, valid = build_loader(run_cfg, bundle.converter,
+                                    seed=run_cfg.get("manualSeed", 1111))
+            first = next(iter(valid))
+            crops = [valid.dataset.image(i) for i in range(min(8, len(valid.dataset)))]
+            rcfg = dict(copy.deepcopy(run_cfg), quantize=None, clahe=False)
+            _checkpoint_checks(t0, "train_lstm", run_cfg, bundle, log_dir, rcfg, crops,
+                               first.images, first.text, device, steps=("d", "d"))
+        shapes, inputs = seen["b2_bwd"], seen["b2_bwd_inputs"]
+    if not cuda:
+        return None
+    # (e) the backward kernel at every shape (a)-(d) launched, the reference widths, timed
+    record = backward_phase(t0, shapes, inputs)
+    record["launches"] = soak_bwd
+    return record
 
 
 def _check_validation_shapes(t0, shapes, nh, hd):
@@ -1668,6 +1930,174 @@ def _check_validation_shapes(t0, shapes, nh, hd):
         log("train", t0, f"(c) B1 at K = 1: {attention_timing(*shape, nh=nh, hd=hd)['text']}")
 
 
+def backward_inputs(B, S, D, H, Kl, dtype, attn, seed, taps=5):
+    """Inputs of B2's backward on the card in its argument order: the
+    forward's (``coverage_step_inputs`` at K = 1: the coverage of 150 steps,
+    or for ``loc_aware`` one alignment), alpha from the plain forward, and
+    cotangents at a step's scales."""
+    import torch
+
+    from doc2tex_tpu_torch.ops.attention_step import coverage_attention_step_reference
+
+    kw = coverage_step_inputs(B, 1, S, D, H, Kl, dtype,
+                              COVERAGE_STEPS[-1] if attn == "coverage" else 1, seed, taps)
+    _, alpha = coverage_attention_step_reference(**kw)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    return [kw["enc"], kw["enc_proj"], kw["q"], kw["mem"], kw["loc_conv_w"],
+            kw["loc_conv_b"], kw["w_loc"], kw["w_score"], kw["b_loc"], alpha,
+            torch.randn(B, D, generator=g, device="cuda") * 0.1,
+            torch.randn(B, S, generator=g, device="cuda") * 0.1]
+
+
+def check_backward(args, where):
+    """B2's backward on ``args`` against its plain version (``B2_BWD_TOL``)
+    and against itself (two runs, equal bits); returns (the largest error,
+    the largest error over its tolerance).  Not counted as launches."""
+    import torch
+
+    from doc2tex_tpu_torch.ops import attention_step as b2
+
+    before = b2.coverage_attention_step_backward.launches
+    got = b2.coverage_attention_step_backward(*args)
+    again = b2.coverage_attention_step_backward(*args)
+    ref = b2.coverage_attention_step_backward_reference(*args)
+    torch.cuda.synchronize()
+    b2.coverage_attention_step_backward.launches = before
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"B2's backward differs between two runs at {where}")
+    worst = (0.0, 0.0)
+    top = max(b.abs().max().item() for b in ref)
+    for name, a, b in zip(B2_BWD_NAMES, got, ref):
+        a, b = a.float(), b.float()
+        if a.shape != b.shape or not torch.isfinite(a).all():
+            raise AssertionError(f"B2's backward: {name} {tuple(a.shape)} at {where}")
+        err = (a - b).abs()
+        tol = B2_BWD_TOL * (b.abs().max() + B2_BWD_FLOOR * top) + 1e-30
+        if got[B2_BWD_NAMES.index(name)].dtype == torch.bfloat16:
+            tol = tol + 2.0 ** -7 * b.abs()
+        if (err > tol).any():
+            raise AssertionError(
+                f"B2's backward disagrees with its plain version ({name}) at {where}: max abs "
+                f"err {err.max().item():.3e}, largest {b.abs().max().item():.3e}; the outputs' "
+                "largest: " + ", ".join(f"{n} {r.abs().max().item():.3e}"
+                                        for n, r in zip(B2_BWD_NAMES, ref)))
+        worst = (max(worst[0], err.max().item()), max(worst[1], (err / tol).max().item()))
+    return worst
+
+
+def _event_ms(fn, reps=20):
+    """One call's time over ``reps`` calls between CUDA events (host gaps
+    included), after a warm-up."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def backward_timing(B, S, D, H, Kl, dtype_name="bfloat16", attn="coverage"):
+    """B2's backward timed (a call's share of a CUDA graph of 20) beside its
+    plain version (the same), autograd of the plain forward (a yardstick:
+    event time, host gaps included) and the bound: each input read once and
+    each output written once at 3.35 TB/s, or the work after the fold at
+    the float32 rate, per position: enc . g_context and alpha g_context
+    over D (3 D), the pre-activation's 5 taps and adds, tanh, the tanh
+    gradient, d q, d w_score, the 5 taps' M and R sums over H (40 H)."""
+    import torch
+
+    from doc2tex_tpu_torch.ops import attention_step as b2
+    from doc2tex_tpu_torch.tools.bench_decode_attention import graph_ms
+
+    dtype = getattr(torch, dtype_name)
+    args = backward_inputs(B, S, D, H, Kl, dtype, attn, seed=11)
+    before = b2.coverage_attention_step_backward.launches
+    ms = graph_ms(lambda: b2.coverage_attention_step_backward(*args))
+    got = b2.coverage_attention_step_backward(*args)
+    b2.coverage_attention_step_backward.launches = before
+    plain_ms = graph_ms(lambda: b2.coverage_attention_step_backward_reference(*args))
+    ref = b2.coverage_attention_step_backward_reference(*args)
+    enc, enc_proj, q, mem, cw, cb, w_loc, w_score, b_loc, _, g_ctx, g_alpha = args
+    leaves = [t.detach().clone().requires_grad_()
+              for t in (enc, enc_proj, q, mem, cw, cb, w_loc, b_loc, w_score)]
+    out = b2.coverage_attention_step_reference(*leaves)
+    autograd_ms = _event_ms(lambda: torch.autograd.grad(out, leaves, (g_ctx, g_alpha),
+                                                        retain_graph=True))
+    err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, ref))
+    nbytes = sum(t.numel() * t.element_size() for t in list(args) + list(got))
+    flops = B * S * (3 * D + 40 * H)
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    bound = max(bytes_ms, ops_ms)
+    return dict(ms=ms, plain_ms=plain_ms, autograd_ms=autograd_ms, bound_ms=bound,
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations", max_abs_err=err,
+                text=f"backward, {B} samples S {S} D{D} H{H} Kl{Kl} {dtype_name} {attn}: kernel "
+                     f"{ms:.4f} ms, plain {plain_ms:.4f} ms, autograd of the plain forward "
+                     f"{autograd_ms:.4f} ms (events), bound {bound:.4f} ms (bytes "
+                     f"{bytes_ms:.4f} ms for {nbytes / 1e6:.2f} MB, operations {ops_ms:.4f} ms "
+                     f"for {flops / 1e9:.4f} GFLOP f32), {bound / ms:.0%} of bound")
+
+
+def backward_phase(t0, shapes, inputs):
+    """(e): B2's backward against its plain version and itself at every
+    (B, S, D, H, Kl, type) the phase launched it with, on the inputs of its
+    first launch there (real coverages and cotangents), and at the reference
+    widths (D = H = 256, Kl 128; S 623 and 2525) for coverage and
+    loc_aware, float32 and bf16, and at S that tiles do not divide; then
+    timed at the recipe's largest launch (the JSON record) and the
+    reference widths.  Returns the kernel's record (launches filled later)."""
+    import torch
+
+    worst = {}
+    for shape in sorted(shapes):
+        err = check_backward(inputs[shape], f"launched shape {shape}")
+        worst[shape[-1]] = tuple(map(max, worst.get(shape[-1], (0.0, 0.0)), err))
+    log("train_lstm", t0, f"(e) B2's backward matches its plain version, and two runs are "
+        f"equal bit for bit, at the {len(shapes)} (B, S, D, H, Kl, type) it was launched with, "
+        f"on the inputs of a launch there with a cotangent that is not zero: {sorted(shapes)}; "
+        "max abs err "
+        + ", ".join(f"{k} {e:.3e} (at most {r:.2f} of its tolerance)" for k, (e, r) in worst.items())
+        + f"; tol {B2_BWD_TOL:g} of each output's largest magnitude (+ {B2_BWD_FLOOR:g} of "
+        "the call's largest output, + one bf16 ulp)")
+    grid = [(B, S, D, H, Kl) for B, S, D, H, Kl in
+            ((32, 623, 256, 256, 128), (8, 2525, 256, 256, 128), (3, 3, 128, 128, 64),
+             (5, 61, 128, 128, 64), (2, 129, 256, 256, 8), (7, 1000, 128, 128, 64))]
+    worst, n = {}, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        for attn in ("coverage", "loc_aware"):
+            for B, S, D, H, Kl in grid:
+                err = check_backward(backward_inputs(B, S, D, H, Kl, dtype, attn, seed=n),
+                                     f"B {B} S {S} D{D} H{H} Kl{Kl} {name} {attn}")
+                worst[name] = tuple(map(max, worst.get(name, (0.0, 0.0)), err))
+                n += 1
+    log("train_lstm", t0, f"(e) B2's backward matches its plain version, two runs equal bit "
+        f"for bit, at {n} checks ((B, S, D, H, Kl) {grid} x coverage, loc_aware x float32, "
+        "bfloat16): max abs err "
+        + ", ".join(f"{k} {e:.3e} (at most {r:.2f} of its tolerance)" for k, (e, r) in worst.items()))
+    bf16 = sorted(s for s in shapes if s[-1] == "bfloat16")
+    main = max(bf16, key=lambda s: (s[0] * s[1], s)) if bf16 else (32, 623, 128, 128, 64, "bfloat16")
+    rec = backward_timing(*main)
+    log("train_lstm", t0, f"(e) B2's backward (the recipe's largest launch) {rec['text']}")
+    for shape in (s for s in bf16 if s != main):
+        log("train_lstm", t0, f"(e) B2's backward (launched) {backward_timing(*shape)['text']}")
+    for B, S in ((32, 623), (8, 2525)):
+        for attn in ("coverage", "loc_aware"):
+            log("train_lstm", t0, "(e) B2's backward (reference widths) "
+                + backward_timing(B, S, 256, 256, 128, attn=attn)["text"])
+    return {
+        "name": "attention_step_backward", "route": "cuda", "source": B2_BWD_SOURCE,
+        "replaces": B2_BWD_REPLACES, "launches": 0, "max_abs_err": rec["max_abs_err"],
+        "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+        "bound_by": rec["bound_by"], "library_ms": None,
+    }
+
+
 def _flat(tree):
     if isinstance(tree, dict):
         for k in sorted(tree):
@@ -1677,13 +2107,16 @@ def _flat(tree):
 
 
 def build_kernels(t0):
-    """nvcc on both sources at once (one process each)."""
+    """nvcc on every source at once (one process each)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from doc2tex_tpu_torch.ops import attention_step, decode_attention
 
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        infos = list(pool.map(lambda m: (m.SOURCE, m.build()), (decode_attention, attention_step)))
+    builds = ((decode_attention.SOURCE, decode_attention.build),
+              (attention_step.SOURCE, attention_step.build),
+              (attention_step.BACKWARD_SOURCE, attention_step.build_backward))
+    with ThreadPoolExecutor(max_workers=len(builds)) as pool:
+        infos = list(pool.map(lambda b: (b[0], b[1]()), builds))
     for source, info in infos:
         log("build", t0, f"{source} built in {info['seconds']:.2f} s "
             f"({'compiled' if info['built'] else 'cached'}): {info['path']}")
@@ -1726,6 +2159,7 @@ def main() -> int:
     detect_phase(t0)
     page_phase(t0)
     train_phase(t0)
+    records.append(train_lstm_phase(t0))
     release_phase(t0, "synthetic_tfm")
     long_timings(t0, release_phase(t0, "synthetic_long"))
     crops = version_crops()

@@ -23,8 +23,16 @@ Decode, as in the JAX package, with the rows of the attention memory cut:
   order i, f, g, o) -> generator.  The carry, scores and logits are
   float32.
 
+Training: ``forward`` is the teacher-forced pass of the JAX ``__call__``:
+``init_state`` at K = 1, ``step`` over the columns of ``text`` in a Python
+loop (JAX's ``lax.scan``), the logits stacked to (B, T, V), and with
+``train`` one dropout at ``droprate`` over the stacked logits.  On the card
+the step's attention runs B2's kernel with its hand-written backward
+(``ops.attention_step.CoverageAttentionStepFn``); on the CPU autograd runs
+through the plain version.
+
 Not ported (they raise): the ``bahdanau`` and ``luong`` attention types, the
-int8 attention memory, and the teacher-forced ``__call__``.
+int8 attention memory.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.attention_step import coverage_attention_step
+from .layers import dropout
 
 
 class DecoderState(NamedTuple):
@@ -65,7 +74,7 @@ class LSTMAttentionDecoder(nn.Module):
                  embed_dim: int | None = None, kernel_size: int = 2, kernel_dim: int = 128,
                  attn_type: str = "coverage", embed_target: bool = True,
                  enc_init: bool = True, seqmodel: str = "TFM", v2: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 droprate: float = 0.1, dtype: torch.dtype = torch.float32):
         super().__init__()
         if attn_type not in ("coverage", "loc_aware"):
             raise NotImplementedError(f"attn_type {attn_type!r} is not ported yet")
@@ -76,7 +85,7 @@ class LSTMAttentionDecoder(nn.Module):
         self.hidden_size, self.kernel_size = hidden_size, kernel_size
         self.attn_type, self.enc_init = attn_type, enc_init
         self.seqmodel, self.v2 = seqmodel, v2
-        self.dtype = dtype
+        self.droprate, self.dtype = droprate, dtype
         k = 2 * kernel_size + 1
         shapes = {
             "embedding": (V, E), "w_key": (D, H), "b_key": (H,), "w_query": (H, H),
@@ -146,6 +155,15 @@ class LSTMAttentionDecoder(nn.Module):
         return new_state, logits
 
     def forward(self, batch_h, text, train: bool = True, generator=None):
-        raise NotImplementedError(
-            "the LSTM head's teacher-forced pass (training) is not ported yet: it needs a "
-            "backward for B2's coverage form (ROADMAP A9, left item 1)")
+        """Teacher-forced pass: ``text`` (B, T) the shifted input ids
+        ``encoded[:, :-1]`` -> logits (B, T, V) float32, aligned with
+        ``encoded[:, 1:]``.  With ``train`` and ``droprate`` > 0, one dropout
+        over the stacked logits, drawn from ``generator`` (the JAX head draws
+        one mask over the stacked scan output, which is distributed as the
+        reference's per-step dropout)."""
+        state = self.init_state(batch_h)
+        logits = []
+        for t in range(text.shape[1]):
+            state, step_logits = self.step(state, text[:, t])
+            logits.append(step_logits)
+        return dropout(torch.stack(logits, dim=1), self.droprate, train, generator)

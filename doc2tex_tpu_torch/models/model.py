@@ -11,7 +11,7 @@ encoder's gated products through the int8 op (``ops/quant.py``).
 
 Interface, as the JAX module's:
 - ``forward(image, text, train, generator)``: teacher-forced logits
-  (training and the validation loss; the TFM head only).  ``train`` is an
+  (training and the validation loss; both heads).  ``train`` is an
   argument, as in JAX, not ``nn.Module.training``: decoding never runs with
   batch statistics or dropout, whatever mode the module was left in;
 - ``encode(image)``: normalized (B, H, W, C) floats -> memory (B, S, D)
@@ -80,6 +80,7 @@ class Model(nn.Module):
                 enc_init=pp.get("enc_init", False),
                 seqmodel=pp.get("seqmodel", "TFM"),
                 v2=self.head == "Attnv2",
+                droprate=pp.get("droprate", 0.1),
                 dtype=self.dtype,
             )
         else:

@@ -23,6 +23,14 @@ Both run one hand-written CUDA kernel (``csrc/attention_step.cu``, the form a
 template parameter) on CUDA tensors, with the grid ``launch_plan`` chooses,
 and their plain PyTorch versions on CPU tensors.  Neither falls back from
 one to the other: on a CUDA tensor each launches the kernel or raises.
+
+Training: on a CUDA tensor that needs a gradient, ``coverage_attention_step``
+runs through ``CoverageAttentionStepFn``, whose forward is the kernel above
+(it saves the inputs and alpha, no (B, S, H) tensor) and whose backward is a
+second hand-written kernel (``csrc/attention_step_backward.cu``, at K = 1),
+``coverage_attention_step_backward``; its plain version
+``coverage_attention_step_backward_reference`` writes the gradient out.  On
+the CPU the step stays the plain version under autograd.
 """
 
 from __future__ import annotations
@@ -37,6 +45,9 @@ import torch.nn.functional as F
 from .._build import load_library
 
 SOURCE = "attention_step.cu"
+BACKWARD_SOURCE = "attention_step_backward.cu"
+BWD_CHUNK = 64            # positions per block in the backward's passes over S
+BWD_VECS = 7              # per-block partial vectors of H: d q, d w_score, 5 taps
 NEG_INF = -1e30
 WIDTHS = (128, 256)            # D = H the kernel is built for
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 2}
@@ -166,16 +177,18 @@ def attention_step_reference(enc, enc_proj, q, loc_feat, w_loc, b_loc, w_score,
                              valid_len=None):
     """Plain PyTorch version: enc (B,S,D), enc_proj (B,S,H) in the compute
     type, q (B,H), loc_feat (B,S,Kl) float32, w_loc (Kl,H), b_loc (H,),
-    w_score (H,) or (H,1) -> (context (B,D) f32, alpha (B,S) f32)."""
+    w_score (H,) or (H,1) -> (context (B,D) f32, alpha (B,S) f32).  With a
+    float64 q everything is float64 (the backward's tests)."""
     H = enc_proj.shape[-1]
-    loc_h = loc_feat.float() @ w_loc.float() + b_loc.float()
-    x = torch.tanh(enc_proj.float() + q.float()[:, None, :] + loc_h)
-    e = (x @ w_score.float().reshape(H, 1))[..., 0]
+    ft = torch.promote_types(q.dtype, torch.float32)
+    loc_h = loc_feat.to(ft) @ w_loc.to(ft) + b_loc.to(ft)
+    x = torch.tanh(enc_proj.to(ft) + q.to(ft)[:, None, :] + loc_h)
+    e = (x @ w_score.to(ft).reshape(H, 1))[..., 0]
     if valid_len is not None:
         pos = torch.arange(e.shape[-1], device=e.device)
         e = e.masked_fill(pos[None, :] >= valid_len, NEG_INF)
     alpha = torch.softmax(e, dim=-1)
-    context = torch.einsum("bs,bsd->bd", alpha, enc.float())
+    context = torch.einsum("bs,bsd->bd", alpha, enc.to(ft))
     return context, alpha
 
 
@@ -201,6 +214,62 @@ def coverage_attention_step_reference(enc, enc_proj, q, mem, loc_conv_w, loc_con
     loc_feat = location_features(mem, loc_conv_w, loc_conv_b)
     return attention_step_reference(enc, enc_proj, q, loc_feat, w_loc, b_loc, w_score,
                                     valid_len)
+
+
+def coverage_attention_step_backward_reference(enc, enc_proj, q, mem, loc_conv_w, loc_conv_b,
+                                               w_loc, w_score, b_loc, alpha, g_context,
+                                               g_alpha):
+    """Plain PyTorch version of the coverage form's backward at K = 1 (one
+    row of q per sample), written out rather than taken by autograd.
+
+    From the forward's inputs, its ``alpha`` (B, S) and the cotangents of
+    its outputs, ``g_context`` (B, D) and ``g_alpha`` (B, S) (alpha feeds
+    the next step's coverage, so ``g_alpha`` is not zero), per row b and
+    position s:
+
+        loc_feat = location_features(mem), t = tanh(enc_proj + q + loc_feat @ w_loc + b_loc)
+        g_a  = g_alpha + enc . g_context,  g_e = alpha (g_a - sum_s alpha g_a)
+        g_pre = g_e w_score (1 - t^2) = d enc_proj,   d enc = alpha g_context
+        d q = sum_s g_pre, d b_loc = sum g_pre, d w_loc = sum loc_feat^T g_pre,
+        d w_score = sum g_e t;  g_loc = g_pre @ w_loc^T: d loc_conv_b = sum g_loc,
+        d loc_conv_w[j] = sum mem_pad[s + j] g_loc[s], d mem the transposed
+        correlation of g_loc (zero at the padded edges).
+
+    Positions past a ``valid_len`` have alpha 0, so they get no gradient.
+    Computes in float32 (float64 for float64 inputs).  Returns (d enc and
+    d enc_proj in their inputs' types, d q, d mem, d loc_conv_w, d
+    loc_conv_b, d w_loc, d b_loc, d w_score in the compute type)."""
+    if q.shape[0] != enc.shape[0]:
+        raise ValueError(f"the backward takes K = 1: q {tuple(q.shape)}, enc {tuple(enc.shape)}")
+    ft = torch.promote_types(q.dtype, torch.float32)
+    B, S, _ = enc.shape
+    H = enc_proj.shape[-1]
+    taps = loc_conv_w.shape[0]
+    pad = (taps - 1) // 2
+    conv_w, wl, a, g_ctx = (t.to(ft) for t in (loc_conv_w[:, 0, :], w_loc, alpha, g_context))
+    windows = F.pad(mem.to(ft), (pad, pad)).unfold(-1, taps, 1)        # (B, S, taps)
+    loc_feat = windows @ conv_w + loc_conv_b.to(ft)                     # (B, S, Kl)
+    t = torch.tanh(enc_proj.to(ft) + q.to(ft)[:, None, :] + loc_feat @ wl + b_loc.to(ft))
+    g_a = g_alpha.to(ft) + torch.einsum("bsd,bd->bs", enc.to(ft), g_ctx)
+    g_e = a * (g_a - (a * g_a).sum(-1, keepdim=True))
+    g_pre = g_e[..., None] * w_score.to(ft).reshape(H) * (1 - t * t)
+    d_q = g_pre.sum(1)
+    g_loc = g_pre @ wl.T                                                # (B, S, Kl)
+    g_win = g_loc @ conv_w.T                                            # (B, S, taps)
+    d_mem = torch.zeros(B, S + 2 * pad, dtype=ft, device=enc.device)
+    for j in range(taps):
+        d_mem[:, j:j + S] += g_win[..., j]
+    return (
+        (a[..., None] * g_ctx[:, None, :]).to(enc.dtype),
+        g_pre.to(enc_proj.dtype),
+        d_q,
+        d_mem[:, pad:pad + S],
+        torch.einsum("bsj,bsk->jk", windows, g_loc)[:, None, :],
+        g_loc.sum((0, 1)),
+        torch.einsum("bsk,bsh->kh", loc_feat, g_pre),
+        d_q.sum(0),
+        torch.einsum("bs,bsh->h", g_e, t),
+    )
 
 
 # ---- the kernel ----------------------------------------------------------------
@@ -305,7 +374,9 @@ def coverage_attention_step(enc, enc_proj, q, mem, loc_conv_w, loc_conv_b, w_loc
     b*K + k beam k of sample b; mem (Bs*K,S) f32, the coverage (or the last
     alignment); loc_conv_w (2*kernel_size+1, 1, Kl), loc_conv_b (Kl,), w_loc
     (Kl,H), b_loc (H,), w_score (H,) or (H,1).  Returns (context (Bs*K, D)
-    float32, alpha (Bs*K, S) float32)."""
+    float32, alpha (Bs*K, S) float32).  On CUDA tensors of which one needs
+    a gradient (K = 1 only), through ``CoverageAttentionStepFn``: the
+    backward is a kernel too."""
     K = _check_memory(enc, enc_proj, q)
     Bs, S, D = enc.shape
     H = enc_proj.shape[-1]
@@ -326,13 +397,143 @@ def coverage_attention_step(enc, enc_proj, q, mem, loc_conv_w, loc_conv_b, w_loc
     if enc.device.type != "cuda":
         raise ValueError(f"unsupported device {enc.device}")
     _check_kernel_inputs(enc, enc_proj, tensors[2:])
-    plan = launch_plan(Bs, K, S, D, H, Kl, enc.dtype, COVERAGE, taps)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        if K != 1:
+            raise NotImplementedError(f"B2's backward takes K = 1 (the teacher-forced pass); "
+                                      f"got K = {K} with a gradient")
+        _check_backward_shape(D, H, taps, enc.dtype)
+        return CoverageAttentionStepFn.apply(*tensors, valid_len)
+    return _coverage_forward(tensors, valid_len)
+
+
+coverage_attention_step.launches = 0
+
+
+def _coverage_forward(tensors, valid_len):
+    """The coverage form's kernel on checked CUDA tensors, counted."""
+    enc, enc_proj, q, _, loc_conv_w = tensors[:5]
+    Bs, S, D = enc.shape
+    plan = launch_plan(Bs, q.shape[0] // Bs, S, D, enc_proj.shape[-1], loc_conv_w.shape[2],
+                       enc.dtype, COVERAGE, loc_conv_w.shape[0])
     out = launch(COVERAGE, plan, *tensors, valid_len=valid_len)
     coverage_attention_step.launches += 1
     return out
 
 
-coverage_attention_step.launches = 0
+class CoverageAttentionStepFn(torch.autograd.Function):
+    """The coverage form with a gradient, at K = 1: forward the kernel of
+    ``csrc/attention_step.cu``, saving the inputs and alpha (the memory is
+    shared by every step, so saving it copies nothing); backward the kernel
+    of ``csrc/attention_step_backward.cu``.  ``b_score`` is not an input
+    (the decoder does not give the kernel the score bias, which moves no
+    alpha), so it gets no gradient from here."""
+
+    @staticmethod
+    def forward(ctx, enc, enc_proj, q, mem, loc_conv_w, loc_conv_b, w_loc, b_loc, w_score,
+                valid_len=None):
+        tensors = (enc, enc_proj, q, mem, loc_conv_w, loc_conv_b, w_loc, b_loc, w_score)
+        context, alpha = _coverage_forward(tensors, valid_len)
+        ctx.save_for_backward(*tensors, alpha)
+        return context, alpha
+
+    @staticmethod
+    def backward(ctx, g_context, g_alpha):
+        enc, enc_proj, q, mem, conv_w, conv_b, w_loc, b_loc, w_score, alpha = ctx.saved_tensors
+        grads = coverage_attention_step_backward(
+            enc, enc_proj, q, mem, conv_w, conv_b, w_loc, w_score, b_loc, alpha,
+            _aligned(g_context), _aligned(g_alpha))
+        d_enc, d_enc_proj, d_q, d_mem, d_conv_w, d_conv_b, d_w_loc, d_b_loc, d_w_score = grads
+        return (d_enc, d_enc_proj, d_q, d_mem, d_conv_w, d_conv_b, d_w_loc, d_b_loc,
+                d_w_score.reshape(w_score.shape), None)
+
+
+def _aligned(t):
+    """A cotangent as the kernel takes it: contiguous and 16-byte aligned."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _check_backward_shape(D, H, taps, dtype):
+    """What the backward kernel takes: the forward's widths and types."""
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"backward kernel takes float32/bfloat16 memory; got {dtype}")
+    if D != H or D not in WIDTHS:
+        raise ValueError(f"backward kernel takes D = H in {WIDTHS}; got D={D}, H={H}")
+    if not (0 < taps <= MAX_TAPS and taps % 2 == 1):
+        raise ValueError(f"backward kernel takes a location conv of at most {MAX_TAPS} taps; "
+                         f"got {taps}")
+
+
+def backward_workspace_floats(B: int, S: int, H: int) -> int:
+    """Float32 scratch of one backward launch (``csrc/attention_step_backward.cu``
+    ``workspace_floats``): g_a (B, S), the chunks' sums (B, chunks), the
+    location taps' gradient R (B, S, 5), the blocks' partials (B * chunks,
+    BWD_VECS * H) and their sums (BWD_VECS * H)."""
+    chunks = -(-S // BWD_CHUNK)
+    return B * S + B * chunks + B * S * MAX_TAPS + (B * chunks + 1) * BWD_VECS * H
+
+
+def coverage_attention_step_backward(enc, enc_proj, q, mem, loc_conv_w, loc_conv_b, w_loc,
+                                     w_score, b_loc, alpha, g_context, g_alpha):
+    """The coverage form's backward at K = 1: the arguments and results of
+    ``coverage_attention_step_backward_reference``.  On CUDA tensors the
+    hand-written kernel (four launches on the current stream, every sum in
+    a fixed order, so two runs give the same bits); on CPU tensors the plain
+    version.  Raises on what the kernel does not take: K > 1, D != H, widths
+    outside WIDTHS, more than MAX_TAPS taps, memory other than float32 or
+    bfloat16, and inputs that are not contiguous and 16-byte aligned."""
+    args = (enc, enc_proj, q, mem, loc_conv_w, loc_conv_b, w_loc, w_score, b_loc, alpha,
+            g_context, g_alpha)
+    _same_device(args)
+    if enc.device.type == "cpu":
+        return coverage_attention_step_backward_reference(*args)
+    if enc.device.type != "cuda":
+        raise ValueError(f"unsupported device {enc.device}")
+    K = _check_memory(enc, enc_proj, q)
+    B, S, D = enc.shape
+    H = enc_proj.shape[-1]
+    taps, Kl = loc_conv_w.shape[0], loc_conv_w.shape[2]
+    if K != 1:
+        raise ValueError(f"backward kernel takes K = 1; got K = {K}")
+    _check_backward_shape(D, H, taps, enc.dtype)
+    if (mem.shape != (B, S) or alpha.shape != (B, S) or g_alpha.shape != (B, S)
+            or g_context.shape != (B, D) or w_loc.shape != (Kl, H) or b_loc.shape != (H,)
+            or w_score.numel() != H or loc_conv_b.shape != (Kl,)):
+        raise ValueError("backward shapes: mem, alpha, g_alpha (B, S), g_context (B, D), "
+                         "w_loc (Kl, H), b_loc (H,), w_score (H,), loc_conv_b (Kl,)")
+    _check_kernel_inputs(enc, enc_proj, args[2:])
+    f32 = dict(dtype=torch.float32, device=enc.device)
+    outs = (torch.empty_like(enc), torch.empty_like(enc_proj), torch.empty(B, H, **f32),
+            torch.empty(B, S, **f32), torch.empty(taps, 1, Kl, **f32), torch.empty(Kl, **f32),
+            torch.empty(Kl, H, **f32), torch.empty(H, **f32), torch.empty(H, **f32))
+    work = torch.empty(backward_workspace_floats(B, S, H), **f32)
+    kernel = _backward_kernel()
+    with torch.cuda.device(enc.device):
+        rc = kernel(*(t.data_ptr() for t in args + outs), work.data_ptr(), work.numel(),
+                    B, S, D, H, Kl, taps, _DTYPE_CODE[enc.dtype], BWD_CHUNK,
+                    torch.cuda.current_stream(enc.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"attention_step backward kernel launch failed at B={B} S={S} "
+                           f"D={D}: CUDA error {rc}")
+    coverage_attention_step_backward.launches += 1
+    return outs
+
+
+coverage_attention_step_backward.launches = 0
+
+
+def _backward_kernel():
+    lib, _ = load_library(BACKWARD_SOURCE)
+    fn = lib.d2t_attention_step_coverage_backward
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 22 + [ctypes.c_longlong] + [ctypes.c_int] * 8
+                   + [ctypes.c_void_p])
+    return fn
+
+
+def build_backward() -> dict:
+    """Build (if needed) and load the backward kernel; returns ``load_library``'s info."""
+    return load_library(BACKWARD_SOURCE)[1]
 
 
 def launch(form: str, plan: LaunchPlan, enc, enc_proj, q, *loc_and_weights, valid_len=None,

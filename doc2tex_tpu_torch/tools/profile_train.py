@@ -1,10 +1,13 @@
 """Where the time of one train step goes, on a CUDA card.
 
     python -m doc2tex_tpu_torch.tools.profile_train [--config config/train_hard_tfm_big.yaml]
-        [--batch 32] [--bucket 224 704] [--steps 5] [--dtype bfloat16] [--out result.json]
+        [--soak] [--batch 32] [--bucket 224 704] [--steps 5] [--dtype bfloat16]
+        [--out result.json]
 
 Builds the recipe's model and optimizer (``engine.training.init_training``,
-a seeded random init), makes one batch of ``--batch`` hard synthetic crops
+a seeded random init; ``--soak``: the coverage-LSTM recipe of the shipped
+``synthetic`` release, ``tools/structured_soak.py --hard``, in place of
+``--config``), makes one batch of ``--batch`` hard synthetic crops
 padded into ``--bucket`` with labels at the recipe's ``batch_max_length``,
 takes 3 steps to warm up, ``--steps`` timed steps (host clock around
 synchronised steps), then ``--steps`` steps under ``torch.profiler``.
@@ -12,7 +15,8 @@ Prints and writes: ms a step, steps/s, peak memory allocated, the device's
 busy time a step (sum of kernel times; one stream) and idle share, the
 device time of the step's parts (``train/forward``, ``train/backward``,
 ``train/optimizer``: the kernels each launched; the backward is the rest)
-and their host time, the kernels' device time by kind, and the kernels
+and their host time, the kernels' device time by kind (the hand-written
+B1, B2 and B2's backward apart), their launches a step, and the kernels
 that took the most.  Needs a card; fails without one.
 """
 
@@ -31,14 +35,20 @@ import torch
 from ..config import load_config
 from ..data.buckets import pad_to_bucket
 from ..data.synthetic import synth_hard_dataset
+from ..data.synthetic import hard_vocab
 from ..engine.training import init_training
+from ..ops import attention_step, decode_attention
+from . import structured_soak
 from .profile_slice import _device_us
 
 RECIPE = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__)))), "config", "train_hard_tfm_big.yaml")
 PARTS = ("train/forward", "train/backward", "train/optimizer")
 # kernel kinds, by the first pattern a kernel's name matches
-KINDS = (("convolution", r"conv|cudnn|implicit|wgrad|dgrad|fprop|winograd"),
+KINDS = (("B2 backward (hand-written)", r"b2_bwd_"),
+         ("B2 (hand-written)", r"attention_step_kernel"),
+         ("B1 (hand-written)", r"decode_attention"),
+         ("convolution", r"conv|cudnn|implicit|wgrad|dgrad|fprop|winograd"),
          ("matmul", r"gemm|cutlass|sm90_xmma|ampere_|cublas"),
          ("optimizer (foreach)", r"multi_tensor|foreach"),
          ("reduction", r"reduce|Reduce|norm|softmax|Softmax"),
@@ -52,12 +62,27 @@ def _kind(name: str) -> str:
     return "other"
 
 
-def profile(config: str, batch: int, bucket: tuple, steps: int, dtype: str) -> dict:
+def soak_config(dtype: str) -> dict:
+    """The shipped ``synthetic`` release's recipe: the soak twin's --hard arm."""
+    cfg = structured_soak.arm_config(structured_soak.parse_args(["--hard"]))
+    cfg.update(dtype=dtype, character=hard_vocab(),
+               synthetic_kwargs=dict(structured_soak.HARD_KW))
+    return cfg
+
+
+def _launches() -> dict:
+    return {"decode_attention": decode_attention.decode_attention.launches,
+            "attention_step": attention_step.coverage_attention_step.launches,
+            "attention_step_backward": attention_step.coverage_attention_step_backward.launches}
+
+
+def profile(config: str, batch: int, bucket: tuple, steps: int, dtype: str,
+            soak: bool = False) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = load_config(config, dtype=dtype)
+    cfg = soak_config(dtype) if soak else load_config(config, dtype=dtype)
     b = init_training(cfg, device="cuda")
     kw = dict(cfg.get("synthetic_kwargs") or {})
     kw.update(max_h=min(kw.get("max_h", bucket[0]), bucket[0]),
@@ -70,12 +95,14 @@ def profile(config: str, batch: int, bucket: tuple, steps: int, dtype: str) -> d
         b.train_step(b.state, images, text, gen)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    before = _launches()
     t = time.perf_counter()
     for _ in range(steps):
         b.train_step(b.state, images, text, gen)
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t) / steps
     peak = torch.cuda.max_memory_allocated()
+    launches = {k: (v - before[k]) // steps for k, v in _launches().items()}
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -110,7 +137,9 @@ def profile(config: str, batch: int, bucket: tuple, steps: int, dtype: str) -> d
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     return {
-        "device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "config": config,
+        "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+        "config": "structured_soak --hard" if soak else config,
+        "hand_written_launches_per_step": launches,
         "dtype": dtype, "batch": batch, "bucket": list(bucket), "text_width": text.shape[1],
         "steps": steps, "step_ms": step_s * 1e3, "steps_per_s": 1.0 / step_s,
         "peak_allocated_gib": peak / 2 ** 30,
@@ -126,13 +155,16 @@ def profile(config: str, batch: int, bucket: tuple, steps: int, dtype: str) -> d
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--config", default=RECIPE)
+    ap.add_argument("--soak", action="store_true",
+                    help="the synthetic release's recipe (structured_soak --hard) instead")
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--bucket", type=int, nargs=2, default=[224, 704])
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
-    result = profile(args.config, args.batch, tuple(args.bucket), args.steps, args.dtype)
+    result = profile(args.config, args.batch, tuple(args.bucket), args.steps, args.dtype,
+                     args.soak)
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:

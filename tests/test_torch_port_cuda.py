@@ -1,4 +1,5 @@
-"""The port on a CUDA card: both kernels and a decode with each head.
+"""The port on a CUDA card: both kernels, B2's backward, a decode with each
+head and a coverage-LSTM train step.
 
 Every test here carries the ``cuda`` marker and skips without a card (the
 kernel has no CPU mode).  The file imports neither jax nor the JAX package,
@@ -396,3 +397,144 @@ def test_long_release_decode_on_card_matches_cpu():
         assert bucket == (448, 960)
         tokens[device] = rec._decode(rec.make_batch(prepped, bucket))[0].cpu()
     assert torch.equal(tokens["cuda"], tokens["cpu"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_coverage_backward_kernel_matches_plain_version(dtype):
+    """B2's coverage-form backward (K = 1) against its plain version, within
+    chip_smoke's B2_BWD_TOL, at D = H = 128 and 256, S that block chunks do
+    not divide (and S below the 5 taps), coverage and loc_aware memory; two
+    runs on the same inputs give the same bits (``check_backward``)."""
+    _need_card()
+    from doc2tex_tpu_torch.ops.attention_step import coverage_attention_step_backward
+
+    cases = ((32, 623, 128, 64), (3, 3, 128, 64), (5, 61, 256, 128), (2, 1000, 256, 8),
+             (7, 130, 128, 16))
+    for n, (B, S, D, Kl) in enumerate(cases):
+        for attn in ("coverage", "loc_aware"):
+            args = chip_smoke.backward_inputs(B, S, D, D, Kl, dtype, attn, seed=n)
+            before = coverage_attention_step_backward.launches
+            chip_smoke.check_backward(args, (B, S, D, Kl, attn))
+            assert coverage_attention_step_backward.launches == before
+            got = coverage_attention_step_backward(*args)
+            assert coverage_attention_step_backward.launches == before + 1
+            assert got[0].dtype == got[1].dtype == dtype
+            assert got[4].shape == (5, 1, Kl) and got[3].shape == (B, S)
+
+
+@pytest.mark.cuda
+def test_coverage_backward_kernel_raises_on_what_it_does_not_take():
+    """The backward raises, before any launch, on K > 1, a width the kernel
+    is not built for, D != H and a conv wider than 5 taps."""
+    _need_card()
+    from doc2tex_tpu_torch.ops.attention_step import coverage_attention_step_backward
+
+    def inputs(B, K, S, D, H, Kl, taps):
+        z = lambda *shape: torch.zeros(*shape, device="cuda")  # noqa: E731
+        return [z(B, S, D), z(B, S, H), z(B * K, H), z(B * K, S), z(taps, 1, Kl), z(Kl),
+                z(Kl, H), z(H), z(H), z(B * K, S), z(B * K, D), z(B * K, S)]
+
+    for args in ((2, 5, 10, 128, 128, 16, 5), (2, 1, 10, 64, 64, 16, 5),
+                 (2, 1, 10, 128, 256, 16, 5), (2, 1, 10, 128, 128, 16, 7)):
+        before = coverage_attention_step_backward.launches
+        with pytest.raises(ValueError):
+            coverage_attention_step_backward(*inputs(*args))
+        assert coverage_attention_step_backward.launches == before
+    out = coverage_attention_step_backward(*inputs(2, 1, 83, 128, 128, 64, 5))
+    torch.cuda.synchronize()
+    assert out[0].shape == (2, 83, 128)
+
+
+@pytest.mark.cuda
+def test_coverage_step_under_autograd_runs_both_kernels(monkeypatch):
+    """A 3-step coverage sequence on the card under autograd launches the
+    forward kernel 3 times and the backward kernel 3 times and never the
+    plain versions; its gradients match autograd of the plain version on
+    the same inputs (float32, chip_smoke's B2_BWD_TOL of each gradient's
+    largest magnitude, times 10 for the three steps' sums)."""
+    _need_card()
+    from doc2tex_tpu_torch.ops import attention_step as b2
+
+    kw = chip_smoke.coverage_step_inputs(4, 1, 300, 128, 128, 64, torch.float32, 1, seed=3)
+    names = ("enc", "enc_proj", "loc_conv_w", "loc_conv_b", "w_loc", "b_loc", "w_score")
+    qs = [torch.randn(4, 128, device="cuda") for _ in range(3)]
+    g = [torch.randn(4, 128, device="cuda") for _ in range(3)]
+
+    def run(step):
+        leaves = {k: kw[k].detach().clone().requires_grad_() for k in names}
+        q_leaves = [q.clone().requires_grad_() for q in qs]
+        cum, loss = torch.zeros(4, 300, device="cuda"), 0.0
+        for t in range(3):
+            ctx, alpha = step(leaves["enc"], leaves["enc_proj"], q_leaves[t], cum,
+                              leaves["loc_conv_w"], leaves["loc_conv_b"], leaves["w_loc"],
+                              leaves["b_loc"], leaves["w_score"])
+            loss = loss + (ctx * g[t]).sum() + (alpha * alpha).sum()
+            cum = cum + alpha
+        return torch.autograd.grad(loss, list(leaves.values()) + q_leaves)
+
+    want = run(b2.coverage_attention_step_reference)
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain version ran")
+
+    monkeypatch.setattr(b2, "coverage_attention_step_reference", refuse)
+    monkeypatch.setattr(b2, "coverage_attention_step_backward_reference", refuse)
+    fwd, bwd = b2.coverage_attention_step.launches, b2.coverage_attention_step_backward.launches
+    got = run(b2.coverage_attention_step)
+    torch.cuda.synchronize()
+    assert b2.coverage_attention_step.launches == fwd + 3
+    assert b2.coverage_attention_step_backward.launches == bwd + 3
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= 10 * chip_smoke.B2_BWD_TOL * b.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_lstm_train_step_on_card_matches_cpu():
+    """A small coverage-LSTM model at the kernels' width (D = H = 128),
+    float32, random weights: the teacher-forced loss and the gradients on
+    the card against the CPU's (loss 1e-5 relative, each leaf of the head
+    and the ViT within 1e-3 of its norm, as chip_smoke's TRAIN_TOL; the
+    ResNet's leaves are left out, since at random weights its float32
+    gradient flips ReLU choices, tests/test_torch_port_train.py), B2's
+    forward and backward launching once per decode step."""
+    _need_card()
+    from doc2tex_tpu_torch.ops import attention_step as b2
+    from doc2tex_tpu_torch.train.trainer import criterion_from_config, loss_and_grads
+    from doc2tex_tpu_torch.transforms.augment import normalize
+
+    cfg = make_config(dict(
+        max_dimension=[64, 256], min_dimension=[32, 32], batch_max_length=20, dtype="float32",
+        FeatureExtraction={"name": "None"},
+        SequenceModeling={"name": "ViT", "params": {
+            "backbone": {"name": "resnet", "input_channel": 1, "output_channel": 32,
+                         "gcb": False},
+            "fix_embed": True, "input_channel": 1, "patching_style": "2d",
+            "patch_size": [2, 2], "depth": 1, "num_heads": 4, "hidden_size": 128}},
+        Prediction={"name": "Attnv2", "params": {
+            "seqmodel": "TFM", "input_size": 128, "hidden_size": 128, "kernel_size": 2,
+            "kernel_dim": 64, "embed_target": True, "enc_init": True,
+            "attn_type": "coverage", "droprate": 0.0}}))
+    torch.manual_seed(0)
+    model = build_model(cfg, 30)
+    rng = np.random.default_rng(0)
+    images = torch.from_numpy(rng.integers(0, 256, (4, 64, 256, 1)).astype(np.uint8))
+    text = torch.from_numpy(rng.integers(3, 30, (4, 22))).long()
+    text[:, 0] = 0
+    crit = criterion_from_config(cfg)
+    out = {}
+    for device in ("cpu", "cuda"):
+        m = build_model(cfg, 30).to(device)
+        m.load_state_dict(model.state_dict())
+        fwd, bwd = b2.coverage_attention_step.launches, b2.coverage_attention_step_backward.launches
+        loss, _, grads = loss_and_grads(m, crit, normalize(images.to(device)), text.to(device))
+        out[device] = (float(loss), {k: v.cpu() for k, v in grads.items()})
+        if device == "cuda":
+            assert b2.coverage_attention_step.launches == fwd + 21
+            assert b2.coverage_attention_step_backward.launches == bwd + 21
+    (l0, g0), (l1, g1) = out["cpu"], out["cuda"]
+    assert abs(l1 - l0) <= 1e-5 * abs(l0)
+    norm = float(torch.sqrt(sum((g ** 2).sum() for g in g0.values())))
+    for k, g in g0.items():
+        if "ResNetFeatureExtractor" not in k:
+            assert (g1[k] - g).abs().max().item() <= 1e-3 * g.norm().item() + 1e-5 * norm, k

@@ -25,15 +25,16 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = ("jax", "jaxlib", "flax", "yaml", "msgpack", "PIL", "cv2", "lmdb", "scipy",
            "doc2tex_tpu")
 # the modules of the int8 encoder, the server, the release eval, detection,
-# the page app, the page eval, training and the eval CLI, which the walk
-# below must reach
+# the page app, the page eval, training, the eval CLI, the device pools and
+# the soak twin, which the walk below must reach
 REQUIRED = ("ops.quant", "serving", "api.serve", "utils.png", "data.loader", "eval.metrics",
             "engine.inferencing", "tools.release_eval", "tools.bench_int8", "detection",
             "detection.priors", "detection.windows", "detection.ssd", "detection.boxes",
             "detection.flow", "detection.evaluate", "app", "tools.page_eval",
             "tools.profile_page", "train", "train.loss", "train.schedule", "train.optim",
             "train.trainer", "train.checkpoint", "engine.training", "api.train",
-            "utils.common", "utils.profiling", "transforms.geometry", "api.infer")
+            "utils.common", "utils.profiling", "transforms.geometry", "api.infer",
+            "data.device_pool", "tools.structured_soak")
 
 GUARD = textwrap.dedent(f"""
     import importlib, pkgutil, sys
@@ -73,7 +74,7 @@ def test_port_imports_nothing_the_gpu_machine_lacks():
     out = subprocess.run([sys.executable, "-c", GUARD], cwd=ROOT, env=_env(),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 71
+    assert int(out.stdout.split()[-1]) >= 73
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

@@ -465,10 +465,13 @@ def test_to_variables_round_trip():
     assert set(back) == set(sd)
     for k, v in sd.items():
         assert torch.equal(back[k], v), k
-    with pytest.raises(NotImplementedError, match="A9"):
-        build_model(make_config(dict(train_config(), Prediction={
-            "name": "Attnv2", "params": {"hidden_size": 64}})), V)(
-            torch.zeros(1, 32, 64, 1), torch.zeros(1, 3, dtype=torch.long), train=True)
+    # the LSTM head's teacher-forced pass runs too (it raised, naming ROADMAP
+    # A9, until the port trained that head; tests/test_torch_port_train_lstm.py
+    # holds it against JAX's)
+    logits = build_model(make_config(dict(train_config(), Prediction={
+        "name": "Attnv2", "params": {"hidden_size": 64}})), V)(
+        torch.zeros(1, 32, 64, 1), torch.zeros(1, 3, dtype=torch.long), train=True)
+    assert logits.shape == (1, 3, V) and torch.isfinite(logits).all()
 
 
 def test_pretrained_partial_restore_and_pos_embed_resize(tmp_path):
