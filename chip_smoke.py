@@ -82,6 +82,27 @@ Needs one CUDA card; exits non-zero without one.  Phases, one line each:
    this process: ``POST /recognize_page`` with a PNG page returns regions,
    B1 launching in that request.  (b) and (c) run with the process's TF32
    as torch leaves it;
+12b. detect_train — the detector trains (``tools/detection_soak.py``'s
+   twin, the shipped detector, float32, TF32 off): (a) one Adam step on the
+   first 8 windows of the ``windows`` pool (seed 0; their sha256 and the
+   JAX package's first loss in ``tests/torch_port_golden_detect_soak.json``)
+   on the card against the same step on the CPU: the loss within 1e-5 of
+   the CPU's and JAX's, every gradient leaf within ``TRAIN_TOL`` or
+   ``SPREAD_FACTOR`` times the CPU's own spread under ``WEIGHT_NOISE``, at
+   most 5 % of the weights further than 1e-6 apart after the step; (a') 3
+   Adam steps on the pool's first 24 windows in order, each loss within
+   ``DETECT_STEPS_RTOL`` of JAX's; (b) the soak twin ``--style windows
+   --init_from <shipped> --steps 50``: every loss finite, the mean of the
+   last 10 at most 1.5 times the first 10's;
+   steps/s at batch 8, the pool's upload and the peak memory printed;
+   (c) ``--steps 0``: the shipped weights' held-out windows (seed 99)
+   against the golden's boxes (``match_boxes``) and equal CROHME counts;
+   (d) (b)'s ``--save`` reloaded by ``MathDetector`` gives the in-memory
+   model's boxes on a golden page; (e) the voting stitch on the 3 golden
+   pages (``detect_page(raw=True)``, ``stitch_page(thresh_votes=8)``)
+   against ``tests/torch_port_golden_stitch.json`` within 1 px a
+   coordinate, and ``App(stitch=True)``'s strings (float32, beam 10) as
+   the page phase's (a) gates them; the stitch's ms a page printed;
 13. train  — the release recipe ``config/train_hard_tfm_big.yaml`` at full
    width through the port's trainer (``engine.training``), with
    ``synthetic_data``, ``num_iter`` and ``valInterval`` cut (printed):
@@ -272,6 +293,24 @@ B2_BWD_SOURCE = "doc2tex_tpu_torch/csrc/attention_step_backward.cu"
 B2_BWD_REPLACES = "doc2tex_tpu/models/decoder_lstm.py:279"
 B2_BWD_NAMES = ("d_enc", "d_enc_proj", "d_q", "d_mem", "d_loc_conv_w", "d_loc_conv_b",
                 "d_w_loc", "d_b_loc", "d_w_score")
+# the detect_train phase: the goldens the JAX package wrote on the CPU, the
+# soak twin's fine-tune (its pool and eval as the JAX tool's), the stitch's
+# gate (a coordinate may move by 1 px where a vote boundary sits on a window
+# edge) and the soak's loss gates.  Fine-tuning from a trained point, Adam's
+# fresh moments move every weight by about lr at the first steps and the
+# loss rises (JAX's own step does the same: 2e-5 -> 0.276 at batch 1 on the
+# CPU, tests/test_torch_port_detect_train.py), so the first loss is no
+# baseline: the last 10 losses' mean is held to DETECT_SOAK_LOSS_FACTOR
+# times the first 10's (no blow-up over the run), and the rise itself to
+# JAX's: the golden's 3 Adam steps on the pool's first 24 windows within
+# DETECT_STEPS_RTOL (a wrong moment, bias correction or count moves a loss
+# by far more; an H100 80GB HBM3's first step sits 2.2e-6 from the CPU's)
+GOLDEN_DETECT_SOAK = os.path.join(ROOT, "tests", "torch_port_golden_detect_soak.json")
+GOLDEN_STITCH = os.path.join(ROOT, "tests", "torch_port_golden_stitch.json")
+DETECT_SOAK_STEPS = 50
+DETECT_SOAK_LOSS_FACTOR = 1.5
+DETECT_STEPS_RTOL = 1e-3
+STITCH_TOL_PX = 1
 # the int8 strings' gates (see check_int8_strings)
 INT8_MIN_CHAR_MATCH = 0.85
 INT8_MIN_CHANGED = 2
@@ -1519,6 +1558,281 @@ def page_request(t0, version, page):
         f"decode_attention launches: {regions[0]}")
 
 
+def _adam_grads(opt_state) -> dict:
+    """The gradient of an Adam step read back from its first moment, which
+    is (1 - b1) g = 0.1 g after one step; on the CPU, as float32."""
+    return {k: (v / 0.1).float().cpu() for k, v in opt_state[0].mu.items()}
+
+
+def _detect_step(model, batch):
+    """One Adam step (lr 1e-4) of the detector's train step on ``batch``
+    (the pool's float32 windows, gt, valid); returns (metrics as floats,
+    gradients, the weights after the step on the CPU)."""
+    from doc2tex_tpu_torch.detection.data import make_detection_train_step
+    from doc2tex_tpu_torch.detection.priors import make_priors
+    from doc2tex_tpu_torch.tools.detection_soak import LR
+    from doc2tex_tpu_torch.train.optim import adam
+    from doc2tex_tpu_torch.train.trainer import named_params
+
+    tx = adam(LR)
+    params = named_params(model)
+    _, opt_state, m = make_detection_train_step(model, make_priors(), tx)(
+        params, tx.init(params), *batch)
+    return ({k: float(v) for k, v in m.items()}, _adam_grads(opt_state),
+            {k: v.detach().cpu() for k, v in model.state_dict().items()})
+
+
+def detect_step_parity(t0, golden, device="cuda", n=None):
+    """detect_train (a): the shipped detector, one float32 step on the
+    pool's first ``n`` (default the golden's batch) windows, ``device``
+    against the CPU, and the CPU against itself under WEIGHT_NOISE."""
+    import copy
+    import hashlib
+
+    import torch
+
+    from doc2tex_tpu_torch.detection.data import detection_input
+    from doc2tex_tpu_torch.detection.flow import SHIPPED_WEIGHTS, MathDetector
+    from doc2tex_tpu_torch.detection.loss import multibox_loss
+    from doc2tex_tpu_torch.detection.priors import make_priors
+    from doc2tex_tpu_torch.tools import detection_soak
+
+    n = n or golden["batch"]
+    n_first = golden["batch"] * len(golden["step_losses"])
+    pool = detection_soak.build_pool("windows", golden["neg_frac"], detection_soak.N_POOL,
+                                     first=n_first)
+    first = pool["images"][:golden["batch"]]
+    if (hashlib.sha256(first.tobytes()).hexdigest() != golden["pool_sha256"]
+            or hashlib.sha256(pool["images"].tobytes()).hexdigest()
+            != golden["pool_sha256_steps"]):
+        raise AssertionError("(a) the pool's first windows differ from the JAX tool's")
+    batch = (pool["images"][:n], pool["gt"][:n], pool["valid"][:n])
+    cpu_model = MathDetector(SHIPPED_WEIGHTS, device="cpu").model.train()
+    noisy = copy.deepcopy(cpu_model)
+    gen = torch.Generator().manual_seed(17)
+    with torch.no_grad():
+        for p in noisy.parameters():
+            p.mul_(1 + WEIGHT_NOISE * torch.randn(p.shape, generator=gen))
+    noisy_grads = _detect_step(noisy, batch)[1]
+    del noisy
+    m0, g0, p0 = _detect_step(cpu_model, batch)
+    m1, g1, p1 = _detect_step(MathDetector(SHIPPED_WEIGHTS, device=device).model.train(), batch)
+    norm = float(torch.sqrt(sum((g.double() ** 2).sum() for g in g0.values())))
+    own, worst = (_worst_leaves(noisy_grads, g0, norm)[False],
+                  _worst_leaves(g1, g0, norm)[False])    # no leaf of SSD512 is a ResNet's
+    tol = max(TRAIN_TOL["grad_rtol"], SPREAD_FACTOR * own[0])
+    diffs = torch.cat([(p1[k] - p0[k]).abs().flatten() for k in p0])
+    far = (diffs > 1e-6).float().mean().item()
+    loss_err = abs(m1["loss"] - m0["loss"]) / abs(m0["loss"])
+    jax_loss = golden["first_step"]["loss"] if n == golden["batch"] else None
+    jax_err = abs(m1["loss"] - jax_loss) / abs(jax_loss) if jax_loss else 0.0
+    # the same windows with the mean taken off once, as the app and the
+    # held-out evaluation feed the detector (the soak's pool holds windows
+    # with the mean off and its step takes it off again); printed only
+    model = MathDetector(SHIPPED_WEIGHTS, device=device).model.eval()
+    with torch.no_grad():
+        x = detection_input(torch.from_numpy(batch[0]).to(device),
+                            torch.zeros(3, device=device))
+        once = sum(multibox_loss(*model(x), torch.from_numpy(batch[1]).to(device),
+                                 torch.from_numpy(batch[2]).to(device),
+                                 torch.from_numpy(make_priors()).to(device))).item()
+    log("detect_train", t0, f"(a) float32 Adam step (lr 1e-4) on the windows pool's first {n} "
+        f"windows (sha256 as the JAX tool's), {device} against cpu: loss {m1['loss']:.7f} / "
+        f"{m0['loss']:.7f} (rel {loss_err:.2e}; JAX {jax_loss} rel {jax_err:.2e}), loss_loc "
+        f"{m1['loss_loc']:.7f} / {m0['loss_loc']:.7f}, loss_conf {m1['loss_conf']:.7f} / "
+        f"{m0['loss_conf']:.7f}; worst gradient leaf {worst[0]:.2e} of its norm ({worst[1]}; "
+        f"tolerance {tol:.2e}: the CPU against itself with its weights scaled by "
+        f"(1 + {WEIGHT_NOISE:g} N(0, 1)) moves its worst leaf by {own[0]:.2e}, {own[1]}); "
+        f"weights after the step: max |diff| {diffs.max().item():.3e}, {far:.4%} further than "
+        f"1e-6; the same windows with the mean taken off once: loss {once:.5f}")
+    if not (loss_err <= TRAIN_TOL["loss_rtol"] and jax_err <= TRAIN_TOL["loss_rtol"]
+            and worst[0] <= tol and far <= TRAIN_TOL["param_far_share"]):
+        raise AssertionError("(a) the card's float32 detector step disagrees with the CPU's")
+    if n == golden["batch"]:
+        detect_steps_against_jax(t0, golden, pool, device)
+
+
+def detect_steps_against_jax(t0, golden, pool, device):
+    """detect_train (a'): Adam steps from the shipped detector on the pool's
+    windows in order (``golden["batch"]`` a step) on ``device``, each
+    loss within DETECT_STEPS_RTOL of the JAX package's."""
+    from doc2tex_tpu_torch.detection.data import make_detection_train_step
+    from doc2tex_tpu_torch.detection.flow import SHIPPED_WEIGHTS, MathDetector
+    from doc2tex_tpu_torch.detection.priors import make_priors
+    from doc2tex_tpu_torch.tools.detection_soak import LR
+    from doc2tex_tpu_torch.train.optim import adam
+    from doc2tex_tpu_torch.train.trainer import named_params
+
+    model = MathDetector(SHIPPED_WEIGHTS, device=device).model.train()
+    tx = adam(LR)
+    params = named_params(model)
+    opt_state = tx.init(params)
+    step = make_detection_train_step(model, make_priors(), tx)
+    losses, B = [], golden["batch"]
+    for i in range(len(golden["step_losses"])):
+        b = slice(i * B, (i + 1) * B)
+        params, opt_state, m = step(params, opt_state, pool["images"][b], pool["gt"][b],
+                                    pool["valid"][b])
+        losses.append(float(m["loss"]))
+    errs = [abs(a - w) / abs(w) for a, w in zip(losses, golden["step_losses"])]
+    log("detect_train", t0, f"(a') {len(losses)} Adam steps from the shipped weights on the "
+        f"pool's windows in order, batch {B}: losses {[f'{v:.6f}' for v in losses]} against "
+        f"the JAX package's {[f'{v:.6f}' for v in golden['step_losses']]} (rel "
+        f"{', '.join(f'{e:.1e}' for e in errs)}; tol {DETECT_STEPS_RTOL})")
+    if max(errs) > DETECT_STEPS_RTOL:
+        raise AssertionError("(a') the card's Adam steps leave the JAX package's losses")
+
+
+def check_soak_eval(golden, ev):
+    """detect_train (c): each held-out window's boxes paired with the
+    golden's (``check_detections`` at conf 0.3) and the CROHME counts equal."""
+    results = list(zip(ev["preds"], ev["pred_scores"]))
+    pairs, worst_px, worst_score, unmatched = check_detections(
+        {"pages": golden["eval"]}, results, golden["conf_thresh"])
+    counts = ("allGTbox", "allDet", "correctDet_c", "correctDet_f")
+    if any(ev["scores"][k] != golden["scores"][k] for k in counts):
+        raise AssertionError(f"(c) CROHME counts {ev['scores']} differ from the golden's "
+                             f"{golden['scores']}")
+    return pairs, worst_px, worst_score, unmatched
+
+
+def detect_train_phase(t0, device="cuda", n=None, soak_steps=DETECT_SOAK_STEPS, n_pages=None):
+    """Phase 12b: the detector's training and the voting stitch.  ``n``,
+    ``soak_steps`` and ``n_pages`` cut (a)'s batch, (b)'s steps and (e)'s
+    pages for a rehearsal on the CPU."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from doc2tex_tpu_torch.detection.flow import SHIPPED_WEIGHTS, MathDetector
+    from doc2tex_tpu_torch.tools import detection_soak
+
+    with open(GOLDEN_DETECT_SOAK) as f:
+        golden = json.load(f)
+    detect_step_parity(t0, golden, device, n)
+
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        path = os.path.join(ckpt_dir, "last.msgpack")
+        argv = ["--style", "windows", "--steps", str(soak_steps), "--init_from",
+                SHIPPED_WEIGHTS, "--save", path, "--device", device]
+        t = time.perf_counter()
+        out = detection_soak.run(detection_soak.parse_args(argv))
+        seconds = time.perf_counter() - t
+        losses = out["losses"]
+        early, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+        log("detect_train", t0, f"(b) python -m doc2tex_tpu_torch.tools.detection_soak "
+            f"--style windows --init_from {os.path.relpath(SHIPPED_WEIGHTS, ROOT)} --steps "
+            f"{soak_steps}: pool {out['n_pos']} positive / {out['n_neg']} negative "
+            f"windows built in {out['pool_build_s']:.1f} s, upload {out['pool_mb']:.0f} MB in "
+            f"{out['upload_s']:.3f} s; {out['steps_per_s']:.2f} steps/s at batch 8 "
+            f"({out['train_s']:.1f} s, float32, TF32 off), peak memory "
+            f"{(out['peak_bytes'] or 0) / 2**30:.2f} GiB; loss {losses[0]:.4f} first, first 10 "
+            f"mean {early:.4f}, last 10 mean {last:.4f} (at most {DETECT_SOAK_LOSS_FACTOR} x the "
+            f"first 10's); held-out {out['scores']}; {seconds:.1f} s in all")
+        print(json.dumps({"detect_soak_losses": losses}), file=sys.stderr, flush=True)
+        if not (len(losses) == soak_steps and np.all(np.isfinite(losses))
+                and last <= DETECT_SOAK_LOSS_FACTOR * early):
+            raise AssertionError(f"(b) the soak's losses {losses}")
+
+        # (d) the saved checkpoint against the in-memory model, on a golden page
+        _, pages = golden_pages()
+        saved = MathDetector(path, device=device)
+        live = MathDetector(path, device=device)
+        live.model = out["model"].eval()
+        a, b = saved.detect_page(pages[0]), live.detect_page(pages[0])
+        if not (all(np.array_equal(x, y) for x, y in zip(a, b)) and len(a[0])):
+            raise AssertionError("(d) the saved checkpoint's boxes differ from the model's")
+        log("detect_train", t0, f"(d) {os.path.basename(path)} reloaded by MathDetector: "
+            f"{len(a[0])} boxes on golden page 0, equal to the in-memory model's")
+        del out, saved, live
+
+    argv = ["--style", "windows", "--steps", "0", "--init_from", SHIPPED_WEIGHTS, "--save", "",
+            "--device", device]
+    ev = detection_soak.run(detection_soak.parse_args(argv))
+    pairs, worst_px, worst_score, unmatched = check_soak_eval(golden, ev)
+    log("detect_train", t0, f"(c) --steps 0, the shipped weights on {len(ev['preds'])} held-out "
+        f"windows (seed 99, conf 0.3, NMS 0.3): {pairs} boxes paired with the JAX package's "
+        f"within {worst_px:.4f} px and scores within {worst_score:.2e}; unmatched {unmatched}; "
+        f"CROHME {ev['scores']} (golden {golden['scores']})")
+    del ev
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    stitch_check(t0, device, n_pages)
+
+
+def stitch_check(t0, device="cuda", n_pages=None):
+    """detect_train (e): ``detect_page(raw=True)`` + ``stitch_page`` on the
+    golden pages against the JAX package's stitched boxes, then
+    ``App(stitch=True)``'s strings, B1 launching."""
+    import numpy as np
+
+    from doc2tex_tpu_torch.app import App
+    from doc2tex_tpu_torch.detection.flow import SHIPPED_WEIGHTS, MathDetector
+    from doc2tex_tpu_torch.detection.stitch import _to_ink_mask, label_components, stitch_page
+    from doc2tex_tpu_torch.ops.decode_attention import decode_attention
+    from doc2tex_tpu_torch.recognition import MathRecognition, load_recog_config
+
+    with open(GOLDEN_STITCH) as f:
+        golden = json.load(f)
+    _, pages = golden_pages()
+    pages = pages[:n_pages]
+    golden["pages"] = golden["pages"][:len(pages)]
+    det = MathDetector(SHIPPED_WEIGHTS, conf_thresh=golden["conf_thresh"], device=device)
+    n_boxes = exact = 0
+    worst, stitch_ms, label_ms, n_raw = 0.0, [], [], []
+    for g, page in zip(golden["pages"], pages):
+        raw_boxes, raw_scores = det.detect_page(page, raw=True)
+        bs = np.concatenate([raw_boxes, raw_scores[:, None]], axis=1)
+        t = time.perf_counter()
+        boxes = stitch_page(bs, page.shape[:2], page_image=page, thresh_votes=golden["thresh_votes"])
+        stitch_ms.append(1e3 * (time.perf_counter() - t))
+        t = time.perf_counter()
+        label_components(_to_ink_mask(page))
+        label_ms.append(1e3 * (time.perf_counter() - t))
+        n_raw.append(len(raw_boxes))
+        want = np.asarray(g["boxes"], np.float64).reshape(-1, 4)
+        got = np.asarray(boxes, np.float64).reshape(-1, 4)
+        taken = np.zeros(len(got), bool)
+        for box in want:
+            dist = np.abs(got - box).max(axis=1) if len(got) else np.zeros(0)
+            dist[taken] = np.inf
+            j = int(np.argmin(dist)) if len(dist) else -1
+            if j < 0 or dist[j] > STITCH_TOL_PX:
+                raise AssertionError(f"(e) stitched box {box.tolist()} has no box of ours within "
+                                     f"{STITCH_TOL_PX} px: {got.tolist()}")
+            taken[j] = True
+            worst = max(worst, float(dist[j]))
+            exact += int(dist[j] == 0)
+        if not taken.all():
+            raise AssertionError(f"(e) extra stitched boxes {got[~taken].tolist()}")
+        n_boxes += len(want)
+    log("detect_train", t0, f"(e) voting stitch (equal votes >= {golden['thresh_votes']}, fit to "
+        f"the ink) on {len(pages)} golden pages, {n_raw} raw boxes: {n_boxes} stitched boxes "
+        f"paired with the JAX package's, {exact} exactly equal, worst {worst:.0f} px (tol "
+        f"{STITCH_TOL_PX}); stitch_page {', '.join(f'{v:.1f}' for v in stitch_ms)} ms a page, "
+        f"of which the page's ink labelling {', '.join(f'{v:.1f}' for v in label_ms)} ms "
+        f"(host clock, numpy)")
+
+    cfg, weights = load_recog_config(version=golden["recognizer"]["version"])
+    cfg["dtype"], cfg["quantize"] = "float32", None
+    app = App(recognizer=MathRecognition(cfg, weights, beam_size=golden["recognizer"]["beam"],
+                                         device=device),
+              stitch=True, stitch_votes=golden["thresh_votes"], device=device)
+    decode_attention.launches = 0
+    t = time.perf_counter()
+    regions = [app(page) for page in pages]
+    seconds = time.perf_counter() - t
+    launches = decode_attention.launches
+    compared, misses = check_page_strings(golden, regions)
+    log("detect_train", t0, f"(e) App(stitch=True), synthetic_tfm_big float32 beam 10: "
+        f"{sum(map(len, regions))} regions, {compared - len(misses)}/{compared} strings equal to "
+        f"the JAX package's where the boxes are equal (misses {misses}); {seconds:.2f} s, "
+        f"{launches} decode_attention launches")
+    if device != "cpu" and launches <= 0:
+        raise AssertionError("App(stitch=True) launched decode_attention 0 times")
+
+
 def _resnet_leaf(name: str) -> bool:
     return "ResNetFeatureExtractor_0" in name
 
@@ -2158,6 +2472,7 @@ def main() -> int:
     eval_phase(t0)
     detect_phase(t0)
     page_phase(t0)
+    detect_train_phase(t0)
     train_phase(t0)
     records.append(train_lstm_phase(t0))
     release_phase(t0, "synthetic_tfm")

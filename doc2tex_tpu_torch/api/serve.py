@@ -16,12 +16,12 @@ The release's version block is served as it ships (``quantize: int8``);
 ``--bf16`` turns its quantization off.  With ``--detect`` a page thread
 detects page after page (``serving.PageServer``, the released detector or
 ``--detect_weights``) and sends each page's crops through the same
-dispatcher as ``/recognize`` traffic.  ``--selftest N`` pushes N synthetic
-crops through the dispatcher (no HTTP), with ``--detect`` also two white
-640x1280 pages, and prints one JSON line of stats.  The models run on
-``--device`` (default ``cuda``).  The voting stitch (``--stitch``),
-data-parallel decode (``--data_parallel``) and ``--platform`` are not
-ported yet and raise.
+dispatcher as ``/recognize`` traffic; ``--stitch`` gives the page's regions
+by the voting stitch instead of the page NMS (``app.App(stitch=True)``).
+``--selftest N`` pushes N synthetic crops through the dispatcher (no HTTP),
+with ``--detect`` also two white 640x1280 pages, and prints one JSON line of
+stats.  The models run on ``--device`` (default ``cuda``).  Data-parallel
+decode (``--data_parallel``) and ``--platform`` are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -151,15 +151,16 @@ def parse_args(argv=None):
                     "the shared dispatcher")
     ap.add_argument("--detect_weights", default=None,
                     help="detector msgpack (default: the released saved_models/math_detect)")
-    ap.add_argument("--stitch", action="store_true", help="not ported yet (ROADMAP A7)")
+    ap.add_argument("--stitch", action="store_true",
+                    help="with --detect: voting-stitch the page's regions instead of the page NMS")
     ap.add_argument("--data_parallel", type=int, default=0, help="not ported yet (ROADMAP A10)")
     ap.add_argument("--platform", default=None, help="a JAX platform; use --device")
     args = ap.parse_args(argv)
-    for name, item in (("stitch", "A7"), ("data_parallel", "A10")):
-        if getattr(args, name):
-            raise NotImplementedError(f"--{name} is not ported yet (ROADMAP {item})")
-    if args.detect_weights and not args.detect:
-        raise SystemExit("--detect_weights needs --detect")
+    if args.data_parallel:
+        raise NotImplementedError("--data_parallel is not ported yet (ROADMAP A10)")
+    for name in ("detect_weights", "stitch"):
+        if getattr(args, name) and not args.detect:
+            raise SystemExit(f"--{name} needs --detect")
     if args.platform:
         raise NotImplementedError("--platform picks a JAX platform and is not ported; "
                                   "use --device")
@@ -190,7 +191,8 @@ def build_page_server(args, recog, server: RecognitionServer) -> PageServer | No
         return None
     from ..app import App
 
-    app = App(detect_weights=args.detect_weights, recognizer=recog, device=args.device)
+    app = App(detect_weights=args.detect_weights, stitch=args.stitch, recognizer=recog,
+              device=args.device)
     return PageServer(app.detect_and_crop, server)
 
 

@@ -4,17 +4,20 @@ package's ``demo/app.py``).
 A page is resized to width 1280, its math regions are detected (SSD512 over
 sliding windows, NMS) and expanded by 5 %, each region is cropped and the
 crops are recognized to LaTeX.  ``App(page)`` gives ``[(box, latex), ...]``
-with boxes in the original page's pixels.
+with boxes in the original page's pixels.  With ``stitch=True`` the regions
+come from the voting stitch instead (``detection.stitch.stitch_page``): every
+window's boxes (``detect_page(raw=True)``) vote on the resized page, the
+regions with at least ``stitch_votes`` votes are fitted to the ink, each
+scored 1.
 
     python -m doc2tex_tpu_torch.app page.png [--model_version synthetic_tfm_big]
-        [--detect_weights W] [--no_detect] [--device cuda]
+        [--detect_weights W] [--no_detect] [--stitch] [--device cuda]
 
 The page is read as PIL's ``convert("L")`` would read it (``utils/png.py``;
 PNG only).  The recognizer is the version block's release as it ships
 (``quantize: int8``, beam 10); the detector the released
 ``saved_models/math_detect`` weights in float32.  Everything runs on
-``--device`` (default ``cuda``).  The voting stitch (``--stitch``) is not
-ported yet and raises.
+``--device`` (default ``cuda``).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from typing import Optional
 import numpy as np
 
 from .detection.flow import SHIPPED_WEIGHTS, MathDetector
+from .detection.stitch import stitch_page
 from .recognition import MathRecognition
 from .transforms.preprocess import detect_preprocess
 
@@ -43,6 +47,7 @@ class App:
         nms_iou: float = 0.1,
         expand_frac: float = 0.05,
         stitch: bool = False,
+        stitch_votes: float = 8,
         recognizer: Optional[MathRecognition] = None,
         detect_quantize: Optional[str] = None,
         device="cuda",
@@ -50,10 +55,12 @@ class App:
         """``detect_weights``: a detector msgpack; None gives the released
         weights when the file is there (else a random init).
         ``recognizer``: a ``MathRecognition`` to share (a serving front's)
-        instead of building one from ``recog_config``/``recog_weights``."""
-        if stitch:
-            raise NotImplementedError("the voting stitch is not ported yet (ROADMAP A7)")
+        instead of building one from ``recog_config``/``recog_weights``.
+        ``stitch``: the voting stitch (``equal`` votes, at least
+        ``stitch_votes``) instead of the page NMS."""
         self.use_detect = use_detect
+        self.stitch = stitch
+        self.stitch_votes = stitch_votes
         self.detector = None
         if use_detect:
             if detect_weights is None and os.path.exists(SHIPPED_WEIGHTS):
@@ -80,7 +87,15 @@ class App:
             h, w = page.shape[:2]
             return [(0, 0, w, h)], [page]
         resized, scale = detect_preprocess(page)
-        boxes, _ = self.detector.detect_page(resized)
+        if self.stitch:
+            raw_boxes, raw_scores = self.detector.detect_page(resized, raw=True)
+            bs = (np.concatenate([raw_boxes, raw_scores[:, None]], axis=1) if len(raw_boxes)
+                  else np.zeros((0, 5), np.float32))
+            boxes = np.asarray(stitch_page(bs, resized.shape[:2], page_image=resized,
+                                           thresh_votes=self.stitch_votes),
+                               np.float32).reshape(-1, 4)
+        else:
+            boxes, _ = self.detector.detect_page(resized)
         crops = self.detector.crop_regions(resized, boxes)
         # boxes and crops are filtered together: dropping only the empty
         # crops would misalign every later (box, latex) pair
@@ -104,7 +119,8 @@ def _cli(argv=None) -> None:
     p.add_argument("--detect_weights", default=None,
                    help="detector msgpack (default: the released saved_models/math_detect)")
     p.add_argument("--no_detect", action="store_true")
-    p.add_argument("--stitch", action="store_true", help="not ported yet (ROADMAP A7)")
+    p.add_argument("--stitch", action="store_true",
+                   help="voting-stitch the regions instead of the page NMS")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
     cfg, weights = load_recog_config(args.recog_config, version=args.model_version)

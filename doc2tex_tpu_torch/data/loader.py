@@ -197,12 +197,13 @@ class BucketLoader:
 def build_loader(config, converter, seed: int = 0):
     """(train_loader, valid_loader).  The data is ``synthetic_data: N``
     samples made in memory (N for training, max(N // 10, 4) for validation,
-    from ``seed`` and ``seed + 1``), by the ``flat`` or ``hard`` generator
-    (``synthetic_style``).  LMDB roots (``train_data``/``valid_data``) and
-    the ``structured`` generator are not ported (ROADMAP A11)."""
+    from ``seed`` and ``seed + 1``), by the ``flat``, ``structured`` or
+    ``hard`` generator (``synthetic_style``).  LMDB roots
+    (``train_data``/``valid_data``) are not ported (ROADMAP A11)."""
     from . import synthetic
 
-    gens = {"flat": synthetic.synth_dataset, "hard": synthetic.synth_hard_dataset}
+    gens = {"flat": synthetic.synth_dataset, "structured": synthetic.synth_structured_dataset,
+            "hard": synthetic.synth_hard_dataset}
 
     def split(key: str, train: bool):
         path = config.get(key)
@@ -211,12 +212,8 @@ def build_loader(config, converter, seed: int = 0):
         if not config.get("synthetic_data"):
             raise FileNotFoundError(f"{key}: {path!r} not found")
         style = str(config.get("synthetic_style") or "flat")
-        if style == "structured":
-            raise NotImplementedError(
-                "synthetic_style 'structured' is not ported yet (ROADMAP A11)")
         if style not in gens:
-            raise ValueError(f"synthetic_style {style!r}: pick one of "
-                             f"{sorted(gens) + ['structured']}")
+            raise ValueError(f"synthetic_style {style!r}: pick one of {sorted(gens)}")
         n = int(config["synthetic_data"])
         images, labels = gens[style](n if train else max(n // 10, 4),
                                      seed=seed if train else seed + 1,

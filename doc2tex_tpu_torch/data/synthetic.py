@@ -2,18 +2,21 @@
 releases were trained on), ``synth_hard_dataset`` (the release eval's set
 and the ``hard`` training data), ``synth_long_sample`` and
 ``synth_long_dataset`` (multi-line displays up to 500 tokens on 448x960
-canvases, the ``synthetic_long`` release's eval set) and the flat ``synth_sample`` (the serving
-selftest's load) with ``synth_dataset`` (the ``flat`` training data).
+canvases, the ``synthetic_long`` release's eval set),
+``synth_structured_sample`` and ``synth_structured_dataset`` (the nested
+frac/sqrt/script/matrix grammar over the flat vocabulary: the
+``structured`` training data, and half the regions of the detector's
+training pages) and the flat ``synth_sample`` (the serving selftest's load)
+with ``synth_dataset`` (the ``flat`` training data).
 
-Copied from ``doc2tex_tpu.data.synthetic`` (numpy only), with two changes
-that keep every crop and label the same: the JAX package builds the
-terminal and unary-command lists by running its LaTeX normalizer over a
-KaTeX inventory, and those lists are exactly the released ``version2``
-vocabulary (``hard_vocab()`` equals
+Copied from ``doc2tex_tpu.data.synthetic`` (numpy only), with one change
+that keeps every crop and label the same: the JAX package builds the hard
+grammar's terminal and unary-command lists by running its LaTeX normalizer
+over a KaTeX inventory, and those lists are exactly the released
+``version2`` vocabulary (``hard_vocab()`` equals
 ``saved_models/math_recog/version2/vocab.txt``), so here they are read back
-from that file; and the structured grammar and its hard subclass are one
-class, ``_HardGen``.  The same seed gives the same crop and label as the
-JAX package (the port's tests hold the sha256 of 16 crops).
+from that file.  The same seed gives the same crop, label and generator
+state afterwards as the JAX package (the port's tests hold their sha256).
 """
 
 from __future__ import annotations
@@ -140,146 +143,53 @@ def _hstack(parts: list[np.ndarray], gap: int) -> np.ndarray:
     return out
 
 
-_HARD_FONTS = 3
-_HARD_ENVS = ("matrix", "pmatrix", "bmatrix")
-# 1-arg accent/style commands, rendered as a deterministic marker strip
-# above the argument so labels stay exactly decodable from pixels
-_HARD_UNARY_CANDIDATES = (
-    "\\hat", "\\bar", "\\tilde", "\\vec", "\\dot", "\\ddot", "\\acute",
-    "\\breve", "\\check", "\\grave", "\\overline", "\\underline",
-    "\\mathbf", "\\mathrm", "\\mathcal", "\\mathbb", "\\mathit",
-    "\\mathsf", "\\mathfrak", "\\boldsymbol",
-)
-
-_HARD_STRUCTURAL = (
-    "\\frac", "\\sqrt", "{", "}", "^", "_", "\\\\", "&",
-    "\\left(", "\\right)",
-)
-_hard_cache: dict = {}
+# the structured grammar's terminals: the flat vocabulary without its
+# structural tokens (\left( and \right) come only as a balanced pair)
+_STRUCT_SYMBOLS = [
+    t for t in SYNTH_VOCAB
+    if t not in {
+        "\\frac", "\\sqrt", "{", "}", "^", "_",
+        "\\begin{matrix}", "\\end{matrix}", "\\\\", "&",
+        "\\left(", "\\right)",
+    }
+]
 
 
-def _hard_lists() -> tuple[list[str], list[str]]:
-    """(terminals, unary commands) of the hard grammar, read back from the
-    released vocabulary: structural tokens, env delimiters and unary
-    commands come first, the sorted terminals after them."""
-    if "lists" not in _hard_cache:
-        vocab = load_vocab(HARD_VOCAB_PATH)
-        envs = {f"\\begin{{{e}}}" for e in _HARD_ENVS} | {
-            f"\\end{{{e}}}" for e in _HARD_ENVS
-        }
-        unary = [t for t in vocab if t in _HARD_UNARY_CANDIDATES]
-        skip = set(_HARD_STRUCTURAL) | envs | set(unary)
-        terms = [t for t in vocab if t not in skip]
-        if terms != sorted(terms):
-            raise ValueError(f"{HARD_VOCAB_PATH} is not the hard-mode vocabulary")
-        _hard_cache["lists"] = (terms, unary)
-    return _hard_cache["lists"]
-
-
-_HARD_GLYPH_CACHE: dict[tuple[int, int], np.ndarray] = {}
-
-
-def _hard_glyph(term_idx: int, font: int) -> np.ndarray:
-    """Deterministic binary glyph for terminal #term_idx in font #font.
-
-    Fonts are STYLE TRANSFORMS of one base shape per token — regular
-    (0), bold (1: horizontal dilation), italic (2: row shear) — like real
-    typefaces, where renderings of a symbol are correlated.  (Unrelated
-    random patterns per font were measured to put glyph identity out of
-    the soak model's reach: train loss floored at ~3.0 == structure
-    learned, terminals unread.)"""
-    g = _HARD_GLYPH_CACHE.get((term_idx, font))
-    if g is None:
-        rng = np.random.default_rng([7000 + term_idx])
-        base = (rng.random((_GLYPH_H, _GLYPH_W)) < 0.45).astype(np.uint8)
-        base[0, :] = 1  # top bar anchors vertical alignment
-        if font % 3 == 1:  # bold: dilate horizontally
-            g = base.copy()
-            g[:, 1:] |= base[:, :-1]
-        elif font % 3 == 2:  # italic: shear rows rightward
-            g = np.zeros((_GLYPH_H, _GLYPH_W + 3), np.uint8)
-            for r in range(_GLYPH_H):
-                off = (_GLYPH_H - 1 - r) // 4
-                g[r, off : off + _GLYPH_W] = base[r]
-        else:
-            g = base
-        _HARD_GLYPH_CACHE[(term_idx, font)] = g
-    return g
-
-
-_UNARY_MARK_CACHE: dict[int, np.ndarray] = {}
-
-
-def _unary_mark(unary_idx: int) -> np.ndarray:
-    """4x10 deterministic marker identifying a unary command (drawn above
-    its argument, like an accent)."""
-    m = _UNARY_MARK_CACHE.get(unary_idx)
-    if m is None:
-        rng = np.random.default_rng([91000 + unary_idx])
-        m = (rng.random((4, 10)) < 0.55).astype(np.uint8)
-        m[-1, :] = 1
-        _UNARY_MARK_CACHE[unary_idx] = m
-    return m
-
-
-def _filter3(img: np.ndarray, op) -> np.ndarray:
-    """3x3 neighborhood min/max/mean via shifted stacks (no scipy here)."""
-    p = np.pad(img, 1, mode="edge")
-    h, w = img.shape
-    stack = np.stack(
-        [p[dy : dy + h, dx : dx + w] for dy in range(3) for dx in range(3)]
-    )
-    return op(stack, axis=0)
-
-
-def apply_render_noise(
-    img: np.ndarray, rng: np.random.Generator,
-    level: float = 1.0, scale: int = 3,
-) -> np.ndarray:
-    """Per-sample render noise: ink thickness, blur, contrast jitter,
-    salt-and-pepper.  ``scale`` gates thinning (a 3x3 max filter would
-    erase 2x2 ink blocks entirely at glyph scale 2)."""
-    if level <= 0:
-        return img
-    out = img.astype(np.float32)
-    r = rng.random()
-    if r < 0.35 * level:
-        out = _filter3(out, np.min)  # thicken ink (dark = low values)
-    elif r < 0.55 * level and scale >= 3:
-        out = _filter3(out, np.max)  # thin ink
-    if rng.random() < 0.5 * level and scale >= 3:
-        # blur only at scale>=3: a 3x3 box blur over 2x2 ink blocks washes
-        # out glyph identity entirely (measured: train loss floors at ~2.6
-        # and eval BLEU at ~0.14 with blur-at-2 on)
-        out = _filter3(out, np.mean)
-    alpha = 1.0 + (rng.random() - 0.5) * 0.3 * level
-    beta = (rng.random() - 0.5) * 60 * level
-    out = out * alpha + beta
-    frac = rng.random() * 0.005 * level
-    n_px = int(frac * out.size)
-    if n_px:
-        ys = rng.integers(0, out.shape[0], n_px)
-        xs = rng.integers(0, out.shape[1], n_px)
-        out[ys, xs] = rng.integers(0, 2, n_px) * 255.0
-    return np.clip(out, 0, 255).astype(np.uint8)
-
-
-class _HardGen:
-    """The hard grammar: KaTeX-inventory terminals in several fonts, unary
-    commands, delimited matrix envs, display-scale layouts.  Renders a
-    formula and emits its brace-explicit token string, so the label is
-    exactly decodable from the pixels."""
+class _StructGen:
+    """The structured grammar: nested \\frac / \\sqrt / scripts / \\left( \\right)
+    / matrix environments over the flat vocabulary's symbols, rendered in 2D
+    with the flat glyphs.  Renders a formula and emits its brace-explicit
+    token string, so the label is exactly decodable from the pixels.  The
+    hard grammar below overrides its terminal, environment and atom hooks."""
 
     def __init__(self, rng: np.random.Generator, scale: int, ink: int,
-                 max_tokens: int, max_depth: int = 3, fonts: int = _HARD_FONTS):
+                 max_tokens: int, max_depth: int = 3):
         self.rng = rng
         self.s = scale
         self.ink = ink
         self.budget = max_tokens
         self.max_depth = max_depth
-        self.terms, self.unary = _hard_lists()
-        self._term_idx = {t: i for i, t in enumerate(self.terms)}
-        self.fonts = fonts
+
+    def _pick_terminal(self) -> str:
+        return _STRUCT_SYMBOLS[int(self.rng.integers(len(_STRUCT_SYMBOLS)))]
+
+    def _render_terminal(self, t: str) -> np.ndarray:
+        return _glyph_img(t, self.s, self.ink)
+
+    def atom(self, depth: int) -> tuple[np.ndarray, list[str]]:
+        r = self.rng.random()
+        deep_ok = depth < self.max_depth and self.budget >= 6
+        if deep_ok and r < 0.12:
+            return self.frac(depth)
+        if deep_ok and r < 0.18:
+            return self.sqrt(depth)
+        if deep_ok and r < 0.34:
+            return self.script(depth)
+        if deep_ok and r < 0.38:
+            return self.delims(depth)
+        if deep_ok and depth == 0 and r < 0.42 and self.budget >= 10:
+            return self.matrix(depth)
+        return self._sym()
 
     def _sym(self) -> tuple[np.ndarray, list[str]]:
         t = self._pick_terminal()
@@ -406,6 +316,198 @@ class _HardGen:
             y += row_h[r] + gap
         toks.append("\\end{%s}" % env)
         return self._decorate_env(env, img), toks
+
+    def _pick_env(self) -> str:
+        return "matrix"
+
+    def _matrix_dims(self) -> tuple[int, int]:
+        return int(self.rng.integers(2, 4)), int(self.rng.integers(2, 4))
+
+    def _decorate_env(self, env: str, img: np.ndarray) -> np.ndarray:
+        return img
+
+
+def synth_structured_sample(
+    rng: np.random.Generator,
+    min_len: int = 3,
+    max_len: int = 40,
+    max_h: int = 256,
+    max_w: int = 900,
+) -> tuple[np.ndarray, str]:
+    """One structured (image, label): nested LaTeX layout, exact labels.
+
+    Oversized renders are regenerated with a halved token budget rather
+    than clipped (clipping would cut pixels off while the label kept the
+    lost tokens)."""
+    budget = int(rng.integers(min_len, max_len + 1))
+    for _ in range(8):
+        scale = int(rng.integers(2, 4))
+        ink = int(rng.integers(0, 60))
+        gen = _StructGen(rng, scale, ink, max_tokens=budget)
+        img, toks = gen.expr(0, max_atoms=8)
+        pad = int(rng.integers(2, 8))
+        img = np.pad(img, pad, constant_values=_WHITE)
+        if img.shape[0] <= max_h and img.shape[1] <= max_w:
+            break
+        budget = max(budget // 2, min_len)
+    else:  # guaranteed-small fallback: symbols only at min scale
+        gen = _StructGen(rng, 2, 0, max_tokens=min_len, max_depth=0)
+        img, toks = gen.expr(0, max_atoms=min_len)
+        img = np.pad(img, 4, constant_values=_WHITE)
+    h = max(img.shape[0], 24)
+    w = max(img.shape[1], 32)
+    canvas = np.full((h, w), _WHITE, np.uint8)
+    canvas[: img.shape[0], : img.shape[1]] = img
+    return canvas, " ".join(toks)
+
+
+def synth_structured_dataset(n: int, seed: int = 0, **kwargs
+                             ) -> tuple[list[np.ndarray], list[str]]:
+    """``n`` consecutive ``synth_structured_sample`` draws from one
+    generator seeded with ``seed``."""
+    rng = np.random.default_rng(seed)
+    images, labels = [], []
+    for _ in range(n):
+        img, label = synth_structured_sample(rng, **kwargs)
+        images.append(img)
+        labels.append(label)
+    return images, labels
+
+
+_HARD_FONTS = 3
+_HARD_ENVS = ("matrix", "pmatrix", "bmatrix")
+# 1-arg accent/style commands, rendered as a deterministic marker strip
+# above the argument so labels stay exactly decodable from pixels
+_HARD_UNARY_CANDIDATES = (
+    "\\hat", "\\bar", "\\tilde", "\\vec", "\\dot", "\\ddot", "\\acute",
+    "\\breve", "\\check", "\\grave", "\\overline", "\\underline",
+    "\\mathbf", "\\mathrm", "\\mathcal", "\\mathbb", "\\mathit",
+    "\\mathsf", "\\mathfrak", "\\boldsymbol",
+)
+
+_HARD_STRUCTURAL = (
+    "\\frac", "\\sqrt", "{", "}", "^", "_", "\\\\", "&",
+    "\\left(", "\\right)",
+)
+_hard_cache: dict = {}
+
+
+def _hard_lists() -> tuple[list[str], list[str]]:
+    """(terminals, unary commands) of the hard grammar, read back from the
+    released vocabulary: structural tokens, env delimiters and unary
+    commands come first, the sorted terminals after them."""
+    if "lists" not in _hard_cache:
+        vocab = load_vocab(HARD_VOCAB_PATH)
+        envs = {f"\\begin{{{e}}}" for e in _HARD_ENVS} | {
+            f"\\end{{{e}}}" for e in _HARD_ENVS
+        }
+        unary = [t for t in vocab if t in _HARD_UNARY_CANDIDATES]
+        skip = set(_HARD_STRUCTURAL) | envs | set(unary)
+        terms = [t for t in vocab if t not in skip]
+        if terms != sorted(terms):
+            raise ValueError(f"{HARD_VOCAB_PATH} is not the hard-mode vocabulary")
+        _hard_cache["lists"] = (terms, unary)
+    return _hard_cache["lists"]
+
+
+_HARD_GLYPH_CACHE: dict[tuple[int, int], np.ndarray] = {}
+
+
+def _hard_glyph(term_idx: int, font: int) -> np.ndarray:
+    """Deterministic binary glyph for terminal #term_idx in font #font.
+
+    Fonts are STYLE TRANSFORMS of one base shape per token — regular
+    (0), bold (1: horizontal dilation), italic (2: row shear) — like real
+    typefaces, where renderings of a symbol are correlated.  (Unrelated
+    random patterns per font were measured to put glyph identity out of
+    the soak model's reach: train loss floored at ~3.0 == structure
+    learned, terminals unread.)"""
+    g = _HARD_GLYPH_CACHE.get((term_idx, font))
+    if g is None:
+        rng = np.random.default_rng([7000 + term_idx])
+        base = (rng.random((_GLYPH_H, _GLYPH_W)) < 0.45).astype(np.uint8)
+        base[0, :] = 1  # top bar anchors vertical alignment
+        if font % 3 == 1:  # bold: dilate horizontally
+            g = base.copy()
+            g[:, 1:] |= base[:, :-1]
+        elif font % 3 == 2:  # italic: shear rows rightward
+            g = np.zeros((_GLYPH_H, _GLYPH_W + 3), np.uint8)
+            for r in range(_GLYPH_H):
+                off = (_GLYPH_H - 1 - r) // 4
+                g[r, off : off + _GLYPH_W] = base[r]
+        else:
+            g = base
+        _HARD_GLYPH_CACHE[(term_idx, font)] = g
+    return g
+
+
+_UNARY_MARK_CACHE: dict[int, np.ndarray] = {}
+
+
+def _unary_mark(unary_idx: int) -> np.ndarray:
+    """4x10 deterministic marker identifying a unary command (drawn above
+    its argument, like an accent)."""
+    m = _UNARY_MARK_CACHE.get(unary_idx)
+    if m is None:
+        rng = np.random.default_rng([91000 + unary_idx])
+        m = (rng.random((4, 10)) < 0.55).astype(np.uint8)
+        m[-1, :] = 1
+        _UNARY_MARK_CACHE[unary_idx] = m
+    return m
+
+
+def _filter3(img: np.ndarray, op) -> np.ndarray:
+    """3x3 neighborhood min/max/mean via shifted stacks (no scipy here)."""
+    p = np.pad(img, 1, mode="edge")
+    h, w = img.shape
+    stack = np.stack(
+        [p[dy : dy + h, dx : dx + w] for dy in range(3) for dx in range(3)]
+    )
+    return op(stack, axis=0)
+
+
+def apply_render_noise(
+    img: np.ndarray, rng: np.random.Generator,
+    level: float = 1.0, scale: int = 3,
+) -> np.ndarray:
+    """Per-sample render noise: ink thickness, blur, contrast jitter,
+    salt-and-pepper.  ``scale`` gates thinning (a 3x3 max filter would
+    erase 2x2 ink blocks entirely at glyph scale 2)."""
+    if level <= 0:
+        return img
+    out = img.astype(np.float32)
+    r = rng.random()
+    if r < 0.35 * level:
+        out = _filter3(out, np.min)  # thicken ink (dark = low values)
+    elif r < 0.55 * level and scale >= 3:
+        out = _filter3(out, np.max)  # thin ink
+    if rng.random() < 0.5 * level and scale >= 3:
+        # blur only at scale>=3: a 3x3 box blur over 2x2 ink blocks washes
+        # out glyph identity entirely (measured: train loss floors at ~2.6
+        # and eval BLEU at ~0.14 with blur-at-2 on)
+        out = _filter3(out, np.mean)
+    alpha = 1.0 + (rng.random() - 0.5) * 0.3 * level
+    beta = (rng.random() - 0.5) * 60 * level
+    out = out * alpha + beta
+    frac = rng.random() * 0.005 * level
+    n_px = int(frac * out.size)
+    if n_px:
+        ys = rng.integers(0, out.shape[0], n_px)
+        xs = rng.integers(0, out.shape[1], n_px)
+        out[ys, xs] = rng.integers(0, 2, n_px) * 255.0
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+class _HardGen(_StructGen):
+    """The hard grammar: KaTeX-inventory terminals in several fonts, unary
+    commands, delimited matrix envs, display-scale layouts."""
+
+    def __init__(self, rng: np.random.Generator, scale: int, ink: int,
+                 max_tokens: int, max_depth: int = 3, fonts: int = _HARD_FONTS):
+        super().__init__(rng, scale, ink, max_tokens, max_depth)
+        self.terms, self.unary = _hard_lists()
+        self._term_idx = {t: i for i, t in enumerate(self.terms)}
+        self.fonts = fonts
 
     def _pick_terminal(self) -> str:
         return self.terms[int(self.rng.integers(len(self.terms)))]

@@ -1,5 +1,6 @@
 """Math detection: SSD512 over sliding windows, decode and NMS on the
-device, page-level NMS (counterpart of ``doc2tex_tpu.detection``)."""
+device, page-level NMS or the voting stitch, and the detector's training
+(counterpart of ``doc2tex_tpu.detection``)."""
 
 from .boxes import batched_detect, decode_boxes, nms_fixed
 from .flow import MathDetector

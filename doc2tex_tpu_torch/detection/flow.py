@@ -25,6 +25,7 @@ import torch
 
 from ..weights import load_weights
 from .boxes import batched_detect, nms_fixed
+from .data import detection_input
 from .priors import MATH_GTDB_512, make_priors
 from .ssd import SSD512
 from .windows import expand_boxes, rolling_windows, unmap_boxes
@@ -82,10 +83,7 @@ class MathDetector:
     def model_input(self, windows: torch.Tensor) -> torch.Tensor:
         """uint8 (n, win, win, C) windows -> SSD512's float32 (n, 3, win,
         win) input: grey repeated to 3 channels, the mean pixel taken off."""
-        x = windows.float()
-        if x.shape[-1] == 1:
-            x = x.expand(*x.shape[:-1], 3)
-        return (x - self.mean).permute(0, 3, 1, 2).contiguous()
+        return detection_input(windows, self.mean).contiguous()
 
     def ssd(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """SSD512's forward in float32: cuDNN's TF32 is off for the call,
@@ -161,10 +159,16 @@ class MathDetector:
         return out[..., :4], out[..., 4], info
 
     @torch.inference_mode()
-    def detect_page(self, page: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    def detect_page(self, page: np.ndarray, raw: bool = False) -> tuple[np.ndarray, np.ndarray]:
         """(H, W) or (H, W, C) uint8 page -> (boxes (K, 4) in page pixels,
-        scores (K,)), page-level NMS'd and expanded by ``expand_frac``."""
-        return self.page_nms(*self.page_candidates(page), page.shape[:2])
+        scores (K,)), page-level NMS'd and expanded by ``expand_frac``.
+        ``raw=True`` returns ``page_candidates`` as they are (every
+        window's kept boxes, clipped to the page; no page NMS, no top-200
+        cap, no expansion): the voting stitch's input."""
+        candidates = self.page_candidates(page)
+        if raw:
+            return candidates
+        return self.page_nms(*candidates, page.shape[:2])
 
     def page_candidates(self, page: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         """Every window's kept boxes in page pixels (the page NMS's input)."""

@@ -4,12 +4,15 @@ to end (the port's twin of the repository's ``tools/page_eval.py``).
     python -m doc2tex_tpu_torch.tools.page_eval [--pages 100]
         [--version synthetic_tfm_big] [--coalesce_ratio R] [--conf 0.5]
         [--nms_iou 0.1] [--expand 0.05] [--iou 0.5] [--oracle_boxes]
+        [--regions hard|structured] [--detect_weights W] [--stitch]
         [--device cuda] [--out result.json]
 
 The same evaluation as the JAX package's: pages of 1024x1280 with up to 6
-pasted hard-benchmark formula renders (seed 35), the page pipeline
-(``app.App.detect_and_crop``: the released detector in float32, page NMS,
-5 % expansion) and the version block's recognizer as it ships
+pasted formula renders (seed 35; hard-benchmark renders, or with
+``--regions structured`` the structured grammar's), the page pipeline
+(``app.App.detect_and_crop``: the released detector or ``--detect_weights``
+in float32, page NMS or with ``--stitch`` the voting stitch, 5 %
+expansion) and the version block's recognizer as it ships
 (``quantize: int8``, beam 10) on each page's crops in one call.
 Detections are matched to the ground-truth boxes greedily at IoU
 ``--iou``, in the detector's order; the row holds detection precision,
@@ -37,7 +40,7 @@ import numpy as np
 import torch
 
 from ..app import App
-from ..data.synthetic import synth_hard_sample
+from ..data.synthetic import synth_hard_sample, synth_structured_sample
 from ..detection.evaluate import iou_matrix
 from ..detection.windows import expand_boxes
 from ..eval.metrics import get_single_ED
@@ -51,15 +54,22 @@ PAGE_H, PAGE_W = 1024, 1280
 EVAL_SEED = 35  # distinct from train 31 / curves 32 / release 33 / coalesce 34
 
 
-def synth_labelled_page(rng: np.random.Generator, n_regions: int = 6):
-    """One page of pasted hard-benchmark formula renders: (page uint8
-    (H, W), [(x1, y1, x2, y2), ...], [label, ...]).  A render that finds no
-    place 12 px clear of the others in 20 draws is left out."""
+def synth_labelled_page(rng: np.random.Generator, n_regions: int = 6, style: str = "hard"):
+    """One page of pasted formula renders: (page uint8 (H, W), [(x1, y1,
+    x2, y2), ...], [label, ...]).  ``style`` ``hard`` pastes hard-benchmark
+    renders (what the released recognizers were trained on),
+    ``structured`` the structured grammar's (what the released detector
+    was trained on).  A render that finds no place 12 px clear of the
+    others in 20 draws is left out."""
     page = np.full((PAGE_H, PAGE_W), 255, np.uint8)
     boxes, labels = [], []
     for _ in range(n_regions):
-        img, label = synth_hard_sample(rng, min_len=8, max_len=40, max_h=160, max_w=520,
-                                       scale_range=(3, 5))
+        if style == "hard":
+            img, label = synth_hard_sample(rng, min_len=8, max_len=40, max_h=160, max_w=520,
+                                           scale_range=(3, 5))
+        else:
+            img, label = synth_structured_sample(rng, min_len=4, max_len=30, max_h=160,
+                                                 max_w=520)
         h, w = img.shape
         for _try in range(20):
             y = int(rng.integers(0, PAGE_H - h))
@@ -76,9 +86,13 @@ def synth_labelled_page(rng: np.random.Generator, n_regions: int = 6):
 
 def result_key(version: str, pages: int, coalesce_ratio=None, conf: float = 0.5,
                nms_iou: float = 0.1, expand: float = 0.05, iou: float = 0.5,
-               oracle_boxes: bool = False) -> str:
+               oracle_boxes: bool = False, stitch: bool = False, regions: str = "hard",
+               detect_weights=None) -> str:
     """The reference's row key: every knob off its default is named."""
-    return version + (f"_co{coalesce_ratio:g}" if coalesce_ratio else "") + (
+    return version + ("_stitch" if stitch else "") + (
+        f"_co{coalesce_ratio:g}" if coalesce_ratio else "") + (
+        f"_{regions}" if regions != "hard" else "") + (
+        "_customdet" if detect_weights else "") + (
         "_oracle" if oracle_boxes else "") + (
         f"_iou{iou:g}" if iou != 0.5 else "") + (
         f"_p{pages}" if pages != 100 else "") + (
@@ -90,7 +104,8 @@ def result_key(version: str, pages: int, coalesce_ratio=None, conf: float = 0.5,
 def evaluate(pages: int = 100, version: str = "synthetic_tfm_big", coalesce_ratio=None,
              conf: float = 0.5, nms_iou: float = 0.1, expand: float = 0.05,
              iou: float = 0.5, oracle_boxes: bool = False, device: str = "cuda",
-             recognizer: MathRecognition | None = None) -> dict:
+             recognizer: MathRecognition | None = None, stitch: bool = False,
+             regions: str = "hard", detect_weights=None) -> dict:
     """The row of one arm.  ``recognizer`` replaces the version block's
     (a test's tiny model); ``coalesce_ratio`` is then its own."""
     if device != "cpu":
@@ -100,15 +115,16 @@ def evaluate(pages: int = 100, version: str = "synthetic_tfm_big", coalesce_rati
     if recog is None:
         cfg, weights = load_recog_config(version=version)
         recog = MathRecognition(cfg, weights, coalesce_ratio=coalesce_ratio, device=device)
-    app = App(use_detect=True, recognizer=recog, conf_thresh=conf, nms_iou=nms_iou,
-              expand_frac=expand, device=device)
+    app = App(use_detect=True, recognizer=recog, detect_weights=detect_weights, conf_thresh=conf,
+              nms_iou=nms_iou, expand_frac=expand, stitch=stitch, device=device)
     rng = np.random.default_rng(EVAL_SEED)
-    data = [synth_labelled_page(rng) for _ in range(pages)]
+    data = [synth_labelled_page(rng, style=regions) for _ in range(pages)]
     n_gt = sum(len(b) for _, b, _ in data)
     tf32 = torch.backends.cudnn.allow_tf32 if device != "cpu" else None
     print(f"page_eval: {pages} pages / {n_gt} GT regions, version={version} "
           f"beam={recog.beam_size} quantize={recog.config.get('quantize')} "
-          f"coalesce={recog.coalesce_ratio} device={device} tf32={tf32}",
+          f"coalesce={recog.coalesce_ratio} stitch={stitch} regions={regions} "
+          f"device={device} tf32={tf32}",
           file=sys.stderr, flush=True)
 
     tp = fp = fn = 0
@@ -156,11 +172,11 @@ def evaluate(pages: int = 100, version: str = "synthetic_tfm_big", coalesce_rati
     char_match = (sum(get_single_ED(g, p) for p, g in zip(preds, gts)) / n_match
                   if n_match else 0.0)
     return {
-        "version": version, "pages": pages, "gt_regions": n_gt, "stitch": False,
+        "version": version, "pages": pages, "gt_regions": n_gt, "stitch": bool(stitch),
         "beam": recog.beam_size, "quantize": recog.config.get("quantize"),
         "coalesce_ratio": recog.coalesce_ratio, "iou_thresh": iou, "conf_thresh": conf,
         "nms_iou": nms_iou, "expand_frac": expand, "detect_quantize": None,
-        "oracle_boxes": bool(oracle_boxes), "regions": "hard",
+        "oracle_boxes": bool(oracle_boxes), "regions": regions,
         "det_precision": round(prec, 4), "det_precision_ci": wilson(tp, tp + fp),
         "det_recall": round(rec, 4), "det_recall_ci": wilson(tp, tp + fn),
         "det_f1": round(f1, 4),
@@ -188,13 +204,21 @@ def main(argv=None) -> None:
     ap.add_argument("--oracle_boxes", action="store_true",
                     help="ground-truth boxes as detections (skip the detector): the exact "
                     "match a perfect detector would reach")
+    ap.add_argument("--regions", default="hard", choices=["hard", "structured"],
+                    help="region render style (see synth_labelled_page)")
+    ap.add_argument("--detect_weights", default=None,
+                    help="detector msgpack instead of the shipped one (a retrained detector)")
+    ap.add_argument("--stitch", action="store_true",
+                    help="the voting stitch instead of the page NMS")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default=OUT_PATH)
     args = ap.parse_args(argv)
     row = evaluate(args.pages, args.version, args.coalesce_ratio, args.conf, args.nms_iou,
-                   args.expand, args.iou, args.oracle_boxes, args.device)
+                   args.expand, args.iou, args.oracle_boxes, args.device, stitch=args.stitch,
+                   regions=args.regions, detect_weights=args.detect_weights)
     key = result_key(args.version, args.pages, args.coalesce_ratio, args.conf, args.nms_iou,
-                     args.expand, args.iou, args.oracle_boxes)
+                     args.expand, args.iou, args.oracle_boxes, args.stitch, args.regions,
+                     args.detect_weights)
     merged = {}
     if os.path.exists(args.out):
         with open(args.out) as f:

@@ -2,12 +2,16 @@
 a recognizer on generated data from device pools and logs a held-out beam-5
 exact-match curve at checkpoints.
 
-    python -m doc2tex_tpu_torch.tools.structured_soak --hard [--family attn|tfm]
+    python -m doc2tex_tpu_torch.tools.structured_soak [--hard] [--family attn|tfm]
         [--attn coverage|loc_aware] [--big] [--long] [--steps N] [--resume]
         [--init_from saved_models/math_recog/synthetic/best_weights.msgpack]
         [--lr 1e-4] [--ckpt_dir DIR] [--tag_suffix S] [--device cpu]
 
-``--hard`` is the recipe of the shipped ``synthetic`` release
+Without ``--hard`` it is the structured arm: the ``structured`` grammar
+(``data.synthetic.synth_structured_dataset``: nested frac/sqrt/scripts/
+matrix over the flat vocabulary) on 160x448 canvases, ``batch_max_length``
+48, batch 48, the train augmentation on.  ``--hard`` is the recipe of the
+shipped ``synthetic`` release
 (``demo/recog_cfg.yaml``: ViT 128x3 on a 128-channel ResNet, the ``Attnv2``
 coverage head at hidden 128 and ``kernel_dim`` 64, batch 32, 224x704,
 ``batch_max_length`` 150, the hard vocabulary); ``--family tfm``, ``--big``
@@ -25,9 +29,8 @@ continues from ``last.msgpack``.  ``--init_from`` loads the parameters and
 the BatchNorm statistics of a weights file (the optimizer starts fresh);
 ``--eval_first`` validates once before the first step.
 
-Not ported (they raise by name): the default arm without ``--hard``, which
-trains on the ``structured`` generator (ROADMAP A11), and ``--gcb`` (the
-GlobalContext backbone, ROADMAP A6).
+Not ported: ``--gcb`` (the GlobalContext backbone) raises naming ROADMAP
+A6.
 """
 
 from __future__ import annotations
@@ -43,7 +46,8 @@ import torch
 from ..config import make_config
 from ..data.device_pool import build_device_pools, make_pool_step, pool_schedule
 from ..data.loader import ArrayDataset, BucketLoader
-from ..data.synthetic import hard_vocab, synth_hard_dataset, synth_long_dataset
+from ..data.synthetic import (SYNTH_VOCAB, hard_vocab, synth_hard_dataset,
+                              synth_long_dataset, synth_structured_dataset)
 from ..decode.runner import make_decode_fn
 from ..engine.inferencing import validation
 from ..models import build_model
@@ -52,6 +56,7 @@ from ..train.checkpoint import load_checkpoint, load_pretrained_variables, save_
 from ..train.trainer import create_train_state, criterion_from_config, make_train_step
 
 HARD_KW = {"min_len": 8, "max_len": 150, "max_h": 220, "max_w": 696, "scale_range": (3, 5)}
+STRUCTURED_KW = {"min_len": 4, "max_len": 44, "max_h": 156, "max_w": 440}
 
 
 def build(steps: int, hard: bool = False, attn: str = "coverage", gcb: bool = False,
@@ -130,12 +135,11 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def run_tag(args) -> str:
-    if not args.hard:
-        raise NotImplementedError("the default soak arm trains on the 'structured' generator, "
-                                  "which is not ported yet (ROADMAP A11); use --hard")
     if args.gcb:
         raise NotImplementedError("--gcb: the GlobalContext backbone is not ported yet "
                                   "(ROADMAP A6)")
+    if not args.hard:     # the structured arm: one tag whatever its family or size
+        return "structured" + args.tag_suffix
     tag = "hard" + ("" if args.attn == "coverage" else "_" + args.attn)
     if args.family == "tfm":
         tag = "hard_tfm"
@@ -169,8 +173,10 @@ def soak_data(args):
         hi, hl = synth_hard_dataset(args.n_train - n_half, seed=31, **HARD_KW)
         ev_images, ev_labels = synth_long_dataset(args.n_eval, seed=32)
         return li + hi, ll + hl, ev_images, ev_labels
-    tr_images, tr_labels = synth_hard_dataset(args.n_train, seed=31, **HARD_KW)
-    ev_images, ev_labels = synth_hard_dataset(args.n_eval, seed=32, **HARD_KW)
+    gen, kw = ((synth_hard_dataset, HARD_KW) if args.hard
+               else (synth_structured_dataset, STRUCTURED_KW))
+    tr_images, tr_labels = gen(args.n_train, seed=31, **kw)
+    ev_images, ev_labels = gen(args.n_eval, seed=32, **kw)
     return tr_images, tr_labels, ev_images, ev_labels
 
 
@@ -183,7 +189,7 @@ def run(args) -> dict:
     device = args.device
     cfg = arm_config(args)
     tr_images, tr_labels, ev_images, ev_labels = soak_data(args)
-    vocab = hard_vocab()
+    vocab = hard_vocab() if (args.hard or args.long) else list(SYNTH_VOCAB)
     conv = TFMLabelConverter(vocab) if args.family == "tfm" else AttnLabelConverter(vocab)
     loader = BucketLoader(ArrayDataset(tr_images, tr_labels), cfg, converter=conv, train=True)
     print(f"train {loader.num_samples} samples / {len(loader.table)} buckets; "

@@ -224,6 +224,13 @@ def scale_by_learning_rate(learning_rate) -> GradientTransformation:
     return scale(-learning_rate)
 
 
+def adam(learning_rate, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8
+         ) -> GradientTransformation:
+    """``optax.adam``: ``scale_by_adam`` then ``scale_by_learning_rate``
+    (a chain of two, as optax's state is laid out)."""
+    return chain(scale_by_adam(b1, b2, eps), scale_by_learning_rate(learning_rate))
+
+
 def scale_by_rss(initial_accumulator_value: float = 0.1, eps: float = 1e-7):
     def init(params):
         return ScaleByRssState({k: torch.full_like(v, initial_accumulator_value)

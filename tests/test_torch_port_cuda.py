@@ -1,5 +1,6 @@
 """The port on a CUDA card: both kernels, B2's backward, a decode with each
-head and a coverage-LSTM train step.
+head, a coverage-LSTM train step, a detector train step and the voting
+stitch.
 
 Every test here carries the ``cuda`` marker and skips without a card (the
 kernel has no CPU mode).  The file imports neither jax nor the JAX package,
@@ -10,8 +11,10 @@ so it also runs on a machine that has only PyTorch:
 
 from __future__ import annotations
 
+import json
 import os
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -538,3 +541,23 @@ def test_lstm_train_step_on_card_matches_cpu():
     for k, g in g0.items():
         if "ResNetFeatureExtractor" not in k:
             assert (g1[k] - g).abs().max().item() <= 1e-3 * g.norm().item() + 1e-5 * norm, k
+
+
+@pytest.mark.cuda
+def test_detector_train_step_on_card_matches_cpu():
+    """chip_smoke's detect_train (a) at 2 windows of the pool: the float32
+    Adam step from the shipped detector on the card against the CPU (loss,
+    every gradient leaf, the weights after the step)."""
+    _need_card()
+    with open(chip_smoke.GOLDEN_DETECT_SOAK) as f:
+        golden = json.load(f)
+    chip_smoke.detect_step_parity(time.perf_counter(), golden, "cuda", n=2)
+
+
+@pytest.mark.cuda
+def test_stitch_on_card_matches_jax_golden():
+    """chip_smoke's detect_train (e) on the first golden page: the stitched
+    boxes within 1 px of the JAX package's and ``App(stitch=True)``'s
+    strings, B1 launching."""
+    _need_card()
+    chip_smoke.stitch_check(time.perf_counter(), "cuda", n_pages=1)

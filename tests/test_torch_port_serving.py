@@ -491,11 +491,21 @@ def test_http_recognize_page_with_detect():
     released detector (on the CPU here) and ``POST /recognize_page`` with a
     PNG strip of a labelled page returns its regions: boxes inside the page
     and a string each."""
+    _check_recognize_page(["--detect"], 400)
+
+
+def test_http_recognize_page_with_detect_and_stitch():
+    """``--detect --stitch``: the same request through the voting stitch, on
+    a strip tall enough for 3 rows of windows (a region needs 8 votes)."""
+    _check_recognize_page(["--detect", "--stitch"], 768)
+
+
+def _check_recognize_page(flags, rows):
     from doc2tex_tpu_torch.tools.page_eval import synth_labelled_page
 
     rec = tiny_recognizer()
     srv = RecognitionServer(rec, batch_window_ms=5, bucket_key=rec.bucket_key)
-    args = serve.parse_args(["--detect", "--device", "cpu"])
+    args = serve.parse_args(flags + ["--device", "cpu"])
     page_srv = serve.build_page_server(args, rec, srv)
     assert isinstance(page_srv, PageServer)
     assert serve.build_page_server(serve.parse_args(["--device", "cpu"]), rec, srv) is None
@@ -505,14 +515,14 @@ def test_http_recognize_page_with_detect():
     thread.start()
     try:
         port = httpd.server_address[1]
-        strip = synth_labelled_page(np.random.default_rng(35))[0][:400]
+        strip = synth_labelled_page(np.random.default_rng(35))[0][:rows]
         status, body = _request(port, "POST", "/recognize_page", encode_png(strip))
         assert status == 200
         payload = json.loads(body)
         assert payload["ms"] > 0 and len(payload["regions"]) >= 2
         for region in payload["regions"]:
             x1, y1, x2, y2 = region["box"]
-            assert 0 <= x1 < x2 <= 1280 and 0 <= y1 < y2 <= 400
+            assert 0 <= x1 < x2 <= 1280 and 0 <= y1 < y2 <= rows
             assert isinstance(region["latex"], str)
         assert json.loads(_request(port, "GET", "/config")[1])["detect"] is True
         assert json.loads(_request(port, "GET", "/stats")[1])["pages"] == 1
@@ -568,8 +578,9 @@ tiny:
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert out["selftest"] == 6 and out["completed"] == 6 and out["errors"] == 0
     assert out["quantize"] == "int8" and out["device"] == "cpu" and out["batches"] >= 1
-    for flag in (["--stitch"], ["--data_parallel", "2"], ["--platform", "cpu"]):
+    for flag in (["--data_parallel", "2"], ["--platform", "cpu"]):
         with pytest.raises(NotImplementedError):
             serve.main(base + flag)
-    with pytest.raises(SystemExit, match="needs --detect"):
-        serve.main(base + ["--detect_weights", "w.msgpack"])
+    for flag in (["--detect_weights", "w.msgpack"], ["--stitch"]):
+        with pytest.raises(SystemExit, match="needs --detect"):
+            serve.main(base + flag)

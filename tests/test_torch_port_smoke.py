@@ -3,7 +3,7 @@
 - the port and ``chip_smoke.py`` import with jax, flax, yaml, msgpack, PIL,
   cv2, lmdb, scipy and the JAX package blocked (none is on the GPU
   machine), the int8, serving, release-eval, detection, page-app,
-  page-eval, training and eval-CLI modules among them;
+  page-eval, training, eval-CLI, detector-training and stitch modules among them;
 - ``chip_smoke.py`` exits non-zero, and never prints ``"ok": true``, on a
   machine without a card and from a directory without the repository;
 - chip_smoke's slice phase runs end to end on the CPU at a tiny size, for
@@ -25,8 +25,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = ("jax", "jaxlib", "flax", "yaml", "msgpack", "PIL", "cv2", "lmdb", "scipy",
            "doc2tex_tpu")
 # the modules of the int8 encoder, the server, the release eval, detection,
-# the page app, the page eval, training, the eval CLI, the device pools and
-# the soak twin, which the walk below must reach
+# the page app, the page eval, training, the eval CLI, the device pools, the
+# soak twins, the detector's losses and data and the voting stitch, which the
+# walk below must reach
 REQUIRED = ("ops.quant", "serving", "api.serve", "utils.png", "data.loader", "eval.metrics",
             "engine.inferencing", "tools.release_eval", "tools.bench_int8", "detection",
             "detection.priors", "detection.windows", "detection.ssd", "detection.boxes",
@@ -34,7 +35,8 @@ REQUIRED = ("ops.quant", "serving", "api.serve", "utils.png", "data.loader", "ev
             "tools.profile_page", "train", "train.loss", "train.schedule", "train.optim",
             "train.trainer", "train.checkpoint", "engine.training", "api.train",
             "utils.common", "utils.profiling", "transforms.geometry", "api.infer",
-            "data.device_pool", "tools.structured_soak")
+            "data.device_pool", "tools.structured_soak", "detection.loss", "detection.data",
+            "detection.stitch", "tools.detection_soak")
 
 GUARD = textwrap.dedent(f"""
     import importlib, pkgutil, sys

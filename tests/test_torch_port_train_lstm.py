@@ -457,9 +457,11 @@ def test_soak_configs_match_jax(arm, monkeypatch):
     assert structured_soak.arm_config(args) == want
     tag = structured_soak.run_tag(args)
     assert tag.startswith("hard") and (("tfm" in tag) == (arm.get("family") == "tfm"))
-    for bad in (["--steps", "10"], ["--hard", "--gcb"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP A"):
-            structured_soak.run_tag(structured_soak.parse_args(bad))
+    # the default arm trains on the structured generator (its own tag);
+    # --gcb still raises
+    assert structured_soak.run_tag(structured_soak.parse_args(["--steps", "10"])) == "structured"
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+        structured_soak.run_tag(structured_soak.parse_args(["--hard", "--gcb"]))
 
 
 # ---- the CLI and chip_smoke's phase on the CPU --------------------------------
