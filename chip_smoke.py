@@ -7,7 +7,8 @@ Needs one CUDA card; exits non-zero without one.  Phases, one line each:
 
 1. device  — the card's name, and its name and power limit from nvidia-smi;
 2. build   — nvcc builds the three kernel sources at once, one process
-   per source (seconds taken): B1, B2, and B2's backward;
+   per source (seconds taken): B1 (with its int8 K/V form), B2 (with its
+   int8 memory form), and B2's backward;
 3. slice   — MathRecognition with the released ``synthetic_tfm_big``
    weights, beam 10, on 16 seeded synthetic crops: float32 (the strings
    must equal the JAX package's golden strings on >= 15 of 16) and
@@ -53,6 +54,23 @@ Needs one CUDA card; exits non-zero without one.  Phases, one line each:
    float32 golden, ``check_int8_strings``: int8 strings follow every float
    op's last bit), and bfloat16 (printed), each kernel's launch count
    rising;
+8b. int8_memory — the modes that keep decode memory in int8: the golden
+   crops of ``synthetic_tfm_big`` and ``synthetic`` with ``quantize:
+   int8_full`` and of ``synthetic_tfm_big`` with the parts encoder,
+   decoder_mem, decoder_kv, float32 gated by ``check_int8_strings``
+   against the JAX package's golden of the same parts
+   (``tests/torch_port_golden[_synthetic]_int8_{full,kv}.json``) and bf16
+   printed; every launch that reads int8 memory goes through an int8 form
+   (B2 only int8; B1's cross-attention int8, and with decoder_kv its
+   self-attention too).  Then B1's int8 K/V form against its plain version
+   at every shape those runs launched it with, self M 310..1510 and cross
+   623 at B 64, self M 5010, in float32 and bf16 q (``TOL``), and bit for
+   bit on rounding-point inputs; B2's int8 form at its launched shapes, the
+   release shape and D = H = 256 (S 623, 2525), float32 and bf16 compute
+   (``B2_TOL``); both timed (CUDA graphs) beside the float forms and
+   their bounds.  The JSON line's ``decode_attention_int8`` and
+   ``attention_step_int8`` hold the release-shape times and the launches of
+   the 16-crop float32 int8_full call;
 9. serve   — ``python -m doc2tex_tpu_torch.api.serve --selftest 32
    --model_version synthetic`` (int8, as shipped) in a child process, its
    stats printed (batches, p50/p99 latency, crops/s); then the HTTP front
@@ -71,6 +89,13 @@ Needs one CUDA card; exits non-zero without one.  Phases, one line each:
    off process-wide.  Then SSD512's forward, the per-window NMS, the page NMS and the whole
    ``detect_page`` timed on a page beside the SSD's float32 bound
    (``tools/profile_page.detect_timings``);
+11b. detect_quant — ``MathDetector(quantize="bf16")`` and ``"int8"`` on
+   the golden pages through the host-window path, 5 windows a batch (the
+   int8 activation scale is a batch's), against the JAX package's boxes in
+   the same mode (``tests/torch_port_golden_pages_{bf16,int8}.json``)
+   within ``DETECT_QUANT_TOL``; then ``App(detect_quantize=...)`` on a page
+   (the device-window path, 35 windows in one batch), and ``detect_page``
+   timed beside the float32 detector's;
 12. page   — ``App`` with the shared ``synthetic_tfm_big`` recognizer:
    (a) float32, beam 10, on the golden pages: strings equal to the JAX
    package's on every crop whose integer box equals JAX's, but at most
@@ -166,8 +191,9 @@ Needs one CUDA card; exits non-zero without one.  Phases, one line each:
    predictions.csv equal to the JAX CLI's (``tests/torch_port_golden_infer.json``)
    on >= 15 of 16 rows, B1 launching.
 
-Then a JSON line with the three kernels' numbers (B2's backward: its
-launches in (c), timed at the recipe's largest launch), and last
+Then a JSON line with the five kernels' numbers (B2's backward: its
+launches in (c), timed at the recipe's largest launch; the int8 forms:
+8b's), and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the traceback
 is printed and the exit code is 1.  A hang is cut by faulthandler.
 """
@@ -233,6 +259,11 @@ B2_SOURCE = "doc2tex_tpu_torch/csrc/attention_step.cu"
 B2_REPLACES = "doc2tex_tpu/ops/attention_step.py:99"
 # stated tolerances of kernel vs plain version (abs + rel * |plain|)
 TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 0.0)}
+# B1's int8 K/V form: float32 as TOL; with bf16 q its output is a bf16
+# rounding of float32 sums, so kernel and plain version part by at most a
+# unit or two in the last place of bf16 (2^-8 relative) where their sums
+# round apart; this phase measured at most 1.953e-3 on an H100 (PERF.md §6)
+INT8_TOL = {"float32": TOL["float32"], "bfloat16": (4e-3, 1e-2)}
 # B2 computes in float32 whatever the memory's type, so one tolerance for
 # both: float32 sums of the same terms in another order
 B2_TOL = (1e-5, 1e-5)
@@ -314,6 +345,33 @@ STITCH_TOL_PX = 1
 # the int8 strings' gates (see check_int8_strings)
 INT8_MIN_CHAR_MATCH = 0.85
 INT8_MIN_CHANGED = 2
+# the modes that keep decode memory in int8 (phase 8b): their goldens (the
+# JAX package's strings on the CPU in float32 with the same parts) and the
+# parts; int8_kv is no quantize: mode, its parts are set on the model
+GOLDEN_QUANT = {
+    "int8_full": {v: GOLDEN[v].replace(".json", "_int8_full.json")
+                  for v in ("synthetic_tfm_big", "synthetic")},
+    "int8_kv": {"synthetic_tfm_big": GOLDEN["synthetic_tfm_big"].replace(".json", "_int8_kv.json")}}
+QUANT_PARTS = {"int8_kv": ("encoder", "decoder_mem", "decoder_kv")}
+# the int8 forms replace XLA code of the reference, not a Pallas kernel:
+# decode_attention's _reference int8 branch, and the LSTM step on int8 memory
+B1_INT8_REPLACES = "doc2tex_tpu/ops/decode_attention.py:36"
+B2_INT8_REPLACES = "doc2tex_tpu/models/decoder_lstm.py:237"
+# the quantized detector against the JAX package's boxes in the same mode
+# (tests/torch_port_golden_pages_{bf16,int8}.json: host windows, 5 a batch,
+# as the port runs here).  Loc/conf part by a few bf16 steps (bf16) or by a
+# quantization step that a float32 layer's last bit moves (int8): on a
+# seeded window the port on the CPU sits within 3.3e-3 / 1.7e-2 of loc's
+# largest magnitude (4.7) of JAX's, 7.3e-3 / 6.5e-3 of conf's (17)
+# (tests/test_torch_port_detect.py).  A loc offset of 0.08 moves a corner
+# by 0.1 x 0.08 of a prior's size (up to ~300 px): 2.4 px; a conf logit
+# offset of 0.12 moves a score by at most 0.03.  Boxes whose score lies
+# near the threshold may come and go.
+DETECT_QUANT_GOLDEN = {q: os.path.join(ROOT, "tests", f"torch_port_golden_pages_{q}.json")
+                       for q in ("bf16", "int8")}
+DETECT_QUANT_TOL = {"bf16": {"box_px": 2.0, "score": 0.03, "unmatched": 3, "near": 0.05},
+                    "int8": {"box_px": 3.0, "score": 0.03, "unmatched": 3, "near": 0.05}}
+INT8_BYTES_PER_SCALE = 4
 
 
 def log(phase: str, t0: float, msg: str) -> None:
@@ -767,28 +825,31 @@ def check_b1_shapes(t0, phase, shapes, nh, hd):
 @contextlib.contextmanager
 def recorded_launches():
     """Record the shapes the models give the kernels' wrappers while the
-    block runs: B1's (B, K, M, kind) under ``"b1"`` and its (heads, head
-    dim, type) under ``"b1_types"``, B2's (samples, K, S, D, H, Kl) under
-    ``"b2"``, and B2's backward's (B, S, D, H, Kl, type) under ``"b2_bwd"``
+    block runs: B1's (B, K, M, kind) under ``"b1"`` (its int8 K/V form's
+    under ``"b1_int8"``) and its (heads, head dim, type) under
+    ``"b1_types"``, B2's (samples, K, S, D, H, Kl) under ``"b2"`` (its int8
+    form's under ``"b2_int8"``), and B2's backward's (B, S, D, H, Kl, type) under ``"b2_bwd"``
     with the inputs of a call at each under ``"b2_bwd_inputs"``.  The
     wrappers run as they are, counting their launches."""
     from doc2tex_tpu_torch.models import decoder_lstm, decoder_tfm
     from doc2tex_tpu_torch.ops import attention_step
 
-    seen = {"b1": set(), "b1_types": set(), "b2": set(), "b2_bwd": set(), "b2_bwd_inputs": {}}
+    seen = {"b1": set(), "b1_int8": set(), "b1_types": set(), "b2": set(), "b2_int8": set(),
+            "b2_bwd": set(), "b2_bwd_inputs": {}}
     attend, step = decoder_tfm.decode_attention, decoder_lstm.coverage_attention_step
     backward = attention_step.coverage_attention_step_backward
     live = set()
 
-    def b1(q, k, v, mask=None):
-        seen["b1"].add((q.shape[0], q.shape[1], k.shape[1],
-                        "self" if mask is not None else "cross"))
+    def b1(q, k, v, mask=None, k_scale=None, v_scale=None):
+        seen["b1" if k_scale is None else "b1_int8"].add(
+            (q.shape[0], q.shape[1], k.shape[1], "self" if mask is not None else "cross"))
         seen["b1_types"].add((q.shape[2], q.shape[3], v.dtype))
-        return attend(q, k, v, mask)
+        return attend(q, k, v, mask, k_scale, v_scale)
 
     def b2(enc, enc_proj, q, mem, loc_conv_w, *args, **kwargs):
-        seen["b2"].add((enc.shape[0], q.shape[0] // enc.shape[0], enc.shape[1], enc.shape[2],
-                        enc_proj.shape[2], loc_conv_w.shape[2]))
+        seen["b2" if kwargs.get("enc_scale") is None else "b2_int8"].add(
+            (enc.shape[0], q.shape[0] // enc.shape[0], enc.shape[1], enc.shape[2],
+             enc_proj.shape[2], loc_conv_w.shape[2]))
         return step(enc, enc_proj, q, mem, loc_conv_w, *args, **kwargs)
 
     class B2Backward:
@@ -895,8 +956,15 @@ def attention_step_phase(t0):
     }
 
 
+def golden_file(version: str, quantize=None) -> str:
+    """``version``'s golden file: float32, or the one of mode ``quantize``."""
+    if quantize is None:
+        return GOLDEN[version]
+    return GOLDEN_INT8[version] if quantize == "int8" else GOLDEN_QUANT[quantize][version]
+
+
 def golden_crops(version: str = "synthetic_tfm_big", quantize=None):
-    """The 16 crops of ``version``'s golden file (the int8 one with
+    """The 16 crops of ``version``'s golden file (the mode's with
     ``quantize``), regenerated from their seeds with the file's generator
     (``synth_hard_sample`` unless it names another); their sha256 must
     match, so a numpy difference fails here and not as a parity miss."""
@@ -906,7 +974,7 @@ def golden_crops(version: str = "synthetic_tfm_big", quantize=None):
 
     from doc2tex_tpu_torch.data import synthetic
 
-    with open((GOLDEN_INT8 if quantize else GOLDEN)[version]) as f:
+    with open(golden_file(version, quantize)) as f:
         golden = json.load(f)
     h, w = golden["crop_max"]
     generate = getattr(synthetic, golden.get("generator", "synth_hard_sample"))
@@ -920,41 +988,67 @@ def golden_crops(version: str = "synthetic_tfm_big", quantize=None):
     return golden, crops
 
 
-def run_slice(config, weights_path, crops, beam_size: int, device: str):
-    """Drive the port's main path: MathRecognition on ``crops``.  Returns
-    (strings, launches of the head's kernel, decode steps, seconds of the
-    timed run).  The first call warms up; the counted and timed call is
-    the second, with every kernel's count set to 0 just before it."""
-    import torch
-
+def reset_launches() -> None:
+    """Every kernel wrapper's launch counts (each form's) to 0."""
     from doc2tex_tpu_torch.ops.attention_step import (
         coverage_attention_step, fused_attention_step)
     from doc2tex_tpu_torch.ops.decode_attention import decode_attention
+
+    decode_attention.launches = decode_attention.int8_launches = 0
+    fused_attention_step.launches = 0
+    coverage_attention_step.launches = coverage_attention_step.int8_launches = 0
+
+
+def launch_counts() -> dict:
+    """The forward kernels' launch counts, by form, as they stand."""
+    from doc2tex_tpu_torch.ops.attention_step import coverage_attention_step
+    from doc2tex_tpu_torch.ops.decode_attention import decode_attention
+
+    return {"decode_attention": decode_attention.launches,
+            "decode_attention_int8": decode_attention.int8_launches,
+            "attention_step": coverage_attention_step.launches,
+            "attention_step_int8": coverage_attention_step.int8_launches}
+
+
+def run_slice(config, weights_path, crops, beam_size: int, device: str, parts=None):
+    """Drive the port's main path: MathRecognition on ``crops`` (with the
+    quantized ``parts`` set on its model when given).  Returns (strings,
+    launches of the head's kernel (all its forms), decode steps, seconds
+    of the timed run); ``launch_counts()`` has them by form after it.  The
+    first call warms up; the counted and timed call is the second, with
+    every kernel's count set to 0 just before it."""
+    import torch
+
     from doc2tex_tpu_torch.recognition import MathRecognition
 
     rec = MathRecognition(config, weights_path, beam_size=beam_size, device=device)
+    if parts is not None:
+        rec.model.set_quantize(parts)
     rec(crops)
     if device != "cpu":
         torch.cuda.synchronize()
-    decode_attention.launches = fused_attention_step.launches = 0
-    coverage_attention_step.launches = 0
+    reset_launches()
     t = time.perf_counter()
     out = rec(crops)
     if device != "cpu":
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t
+    counts = launch_counts()
     if rec.model.head == "TFM":
-        launches = decode_attention.launches
+        launches = counts["decode_attention"] + counts["decode_attention_int8"]
         steps = launches // (2 * rec.model.predicter.num_layers)
     else:  # the LSTM head: one attention step (coverage form) per decode step
-        launches = steps = coverage_attention_step.launches
+        launches = steps = counts["attention_step"] + counts["attention_step_int8"]
     return out, launches, steps, seconds
 
 
 def slice_phase(t0, version, kernel, quantize=None):
     """Decode the golden crops of ``version`` in float32 and bfloat16, with
-    ``quantize`` (None or ``int8``) against the matching golden; returns
-    (launches of ``kernel``, decode steps) of the float32 run."""
+    ``quantize`` (None, ``int8``, ``int8_full`` or ``int8_kv``) against the
+    matching golden; returns (launches of ``kernel``, decode steps) of the
+    float32 run; ``launch_counts()`` of that run is in ``SLICE_COUNTS``.
+    With decode memory in int8 (int8_full, int8_kv) every launch of the
+    head's kernel that reads it must be its int8 form's."""
     from doc2tex_tpu_torch.recognition import load_recog_config
 
     from doc2tex_tpu_torch.eval.metrics import get_single_ED
@@ -964,20 +1058,27 @@ def slice_phase(t0, version, kernel, quantize=None):
     for dtype in ("float32", "bfloat16"):
         cfg, weights = load_recog_config(version=golden["version"])
         cfg["dtype"] = dtype
-        cfg["quantize"] = quantize
-        out, launches, steps, seconds = run_slice(cfg, weights, crops, 10, "cuda")
+        cfg["quantize"] = "int8_full" if quantize in QUANT_PARTS else quantize
+        out, launches, steps, seconds = run_slice(cfg, weights, crops, 10, "cuda",
+                                                  parts=QUANT_PARTS.get(quantize))
         if launches <= 0:
             raise AssertionError(f"{version} {dtype} run launched its kernel {kernel} 0 times")
+        counts = launch_counts()
+        if quantize in ("int8_full", "int8_kv"):
+            check_int8_forms(version, quantize, dtype, counts)
         misses = [i for i, (a, b) in enumerate(zip(out, want)) if a != b]
         match = len(want) - len(misses)
         chars = sum(get_single_ED(b, a) for a, b in zip(out, want)) / len(want)
         log("slice", t0, f"{version} beam 10 {dtype} quantize {quantize}: {match}/{len(want)} "
-            f"equal to the JAX {'int8 ' if quantize else ''}golden (misses at crops {misses}; "
-            f"character match {chars:.4f}), {len(crops) / seconds:.2f} crops/s "
-            f"({seconds:.3f} s), {steps} decode steps, {launches} {kernel} launches")
+            f"equal to the JAX {quantize + ' ' if quantize else ''}golden (misses at crops "
+            f"{misses}; character match {chars:.4f}), {len(crops) / seconds:.2f} crops/s "
+            f"({seconds:.3f} s), {steps} decode steps, {launches} {kernel} launches "
+            f"(by form: {counts})")
+        if dtype == "float32":
+            SLICE_COUNTS[version, quantize] = counts
         if dtype == "float32" and quantize:
             counted = launches, steps
-            check_int8_strings(version, out, chars)
+            check_int8_strings(version, out, chars, quantize)
         elif dtype == "float32":
             counted = launches, steps
             if match < MIN_GOLDEN_MATCH:
@@ -985,6 +1086,24 @@ def slice_phase(t0, version, kernel, quantize=None):
                     f"float32 strings equal the golden on {match}/16 < {MIN_GOLDEN_MATCH}: "
                     + "; ".join(f"crop {i}: {out[i]!r} != {want[i]!r}" for i in misses))
     return counted
+
+
+SLICE_COUNTS: dict = {}   # (version, quantize) -> launch_counts() of slice_phase's float32 run
+
+
+def check_int8_forms(version, quantize, dtype, counts) -> None:
+    """int8 decode memory in effect: B2 only through its int8 form; B1's
+    cross-attention (and with int8_kv its self-attention) through its int8
+    K/V form, as many launches as the float form's self-attention under
+    int8_full."""
+    if version == "synthetic":
+        ok = counts["attention_step_int8"] > 0 and counts["attention_step"] == 0
+    elif quantize == "int8_kv":
+        ok = counts["decode_attention_int8"] > 0 and counts["decode_attention"] == 0
+    else:
+        ok = counts["decode_attention_int8"] == counts["decode_attention"] > 0
+    if not ok:
+        raise AssertionError(f"{version} {dtype} {quantize}: launches by form {counts}")
 
 
 def release_phase(t0, version):
@@ -1290,11 +1409,12 @@ def eval_phase(t0, n_gen=256):
             f"BLEU {row['bleu']}, char {row['char']}, {row['eval_s']} s (not gated)")
 
 
-def check_int8_strings(version: str, out, chars: float) -> None:
-    """The gate of the float32 int8 run: its strings share at least
-    ``INT8_MIN_CHAR_MATCH`` of their characters with the JAX package's int8
-    strings (mean match score), and differ from the float32 golden on at
-    least ``INT8_MIN_CHANGED`` crops (int8 is in effect).
+def check_int8_strings(version: str, out, chars: float, quantize: str = "int8") -> None:
+    """The gate of the float32 int8 run (any int8 mode): its strings share
+    at least ``INT8_MIN_CHAR_MATCH`` of their characters with the JAX
+    package's strings of the same mode (mean match score), and differ from
+    the float32 golden on at least ``INT8_MIN_CHANGED`` crops (int8 is in
+    effect).
 
     Exact agreement cannot be the gate.  The int8 encoder takes one
     activation scale per tensor, its abs-max, so a last-bit difference in
@@ -1312,7 +1432,7 @@ def check_int8_strings(version: str, out, chars: float) -> None:
     changed = sum(a != b for a, b in zip(out, plain))
     if chars < INT8_MIN_CHAR_MATCH or changed < INT8_MIN_CHANGED:
         raise AssertionError(
-            f"{version} float32 int8: character match {chars:.4f} with the JAX int8 golden "
+            f"{version} float32 {quantize}: character match {chars:.4f} with the JAX golden "
             f"(need {INT8_MIN_CHAR_MATCH}), {changed} strings differ from the float32 golden "
             f"(need {INT8_MIN_CHANGED})")
 
@@ -1352,10 +1472,11 @@ def golden_pages():
     return golden, pages
 
 
-def match_boxes(want_boxes, want_scores, got_boxes, got_scores):
+def match_boxes(want_boxes, want_scores, got_boxes, got_scores, box_px=None):
     """Pair each golden box with an unpaired box of ours whose corners are
-    all within BOX_TOL_PX (the closest); returns (pairs, unmatched), each
-    unmatched entry ("jax" or "port", score)."""
+    all within ``box_px`` (BOX_TOL_PX; the closest); returns (pairs,
+    unmatched), each unmatched entry ("jax" or "port", score)."""
+    box_px = BOX_TOL_PX if box_px is None else box_px
     import numpy as np
 
     want, got = np.asarray(want_boxes, np.float64), np.asarray(got_boxes, np.float64)
@@ -1365,7 +1486,7 @@ def match_boxes(want_boxes, want_scores, got_boxes, got_scores):
         dist = np.abs(got - box).max(axis=1) if len(got) else np.zeros(0)
         dist[taken] = np.inf
         j = int(np.argmin(dist)) if len(dist) else -1
-        if j >= 0 and dist[j] <= BOX_TOL_PX:
+        if j >= 0 and dist[j] <= box_px:
             taken[j] = True
             pairs.append((i, j, float(dist[j]), abs(float(got_scores[j]) - want_scores[i])))
         else:
@@ -1374,25 +1495,28 @@ def match_boxes(want_boxes, want_scores, got_boxes, got_scores):
     return pairs, unmatched
 
 
-def check_detections(golden, results, conf_thresh):
+def check_detections(golden, results, conf_thresh, tol=None):
     """The detect phase's gates over all golden pages: paired boxes within
     BOX_TOL_PX and SCORE_TOL, at most MAX_UNMATCHED unpaired boxes, each
-    scored within NEAR_THRESHOLD of ``conf_thresh``.  Returns (pairs,
-    worst corner distance, worst score difference, unmatched)."""
+    scored within NEAR_THRESHOLD of ``conf_thresh`` (or the ``tol`` dict's
+    box_px, score, unmatched and near).  Returns (pairs, worst corner
+    distance, worst score difference, unmatched)."""
+    tol = tol or {"box_px": BOX_TOL_PX, "score": SCORE_TOL, "unmatched": MAX_UNMATCHED,
+                  "near": NEAR_THRESHOLD}
     n_pairs, worst_px, worst_score, unmatched = 0, 0.0, 0.0, []
     for g, (boxes, scores) in zip(golden["pages"], results):
-        pairs, miss = match_boxes(g["boxes"], g["scores"], boxes, scores)
+        pairs, miss = match_boxes(g["boxes"], g["scores"], boxes, scores, tol["box_px"])
         n_pairs += len(pairs)
         unmatched += miss
         for _, _, px, ds in pairs:
             worst_px, worst_score = max(worst_px, px), max(worst_score, ds)
-    if worst_score > SCORE_TOL:
+    if worst_score > tol["score"]:
         raise AssertionError(f"a detection's score differs from the golden by {worst_score:.2e}"
-                             f" > {SCORE_TOL}")
-    far = [u for u in unmatched if abs(u[1] - conf_thresh) > NEAR_THRESHOLD]
-    if len(unmatched) > MAX_UNMATCHED or far:
-        raise AssertionError(f"unmatched boxes {unmatched} (at most {MAX_UNMATCHED}, each scored "
-                             f"within {NEAR_THRESHOLD} of {conf_thresh})")
+                             f" > {tol['score']}")
+    far = [u for u in unmatched if abs(u[1] - conf_thresh) > tol["near"]]
+    if len(unmatched) > tol["unmatched"] or far:
+        raise AssertionError(f"unmatched boxes {unmatched} (at most {tol['unmatched']}, each "
+                             f"scored within {tol['near']} of {conf_thresh})")
     return n_pairs, worst_px, worst_score, unmatched
 
 
@@ -2437,6 +2561,327 @@ def build_kernels(t0):
         if info["ptxas"]:
             print(info["ptxas"], file=sys.stderr, flush=True)
 
+# ---- the int8 decode memory (phase 8b) ---------------------------------------
+
+def int8_attention_inputs(B, K, M, nh, hd, dtype, masked, seed, step=None):
+    """``attention_inputs`` with K and V quantized per vector (quantize_kv,
+    as the decoder stores them): (q in ``dtype``, k8, v8, k_scale,
+    v_scale, mask)."""
+    import torch
+
+    from doc2tex_tpu_torch.ops.quant import quantize_kv
+
+    q, k, v, mask = attention_inputs(B, K, M, nh, hd, torch.float32, "cuda", masked, seed, step)
+    (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
+    return q.to(dtype), k8, v8, ks, vs, mask
+
+
+def check_attention_int8(B, K, M, nh, hd, dtype, masked, seed, step=None):
+    """B1's int8 K/V form against its plain version at one shape; returns
+    the max abs error."""
+    import torch
+
+    from doc2tex_tpu_torch.ops.decode_attention import (
+        decode_attention, decode_attention_int8_reference)
+
+    name = str(dtype).split(".")[-1]
+    atol, rtol = INT8_TOL[name]
+    q, k8, v8, ks, vs, mask = int8_attention_inputs(B, K, M, nh, hd, dtype, masked, seed, step)
+    before = decode_attention.int8_launches
+    out = decode_attention(q, k8, v8, mask, ks, vs)
+    decode_attention.int8_launches = before
+    ref = decode_attention_int8_reference(q, k8, v8, mask, ks, vs)
+    torch.cuda.synchronize()
+    if out.dtype != dtype or not torch.isfinite(out).all():
+        raise AssertionError(f"int8 K/V form: {out.dtype} or non-finite output at B{B} K{K} "
+                             f"M{M} {name}")
+    err = (out.float() - ref.float()).abs()
+    if (err > atol + rtol * ref.float().abs()).any():
+        raise AssertionError(f"B1's int8 K/V form disagrees with its plain version at B{B} K{K} "
+                             f"M{M} mask={masked} step={step} {name}: max abs err "
+                             f"{err.max().item():.3e}")
+    return err.max().item()
+
+
+def int8_rounding_point_check() -> int:
+    """B1's int8 K/V form equals its plain version bit for bit (bf16) where
+    both rounding points of the scaled probabilities show: q = 0, so the n
+    attended positions score alike and p = 1/n; V is v8 at position 0 with
+    scale s, 0 elsewhere; every output is round(round(round(1/n) *
+    round(s)) * v8).  Unsplit and over a cluster (every 500th position
+    attended).  Returns the checks made."""
+    import torch
+
+    from doc2tex_tpu_torch.ops.decode_attention import (
+        decode_attention, decode_attention_int8_reference)
+
+    n_checks = 0
+    before = decode_attention.int8_launches
+    for n, v8, scale in ((3, 100, 0.0123), (7, 127, 0.0917), (3, 55, 0.0457)):
+        for spread, B, K, nh in ((1, 1, 1, 1), (500, 1, 10, 8)):
+            M = n * spread
+            q = torch.zeros(B, K, nh, 32, dtype=torch.bfloat16, device="cuda")
+            g = torch.Generator(device="cpu").manual_seed(n)
+            k8 = torch.randint(-127, 128, (B, M, nh, 32), generator=g).to("cuda", torch.int8)
+            v = torch.zeros(B, M, nh, 32, dtype=torch.int8, device="cuda")
+            v[:, 0] = v8
+            ks = torch.full((B, M, nh), 0.01, device="cuda")
+            vs = torch.full((B, M, nh), scale, device="cuda")
+            mask = None
+            if spread > 1:
+                mask = torch.zeros(B, K, M, dtype=torch.bool, device="cuda")
+                mask[:, :, ::spread] = True
+            out = decode_attention(q, k8, v, mask, ks, vs)
+            ref = decode_attention_int8_reference(q, k8, v, mask, ks, vs)
+            torch.cuda.synchronize()
+            if not torch.equal(out, ref):
+                raise AssertionError(f"int8 rounding point: kernel {out.flatten()[0].item()!r} "
+                                     f"!= plain {ref.flatten()[0].item()!r} at n {n}, v8 {v8}, "
+                                     f"scale {scale}, spread {spread}")
+            n_checks += 1
+    decode_attention.int8_launches = before
+    return n_checks
+
+
+def attention_int8_timing(B, K, M, masked, step, nh=8, hd=32):
+    """B1's int8 K/V form and its plain version timed at one shape with
+    bf16 q (CUDA graphs, as ``attention_timing``), and the bound of the
+    same work: q read and the output written once, the mask, and the int8
+    K/V rows that a beam of the sample attends with their two f32 scales;
+    Q.K and P.V over the attended positions at the bf16 tensor rate.  No
+    single PyTorch call computes this function (library_ms None)."""
+    import torch
+
+    from doc2tex_tpu_torch.ops.decode_attention import (
+        decode_attention, decode_attention_int8_reference, launch_plan)
+    from doc2tex_tpu_torch.tools.bench_decode_attention import graph_ms
+
+    q, k8, v8, ks, vs, mask = int8_attention_inputs(B, K, M, nh, hd, torch.bfloat16, masked,
+                                                    seed=7, step=step)
+    before = decode_attention.int8_launches
+    ms = graph_ms(lambda: decode_attention(q, k8, v8, mask, ks, vs))
+    plain_ms = graph_ms(lambda: decode_attention_int8_reference(q, k8, v8, mask, ks, vs))
+    err = (decode_attention(q, k8, v8, mask, ks, vs).float()
+           - decode_attention_int8_reference(q, k8, v8, mask, ks, vs).float()).abs().max().item()
+    decode_attention.int8_launches = before  # timing launches are not main-path launches
+    kv_rows = B * M if mask is None else int(mask.any(dim=1).sum().item())
+    nbytes = 2 * q.numel() * 2 + kv_rows * nh * (2 * hd + 2 * INT8_BYTES_PER_SCALE)
+    nbytes += 0 if mask is None else mask.numel()
+    attended = B * K * M if mask is None else int(mask.sum().item())
+    flops = 4 * attended * nh * hd
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    bound = max(bytes_ms, ops_ms)
+    plan = launch_plan(B, K, M, nh, hd, torch.bfloat16, torch.int8)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound,
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations", max_abs_err=err,
+                text=f"int8 K/V, B{B} K{K} M{M} {'step ' + str(step) if masked else 'no mask'} "
+                     f"nh{nh} hd{hd} bf16 q (cluster {plan.cluster}, chunk {plan.chunk}, "
+                     f"{plan.smem_bytes} B smem): max abs err {err:.3e}, kernel {ms:.4f} ms, "
+                     f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({nbytes / 1e6:.2f} MB), "
+                     f"{bound / ms:.0%} of bound, achieved "
+                     f"{nbytes / (ms * 1e-3) / 1e9:.0f} GB/s")
+
+
+def coverage_int8_inputs(Bs, K, S, D, H, Kl, compute, t, seed, taps=5):
+    """``coverage_step_inputs`` with enc and enc_proj rounded to the
+    compute type and quantized per sample (quantize_memory, as the decoder
+    stores them): (the step's inputs, the int8 keywords)."""
+    import torch
+
+    from doc2tex_tpu_torch.ops.quant import quantize_memory
+
+    kw = coverage_step_inputs(Bs, K, S, D, H, Kl, torch.float32, t, seed, taps)
+    kw["enc"], enc_scale = quantize_memory(kw["enc"].to(compute))
+    kw["enc_proj"], proj_scale = quantize_memory(kw["enc_proj"].to(compute))
+    return kw, dict(enc_scale=enc_scale, proj_scale=proj_scale, compute_dtype=compute)
+
+
+def check_coverage_int8_shapes(shapes):
+    """B2's int8 form against its plain version at each (samples, K, S, D,
+    H, Kl) of ``shapes``, float32 and bfloat16 compute, coverage of the
+    steps COVERAGE_STEPS, valid_len None and S - 17 (B2_TOL).  Returns
+    (checks made, the worst errors as text)."""
+    import torch
+
+    from doc2tex_tpu_torch.ops.attention_step import (
+        coverage_attention_step, coverage_attention_step_int8_reference)
+
+    worst = {"float32": (0.0, 0.0), "bfloat16": (0.0, 0.0)}
+    n = 0
+    before = coverage_attention_step.int8_launches
+    for compute in (torch.float32, torch.bfloat16):
+        name = str(compute).split(".")[-1]
+        for Bs, K, S, D, H, Kl in shapes:
+            for t in COVERAGE_STEPS:
+                kw, q8 = coverage_int8_inputs(Bs, K, S, D, H, Kl, compute, t, seed=n)
+                for valid in (None, S - 17):
+                    n += 1
+                    got = coverage_attention_step(**kw, valid_len=valid, **q8)
+                    ref = coverage_attention_step_int8_reference(
+                        *kw.values(), valid, q8["enc_scale"], q8["proj_scale"], compute)
+                    torch.cuda.synchronize()
+                    worst[name] = tuple(map(max, worst[name], _check_b2(
+                        "attention step (int8 form)", got, ref,
+                        f"{Bs} samples K {K} S {S} D{D} H{H} Kl{Kl} step {t} valid {valid} "
+                        f"int8 memory, {name} compute")))
+    coverage_attention_step.int8_launches = before
+    return n, ("max abs err " + ", ".join(
+        f"{k} {e:.3e} (at most {r:.2f} of its tolerance)" for k, (e, r) in worst.items())
+        + f"; tol {B2_TOL[0]:g} abs + {B2_TOL[1]:g} rel")
+
+
+def coverage_int8_timing(Bs, K, S, D, H, Kl):
+    """B2's int8 form (bf16 compute) and its plain version timed at one
+    shape (CUDA graphs), and the bound of the fused function: the int8
+    memory and its scales read once per sample, the coverage, q and the
+    weights read and the outputs written once; the float32 work of
+    ``coverage_step_timing``.  No single PyTorch call computes it."""
+    import torch
+
+    from doc2tex_tpu_torch.ops.attention_step import (
+        COVERAGE, coverage_attention_step, coverage_attention_step_int8_reference, launch_plan)
+    from doc2tex_tpu_torch.tools.bench_decode_attention import graph_ms
+
+    kw, q8 = coverage_int8_inputs(Bs, K, S, D, H, Kl, torch.bfloat16, COVERAGE_STEPS[-1], seed=7)
+    ref_args = (*kw.values(), None, q8["enc_scale"], q8["proj_scale"], torch.bfloat16)
+    before = coverage_attention_step.int8_launches
+    ms = graph_ms(lambda: coverage_attention_step(**kw, **q8))
+    plain_ms = graph_ms(lambda: coverage_attention_step_int8_reference(*ref_args))
+    got = coverage_attention_step(**kw, **q8)
+    ref = coverage_attention_step_int8_reference(*ref_args)
+    coverage_attention_step.int8_launches = before
+    taps = kw["loc_conv_w"].shape[0]
+    nbytes = sum(t.numel() * t.element_size() for t in kw.values())
+    nbytes += 2 * Bs * INT8_BYTES_PER_SCALE + (got[0].numel() + got[1].numel()) * 4
+    flops = Bs * K * S * (2 * taps * H + 5 * H + 3 + 2 * D)
+    plan = launch_plan(Bs, K, S, D, H, Kl, torch.int8, COVERAGE, taps)
+    result = _b2_result(ms, plain_ms, got, ref, nbytes, flops,
+                        f"int8 form, {Bs} samples x K {K} S {S} D{D} H{H} Kl{Kl} int8 memory, "
+                        f"bf16 compute (cluster {plan.cluster}, chunk {plan.chunk}, zsplit "
+                        f"{plan.zsplit}, {plan.smem_bytes} B smem)")
+    return dict(result, library_ms=None)
+
+
+def int8_memory_phase(t0):
+    """Phase 8b: the modes that keep decode memory in int8.  The golden
+    crops of ``synthetic_tfm_big`` and ``synthetic`` with ``quantize:
+    int8_full``, and of ``synthetic_tfm_big`` with the parts encoder,
+    decoder_mem and decoder_kv, float32 (gated by ``check_int8_strings``
+    against the JAX golden of the same parts) and bf16, every launch that
+    reads int8 memory through an int8 form; then B1's int8 K/V form and
+    B2's int8 form against their plain versions at every shape those runs
+    launched them with, at the release shapes and longer, and timed.
+    Returns the two forms' JSON records, their launches those of the
+    float32 int8_full runs (16 crops)."""
+    import torch
+
+    with recorded_launches() as seen:
+        slice_phase(t0, "synthetic_tfm_big", "decode_attention", quantize="int8_full")
+        slice_phase(t0, "synthetic_tfm_big", "decode_attention", quantize="int8_kv")
+        slice_phase(t0, "synthetic", "attention_step", quantize="int8_full")
+    b1_launches = SLICE_COUNTS["synthetic_tfm_big", "int8_full"]["decode_attention_int8"]
+    b2_launches = SLICE_COUNTS["synthetic", "int8_full"]["attention_step_int8"]
+    log("int8_memory", t0, "launches of a 16-crop float32 call by form: int8_full "
+        f"synthetic_tfm_big {SLICE_COUNTS['synthetic_tfm_big', 'int8_full']}, int8_kv "
+        f"synthetic_tfm_big {SLICE_COUNTS['synthetic_tfm_big', 'int8_kv']}, int8_full synthetic "
+        f"{SLICE_COUNTS['synthetic', 'int8_full']}")
+
+    nh, hd = 8, 32
+    b1_shapes = sorted(seen["b1_int8"])
+    grid = [(B, K, M, kind == "self", M // K - 1 if kind == "self" else None)
+            for B, K, M, kind in b1_shapes]
+    grid += [(64, 10, 10 * t, True, t - 1) for t in (31, 62, 93, 124, 151)]
+    grid += [(64, 10, 623, False, None), (64, 10, 5010, True, 500), (1, 10, 5010, True, 500),
+             (8, 10, 623, False, None)]
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        worst[name] = max(check_attention_int8(B, K, M, nh, hd, dtype, masked,
+                                               seed=B * 1000 + M, step=step)
+                          for B, K, M, masked, step in grid)
+    log("int8_memory", t0, f"B1's int8 K/V form matches its plain version at {len(grid)} shapes "
+        f"per q type (the {len(b1_shapes)} (B, K, M, kind) the int8 runs launched: "
+        f"{b1_shapes}; self M 310..1510 and cross 623 at B 64, self M 5010 at B 1 and 64, "
+        "cross 623 at B 8): max abs err "
+        + ", ".join(f"{n} {e:.3e} (tol {INT8_TOL[n][0]:g} abs + {INT8_TOL[n][1]:g} rel)"
+                    for n, e in worst.items()))
+    log("int8_memory", t0, f"B1's int8 K/V form equals its plain version bit for bit on "
+        f"{int8_rounding_point_check()} rounding-point inputs (bf16; unsplit and over a cluster)")
+    timings = {}
+    for label, shape in (("self", (64, 10, 1510, True, 150)), ("cross", (64, 10, 623, False, None)),
+                         ("long self", (64, 10, 5010, True, 500))):
+        timings[label] = attention_int8_timing(*shape)
+        log("int8_memory", t0, f"B1 {label} {timings[label]['text']} (bf16 form "
+            f"{attention_timing(*shape)['ms']:.4f} ms in this run)")
+
+    b2_shapes = sorted(seen["b2_int8"])
+    cgrid = b2_shapes + [s for s in ((64, 10, 623, 128, 128, 64), (8, 10, 623, 256, 256, 128),
+                                     (8, 10, 2525, 256, 256, 128)) if s not in b2_shapes]
+    n, text = check_coverage_int8_shapes(cgrid)
+    log("int8_memory", t0, f"B2's int8 form matches its plain version at {n} checks ((samples, "
+        f"K, S, D, H, Kl) {cgrid}, the first {len(b2_shapes)} launched by the int8 run; x "
+        "float32, bf16 compute x coverage of step {1,150} x valid {None, S-17}): " + text)
+    b2 = {}
+    for shape in cgrid:
+        b2[shape] = coverage_int8_timing(*shape)
+        log("int8_memory", t0, f"B2 {b2[shape]['text']} (bf16 memory form "
+            f"{coverage_step_timing(*shape)['ms']:.4f} ms in this run)")
+    rel1 = timings["self"]
+    rel2 = b2[max(b2_shapes)] if b2_shapes else b2[64, 10, 623, 128, 128, 64]
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return [
+        {"name": "decode_attention_int8", "route": "cuda", "source": KERNEL_SOURCE,
+         "replaces": B1_INT8_REPLACES, "launches": b1_launches, **{k: rel1[k] for k in keys}},
+        {"name": "attention_step_int8", "route": "cuda", "source": B2_SOURCE,
+         "replaces": B2_INT8_REPLACES, "launches": b2_launches, **{k: rel2[k] for k in keys}},
+    ]
+
+
+def detect_quant_phase(t0):
+    """Phase 11b: ``MathDetector`` with ``quantize`` bf16 and int8 on the
+    golden pages (host windows, 5 a batch, as the JAX goldens ran) against
+    the JAX package's boxes in the same mode (DETECT_QUANT_TOL); then
+    through ``App(detect_quantize=...)`` on the default device-window path
+    (one batch of a page's 35 windows), and detect_page timed beside the
+    float32 detector's."""
+    import torch
+
+    from doc2tex_tpu_torch.app import App
+    from doc2tex_tpu_torch.detection.flow import SHIPPED_WEIGHTS, MathDetector
+
+    _, pages = golden_pages()
+    for mode, path in DETECT_QUANT_GOLDEN.items():
+        with open(path) as f:
+            golden = json.load(f)
+        tol = DETECT_QUANT_TOL[mode]
+        det = MathDetector(SHIPPED_WEIGHTS, conf_thresh=golden["conf_thresh"],
+                           iou_thresh=golden["nms_iou"], expand_frac=golden["expand_frac"],
+                           quantize=mode, device_windows=False,
+                           batch_size=golden["window_batch"])
+        results = [det.detect_page(page) for page in pages]
+        n_pairs, worst_px, worst_score, unmatched = check_detections(
+            golden, results, golden["conf_thresh"], tol)
+        log("detect_quant", t0, f"{mode} ({len(det.int8_layers)} int8 layers): {n_pairs} boxes "
+            f"matched to the JAX package's {mode} boxes within {worst_px:.4f} px (tol "
+            f"{tol['box_px']}) and scores within {worst_score:.2e} (tol {tol['score']}); "
+            f"unmatched {unmatched} (at most {tol['unmatched']}, each within {tol['near']} of "
+            "the threshold)")
+        with torch.inference_mode():  # the mode is in effect: bf16 heads, or int8 layers
+            loc = det.model(torch.zeros(1, 3, 512, 512, device="cuda"))[0]
+        if (loc.dtype == torch.bfloat16) != (mode == "bf16") or (mode == "int8") != bool(
+                det.int8_layers):
+            raise AssertionError(f"MathDetector(quantize={mode!r}) computed loc in {loc.dtype} "
+                                 f"with {len(det.int8_layers)} int8 layers")
+        app = App(detect_quantize=mode, recognizer=lambda crops: ["x"] * len(crops))
+        regions = app(pages[0])
+        if not regions or app.detector.quantize != mode:
+            raise AssertionError(f"App(detect_quantize={mode!r}) gave {regions}")
+        ms = {q: _event_ms(lambda d=MathDetector(SHIPPED_WEIGHTS, quantize=q): d.detect_page(
+            pages[0]), reps=5) for q in (None, mode)}
+        log("detect_quant", t0, f"App(detect_quantize={mode!r}) on page 0: {len(regions)} "
+            f"regions; detect_page (35 windows, one batch) {ms[mode]:.2f} ms against float32's "
+            f"{ms[None]:.2f} ms (a call's mean over 5 between CUDA events, after 3 warm-ups)")
+
 
 def main() -> int:
     faulthandler.dump_traceback_later(TIME_LIMIT_S, exit=True)
@@ -2468,9 +2913,11 @@ def main() -> int:
     int8_op_phase(t0)
     slice_phase(t0, "synthetic_tfm_big", "decode_attention", quantize="int8")
     slice_phase(t0, "synthetic", "attention_step", quantize="int8")
+    records += int8_memory_phase(t0)
     serve_phase(t0)
     eval_phase(t0)
     detect_phase(t0)
+    detect_quant_phase(t0)
     page_phase(t0)
     detect_train_phase(t0)
     train_phase(t0)

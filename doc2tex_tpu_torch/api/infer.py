@@ -2,7 +2,7 @@
 
     python -m doc2tex_tpu_torch.api.infer --config <cfg.yaml> --data_dir imgs/ \\
         --csv_dir labels.tsv --log_path out/ [--batch_size 32] [--beam_size 10] \\
-        [--int8] [--amp] [--strong_log] [--device cuda|cpu]
+        [--int8 | --int8-full] [--amp] [--strong_log] [--device cuda|cpu]
 
 Evaluates a model over a TSV manifest (``name<TAB>label``, an optional
 header row) and an image folder, or over ``synthetic_data: N`` flat
@@ -12,12 +12,13 @@ word NED match, time and memory; with ``--log_path`` it writes
 Images go through the same bucket ladder and batches as the JAX package's
 CLI (``data.loader.BucketLoader``, every batch decoded as it is), so
 ``quantize: int8`` takes the same per-batch activation scales.
+``--int8-full`` (``quantize: int8_full``) also keeps the decode attention
+memory in int8, through the int8 forms of B1 and B2 on the card.
 
 Images are PNGs, read by ``utils.png.decode_png`` (PIL's ``convert("L")``
 bytes; the card's machine has no PIL).  What is not ported raises, naming
-its ROADMAP item: ``--resizer`` (A6), ``--int8-full`` and ``quantize:
-int8_full`` (A5), an LMDB ``eval_data`` folder (A11) and ``--platform``
-(a JAX switch; the port takes ``--device``).
+its ROADMAP item: ``--resizer`` (A6), an LMDB ``eval_data`` folder (A11)
+and ``--platform`` (a JAX switch; the port takes ``--device``).
 """
 
 from __future__ import annotations
@@ -73,7 +74,7 @@ def run_infer(config, dataset, log_path: str | None = None, device="cuda") -> di
     """Decode ``dataset`` with the config's model on ``device`` and return
     ``validation``'s metrics with the run's time, images per second,
     parameter count (millions) and peak host memory."""
-    parts_for_mode(config.get("quantize"))      # refuses the modes not ported, early
+    parts_for_mode(config.get("quantize"))      # refuses an unknown mode, early
     converter = create_converter(config)
     config["num_class"] = converter.num_classes
     with torch.random.fork_rng(devices=[]):     # a seeded init that leaves the caller's RNG
@@ -120,7 +121,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--int8", action="store_true", default=False,
                         help="int8 dynamic-quant encoder (ops/quant.py)")
     parser.add_argument("--int8-full", action="store_true", default=False,
-                        help="--int8 plus int8 decode attention memory (not ported)")
+                        help="--int8 plus int8 decode attention memory")
     parser.add_argument("--platform", default=None, help="a JAX platform; use --device")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return parser

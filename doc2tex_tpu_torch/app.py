@@ -57,7 +57,8 @@ class App:
         ``recognizer``: a ``MathRecognition`` to share (a serving front's)
         instead of building one from ``recog_config``/``recog_weights``.
         ``stitch``: the voting stitch (``equal`` votes, at least
-        ``stitch_votes``) instead of the page NMS."""
+        ``stitch_votes``) instead of the page NMS.  ``detect_quantize``:
+        the detector in ``bf16`` or ``int8`` (``MathDetector``)."""
         self.use_detect = use_detect
         self.stitch = stitch
         self.stitch_votes = stitch_votes

@@ -67,6 +67,23 @@
 //     beam; the groups meet in shared memory, the blocks of the cluster
 //     through distributed shared memory, each rank adding its share of the
 //     outputs in rank order.  One launch, no workspace in device memory.
+//
+// The int8 memory form (coverage form only; d2t_attention_step_coverage with
+// mem_dtype int8).
+// The reference computes the LSTM step on int8 memory in XLA, not in its
+// Pallas kernel (decoder_lstm.step under the decoder_mem part); this form
+// replaces that step on this card.  enc and enc_proj are int8 with one f32
+// scale per sample, enc_scale and proj_scale (Bs); RT, the model's compute
+// type (float or bfloat16), is a template parameter:
+//
+//   P[s,h]  = round(round(proj_scale[b]) to RT * enc_proj8[b,s,h]) to RT
+//   x, e, alpha as above with P for enc_proj
+//   ctx[d]  = (sum_s alpha[s] * enc8[b,s,d]) * enc_scale[b]      (f32)
+//
+// The same grid, ring and loops: the int8 rows stream through the ring (a
+// quarter of float's, half of bfloat16's bytes) and are widened where they
+// are read; the scale is applied once per element of P and once per output.
+//
 // Measured on an H100 (PERF.md §6): the scoring loop issues about one
 // instruction every two cycles per scheduler, with or without the MUFU work,
 // the shared loads or more warps, and many of its float operations read
@@ -129,16 +146,36 @@ __host__ __device__ inline Layout make_layout(int form, int Kz, int chunk, int t
   return L;
 }
 
-// 4 consecutive elements of T, float or bfloat16 (16 or 8 bytes, aligned) -> f32
+// 4 consecutive elements of T, float, bfloat16 or int8 (16, 8 or 4 bytes,
+// aligned) -> f32
 template <typename T>
 __device__ __forceinline__ float4 load4(const void* p) {
   if constexpr (sizeof(T) == 4) {
     return *reinterpret_cast<const float4*>(p);
+  } else if constexpr (sizeof(T) == 1) {
+    // without I2F (quarter rate on sm_90): byte i of x = b ^ 0x80 = b + 128
+    // under the exponent of 2^23 is the float 2^23 + 128 + b, exactly
+    const uint32_t x = *reinterpret_cast<const uint32_t*>(p) ^ 0x80808080u;
+    return make_float4(
+        __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7540u)) - 8388736.f,
+        __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7541u)) - 8388736.f,
+        __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7542u)) - 8388736.f,
+        __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7543u)) - 8388736.f);
   } else {
     const uint2 u = *reinterpret_cast<const uint2*>(p);
     const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&u);
     return make_float4(__bfloat162float(e[0]), __bfloat162float(e[1]), __bfloat162float(e[2]),
                        __bfloat162float(e[3]));
+  }
+}
+
+// x rounded to RT (float or bfloat16), as a float
+template <typename RT>
+__device__ __forceinline__ float round_to(float x) {
+  if constexpr (sizeof(RT) == 4) {
+    return x;
+  } else {
+    return __bfloat162float(__float2bfloat16_rn(x));
   }
 }
 
@@ -208,12 +245,14 @@ __device__ __forceinline__ float warp_sum(float x) {
 //   e += (-2 w) / (1 + 2^x')
 // with j over the 5 window taps (coverage; a_j in registers) or the Kl
 // features (feature form; a_j from the tile's loc_feat rows): one loop.
-template <typename T, int H, int G, bool kCov>
+// int8 memory (T int8_t): P = round_RT(enc_proj8 * ps), ps the sample's
+// proj_scale already rounded to RT.
+template <typename T, typename RT, int H, int G, bool kCov>
 __device__ __forceinline__ void score_tile(const unsigned char* buf, const float* loc_tile,
                                            const float* w_s, const float* qb_s, const float* ws_s,
                                            const float* win_s, float* sc_s, float sum_ws,
-                                           int chunk, int p0, int np, int tile, int Kz, int Kl,
-                                           int HS, int tid) {
+                                           float ps, int chunk, int p0, int np, int tile, int Kz,
+                                           int Kl, int HS, int tid) {
   constexpr int RS = H * (int)sizeof(T) + 16;
   constexpr int NC = H / 4;  // float4 columns
   const int WL = chunk + 2 * kHalo;
@@ -247,7 +286,11 @@ __device__ __forceinline__ void score_tile(const unsigned char* buf, const float
       }
       for (int c = sub; c < NC; c += HS) {
         const int h0 = 4 * c;
-        const float4 p = load4<T>(prow + h0 * (int)sizeof(T));
+        float4 p = load4<T>(prow + h0 * (int)sizeof(T));
+        if constexpr (sizeof(T) == 1) {
+          p = make_float4(round_to<RT>(p.x * ps), round_to<RT>(p.y * ps), round_to<RT>(p.z * ps),
+                          round_to<RT>(p.w * ps));
+        }
         const float4 wsc = *reinterpret_cast<const float4*>(ws_s + h0);
         float x[G][4];
 #pragma unroll
@@ -305,16 +348,18 @@ __device__ __forceinline__ void score_tile(const unsigned char* buf, const float
   }
 }
 
-template <typename T, int H, int G, int FORM>
+template <typename T, typename RT, int H, int G, int FORM>
 __global__ void __launch_bounds__(kThreads)
 attention_step_kernel(const T* __restrict__ enc, const T* __restrict__ enc_proj,
                       const float* __restrict__ q, const float* __restrict__ loc,
                       const float* __restrict__ conv_w, const float* __restrict__ conv_b,
                       const float* __restrict__ w_loc, const float* __restrict__ b_loc,
-                      const float* __restrict__ w_score, float* __restrict__ ctx,
+                      const float* __restrict__ w_score, const float* __restrict__ enc_scale,
+                      const float* __restrict__ proj_scale, float* __restrict__ ctx,
                       float* __restrict__ alpha, int K, int Kz, int S, int Kl, int taps,
                       int valid, int chunk, int tile, int stages) {
   constexpr bool kCov = FORM == kCoverage;
+  constexpr bool kQ8 = sizeof(T) == 1;  // int8 memory with per-sample scales
   constexpr int D = H;
   constexpr int ELEM = sizeof(T);
   constexpr int RS = H * ELEM + 16;   // bytes of a padded row in the ring
@@ -510,6 +555,7 @@ attention_step_kernel(const T* __restrict__ enc, const T* __restrict__ enc_proj,
   for (int h = tid; h < H; h += kThreads) ws_s[h] *= -2.f;
   __syncthreads();
   const float sum_ws = *sum_ws_s;
+  const float ps = kQ8 ? round_to<RT>(__ldg(proj_scale + b)) : 1.f;
 
   // ---- scores, a ring tile at a time
   {
@@ -522,8 +568,9 @@ attention_step_kernel(const T* __restrict__ enc, const T* __restrict__ enc_proj,
       issue(i + stages - 1);
       const unsigned char* buf = ring + (i % stages) * L.stage;
       const float* loc_tile = reinterpret_cast<const float*>(buf + up16(tile * RS));
-      score_tile<T, H, G, kCov>(buf, loc_tile, w_s, qb_s, ws_s, win_s, sc_s, sum_ws, chunk,
-                                i * tile, min(tile, n_sc - i * tile), tile, Kz, Kl, HS, tid);
+      score_tile<T, RT, H, G, kCov>(buf, loc_tile, w_s, qb_s, ws_s, win_s, sc_s, sum_ws, ps,
+                                    chunk, i * tile, min(tile, n_sc - i * tile), tile, Kz, Kl,
+                                    HS, tid);
     }
   }
   for (int k = 0; k < Kz; ++k) {
@@ -656,18 +703,19 @@ attention_step_kernel(const T* __restrict__ enc, const T* __restrict__ enc_proj,
     float x = 0.f;
 #pragma unroll
     for (int c = 0; c < kMaxCluster; ++c) x += v[c];  // in rank order
+    if constexpr (kQ8) x *= __ldg(enc_scale + b);
     ctx[(row0 + j / D) * D + j % D] = x;
   }
   cluster_sync();  // no block leaves while another reads its shared memory
 }
 
-template <typename T, int H, int G, int FORM>
+template <typename T, typename RT, int H, int G, int FORM>
 int launch_g(const void* enc, const void* enc_proj, const void* q, const void* loc,
              const void* conv_w, const void* conv_b, const void* w_loc, const void* b_loc,
-             const void* w_score, void* ctx, void* alpha, int Bs, int K, int Kz, int S, int Kl,
-             int taps, int valid, int cluster, int chunk, int zsplit, int tile, int stages,
-             int smem_bytes, cudaStream_t stream) {
-  auto kernel = attention_step_kernel<T, H, G, FORM>;
+             const void* w_score, const void* enc_scale, const void* proj_scale, void* ctx,
+             void* alpha, int Bs, int K, int Kz, int S, int Kl, int taps, int valid, int cluster,
+             int chunk, int zsplit, int tile, int stages, int smem_bytes, cudaStream_t stream) {
+  auto kernel = attention_step_kernel<T, RT, H, G, FORM>;
   // once per instance, at its first launch (so outside any graph capture
   // that follows a warm-up call)
   static const cudaError_t attr =
@@ -690,38 +738,45 @@ int launch_g(const void* enc, const void* enc_proj, const void* q, const void* l
       static_cast<const float*>(q), static_cast<const float*>(loc),
       static_cast<const float*>(conv_w), static_cast<const float*>(conv_b),
       static_cast<const float*>(w_loc), static_cast<const float*>(b_loc),
-      static_cast<const float*>(w_score), static_cast<float*>(ctx), static_cast<float*>(alpha),
+      static_cast<const float*>(w_score), static_cast<const float*>(enc_scale),
+      static_cast<const float*>(proj_scale), static_cast<float*>(ctx), static_cast<float*>(alpha),
       K, Kz, S, Kl, taps, valid, chunk, tile, stages);
 }
 
 // G = beams an item holds: 5 where the block's beams come in fives (beam 5
 // and 10), else 1
-template <typename T, int H, int FORM>
+template <typename T, typename RT, int H, int FORM>
 int launch_h(const void* enc, const void* enc_proj, const void* q, const void* loc,
              const void* conv_w, const void* conv_b, const void* w_loc, const void* b_loc,
-             const void* w_score, void* ctx, void* alpha, int Bs, int K, int Kz, int S, int Kl,
-             int taps, int valid, int cluster, int chunk, int zsplit, int tile, int stages,
-             int smem_bytes, cudaStream_t s) {
-  if (Kz % 5 == 0) {
-    return launch_g<T, H, 5, FORM>(enc, enc_proj, q, loc, conv_w, conv_b, w_loc, b_loc, w_score,
-                                   ctx, alpha, Bs, K, Kz, S, Kl, taps, valid, cluster, chunk,
-                                   zsplit, tile, stages, smem_bytes, s);
-  }
-  return launch_g<T, H, 1, FORM>(enc, enc_proj, q, loc, conv_w, conv_b, w_loc, b_loc, w_score,
-                                 ctx, alpha, Bs, K, Kz, S, Kl, taps, valid, cluster, chunk, zsplit,
-                                 tile, stages, smem_bytes, s);
+             const void* w_score, const void* enc_scale, const void* proj_scale, void* ctx,
+             void* alpha, int Bs, int K, int Kz, int S, int Kl, int taps, int valid, int cluster,
+             int chunk, int zsplit, int tile, int stages, int smem_bytes, cudaStream_t s) {
+#define D2T_ARGS enc, enc_proj, q, loc, conv_w, conv_b, w_loc, b_loc, w_score, enc_scale, \
+                 proj_scale, ctx, alpha, Bs, K, Kz, S, Kl, taps, valid, cluster, chunk, zsplit, \
+                 tile, stages, smem_bytes, s
+  if (Kz % 5 == 0) return launch_g<T, RT, H, 5, FORM>(D2T_ARGS);
+  return launch_g<T, RT, H, 1, FORM>(D2T_ARGS);
+#undef D2T_ARGS
 }
 
+// mem: the memory's type, 0 = float32, 2 = bfloat16, 3 = int8 (coverage
+// form only, with enc_scale and proj_scale); compute: the compute type,
+// 0 = float32, 2 = bfloat16, the memory's own unless the memory is int8
 template <int FORM>
 int launch(const void* enc, const void* enc_proj, const void* q, const void* loc,
            const void* conv_w, const void* conv_b, const void* w_loc, const void* b_loc,
-           const void* w_score, void* ctx, void* alpha, int Bs, int K, int S, int D, int H,
-           int Kl, int taps, int valid, int dtype, int cluster, int chunk, int zsplit, int tile,
-           int stages, int smem_bytes, void* stream) {
-  const int elem = dtype == 0 ? 4 : 2;
+           const void* w_score, const void* enc_scale, const void* proj_scale, void* ctx,
+           void* alpha, int Bs, int K, int S, int D, int H, int Kl, int taps, int valid, int mem,
+           int compute, int cluster, int chunk, int zsplit, int tile, int stages, int smem_bytes,
+           void* stream) {
+  const bool q8 = mem == 3;
+  const int elem = mem == 0 ? 4 : q8 ? 1 : 2;
   const int Kz = zsplit > 0 ? K / zsplit : 0;
   if (Bs <= 0 || Bs > 65535 || K <= 0 || S <= 0 || Kl <= 0 || D != H ||
-      (H != 128 && H != 256) || (dtype != 0 && dtype != 2) || zsplit <= 0 ||
+      (H != 128 && H != 256) || (mem != 0 && mem != 2 && !q8) ||
+      (compute != 0 && compute != 2) || (!q8 && compute != mem) ||
+      (q8 && (FORM != kCoverage || enc_scale == nullptr || proj_scale == nullptr)) ||
+      zsplit <= 0 ||
       zsplit > 65535 || K % zsplit != 0 || Kz > kMaxQ || cluster <= 0 ||
       cluster > kMaxCluster || chunk <= 0 || (long)cluster * chunk < S ||
       (long)(cluster - 1) * chunk >= S || (tile != 16 && tile != 32) || stages < 2 ||
@@ -733,14 +788,24 @@ int launch(const void* enc, const void* enc_proj, const void* q, const void* loc
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int rc;
-#define D2T_ARGS enc, enc_proj, q, loc, conv_w, conv_b, w_loc, b_loc, w_score, ctx, alpha, Bs, K, \
-                 Kz, S, Kl, taps, valid, cluster, chunk, zsplit, tile, stages, smem_bytes, s
-  if (dtype == 0) {
-    rc = H == 128 ? launch_h<float, 128, FORM>(D2T_ARGS) : launch_h<float, 256, FORM>(D2T_ARGS);
-  } else {
-    rc = H == 128 ? launch_h<__nv_bfloat16, 128, FORM>(D2T_ARGS)
-                  : launch_h<__nv_bfloat16, 256, FORM>(D2T_ARGS);
+  int rc = (int)cudaErrorInvalidValue;
+#define D2T_ARGS enc, enc_proj, q, loc, conv_w, conv_b, w_loc, b_loc, w_score, enc_scale, \
+                 proj_scale, ctx, alpha, Bs, K, Kz, S, Kl, taps, valid, cluster, chunk, zsplit, \
+                 tile, stages, smem_bytes, s
+  if (mem == 0) {
+    rc = H == 128 ? launch_h<float, float, 128, FORM>(D2T_ARGS)
+                  : launch_h<float, float, 256, FORM>(D2T_ARGS);
+  } else if (mem == 2) {
+    rc = H == 128 ? launch_h<__nv_bfloat16, __nv_bfloat16, 128, FORM>(D2T_ARGS)
+                  : launch_h<__nv_bfloat16, __nv_bfloat16, 256, FORM>(D2T_ARGS);
+  } else if constexpr (FORM == kCoverage) {
+    if (compute == 0) {
+      rc = H == 128 ? launch_h<int8_t, float, 128, FORM>(D2T_ARGS)
+                    : launch_h<int8_t, float, 256, FORM>(D2T_ARGS);
+    } else {
+      rc = H == 128 ? launch_h<int8_t, __nv_bfloat16, 128, FORM>(D2T_ARGS)
+                    : launch_h<int8_t, __nv_bfloat16, 256, FORM>(D2T_ARGS);
+    }
   }
 #undef D2T_ARGS
   if (rc != 0) return rc;
@@ -749,15 +814,15 @@ int launch(const void* enc, const void* enc_proj, const void* q, const void* loc
 
 }  // namespace
 
-// dtype of enc and enc_proj: 0 = float32, 2 = bfloat16.  valid < 0 means no
-// mask.  K = beams per sample (rows of q / Bs).  (cluster, chunk, zsplit,
-// tile, stages, smem_bytes) is the wrapper's launch plan: blocks per
-// cluster along S, positions per block, beam groups per sample, positions
-// per ring tile (16 or 32), ring tiles, and dynamic shared memory per
-// block.  Returns 0, or the CUDA error of the launch, or
+// valid < 0 means no mask.  K = beams per sample (rows of q / Bs).
+// (cluster, chunk, zsplit, tile, stages, smem_bytes) is the wrapper's
+// launch plan: blocks per cluster along S, positions per block, beam groups
+// per sample, positions per ring tile (16 or 32), ring tiles, and dynamic
+// shared memory per block.  Returns 0, or the CUDA error of the launch, or
 // cudaErrorInvalidValue for what the kernel does not take.
 
-// feature form: loc_feat (Bs*K, S, Kl), Kl a multiple of 4
+// feature form: loc_feat (Bs*K, S, Kl), Kl a multiple of 4; dtype of enc
+// and enc_proj, 0 = float32 or 2 = bfloat16
 extern "C" int d2t_attention_step_features(const void* enc, const void* enc_proj, const void* q,
                                            const void* loc_feat, const void* w_loc,
                                            const void* b_loc, const void* w_score, void* ctx,
@@ -766,21 +831,25 @@ extern "C" int d2t_attention_step_features(const void* enc, const void* enc_proj
                                            int zsplit, int tile, int stages, int smem_bytes,
                                            void* stream) {
   return launch<kFeature>(enc, enc_proj, q, loc_feat, nullptr, nullptr, w_loc, b_loc, w_score,
-                          ctx, alpha, Bs, K, S, D, H, Kl, 0, valid, dtype, cluster, chunk,
-                          zsplit, tile, stages, smem_bytes, stream);
+                          nullptr, nullptr, ctx, alpha, Bs, K, S, D, H, Kl, 0, valid, dtype,
+                          dtype, cluster, chunk, zsplit, tile, stages, smem_bytes, stream);
 }
 
 // coverage form: mem (Bs*K, S), loc_conv_w (taps, 1, Kl), loc_conv_b (Kl),
-// taps = 2 * kernel_size + 1 <= 5
-extern "C" int d2t_attention_step_coverage(const void* enc, const void* enc_proj, const void* q,
-                                           const void* mem, const void* loc_conv_w,
-                                           const void* loc_conv_b, const void* w_loc,
-                                           const void* b_loc, const void* w_score, void* ctx,
-                                           void* alpha, int Bs, int K, int S, int D, int H, int Kl,
-                                           int taps, int valid, int dtype, int cluster, int chunk,
-                                           int zsplit, int tile, int stages, int smem_bytes,
-                                           void* stream) {
+// taps = 2 * kernel_size + 1 <= 5.  mem_dtype, the type of enc and
+// enc_proj: 0 = float32, 2 = bfloat16, computing in that type; or 3 =
+// int8, with enc_scale and proj_scale (Bs) float and compute_dtype the
+// model's compute type (0 or 2) that enc_proj's dequantized values are
+// rounded to.  The scales are null for float memory.
+extern "C" int d2t_attention_step_coverage(
+    const void* enc, const void* enc_proj, const void* q, const void* mem,
+    const void* loc_conv_w, const void* loc_conv_b, const void* w_loc, const void* b_loc,
+    const void* w_score, const void* enc_scale, const void* proj_scale, void* ctx, void* alpha,
+    int Bs, int K, int S, int D, int H, int Kl, int taps, int valid, int mem_dtype,
+    int compute_dtype, int cluster, int chunk, int zsplit, int tile, int stages, int smem_bytes,
+    void* stream) {
   return launch<kCoverage>(enc, enc_proj, q, mem, loc_conv_w, loc_conv_b, w_loc, b_loc, w_score,
-                           ctx, alpha, Bs, K, S, D, H, Kl, taps, valid, dtype, cluster, chunk,
-                           zsplit, tile, stages, smem_bytes, stream);
+                           enc_scale, proj_scale, ctx, alpha, Bs, K, S, D, H, Kl, taps, valid,
+                           mem_dtype, compute_dtype, cluster, chunk, zsplit, tile, stages,
+                           smem_bytes, stream);
 }

@@ -46,6 +46,29 @@
 //   - the blocks' f32 partial P.V sums are added in rank order through
 //     distributed shared memory; rank 0 rounds once and writes (B,K,nh,hd)
 //     directly.  One launch, no workspace in device memory, no second pass.
+//
+// The int8 K/V form (d2t_decode_attention_int8; the K/V element type TK is
+// a template parameter, T or int8_t).  The reference computes int8 K/V in
+// XLA, not in its Pallas kernel (decode_attention skips pallas_call when
+// k_scale/v_scale are given and runs _reference's int8 branch); this form
+// replaces that branch on this card.  K/V int8 (B,M,nh,hd) with per-vector
+// scales k_scale, v_scale (B,M,nh) float, q and out float or bfloat16:
+//
+//   s[b,k,h,m]   = (sum_d q[b,k,h,d] * k8[b,m,h,d]) * k_scale[b,m,h]   f32
+//   s            = mask ? s : -inf;  p = softmax_m(s)                  f32
+//   p            = round(p) to T
+//   a            = round(p * round(v_scale[b,m,h]) to T) to T          (f32: p * v_scale)
+//   out[b,k,h,d] = round(sum_m a * v8[b,m,h,d])                        f32 sum
+//
+// The same grid and passes: int8 tiles (half the bytes of bf16) stream
+// through the ring, and the tensor-core Q.K and P.V take their B fragments
+// straight from the int8 rows, each pair of bytes widened to T in registers
+// (an int8 value up to 127 is exact in bf16; float32 reads 4 bytes at a
+// time): no staging copy, no extra barrier.  Each block reads the scales of
+// its positions for its head once (strided by nh; cp.async, ahead of the
+// mask) into shared memory: k_scale multiplies each f32 score after the dot, v_scale is
+// folded into P at its two rounding points, so the cluster's partial P.V
+// sums carry it.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -70,16 +93,19 @@ constexpr int kMaxSmem = 232448;   // 227 KB: the most a block may use on sm_90
 // smem_bytes() is the same arithmetic; the launcher refuses a plan whose
 // bytes are fewer than this layout needs.
 struct Layout {
-  int ring, q, oblk, red, psum, tflag, mbits, scores, total;
+  int ring, q, oblk, red, psum, tflag, mbits, scores, ksc, vsc, total;
 };
 
 __host__ __device__ inline int up16(int x) { return (x + 15) & ~15; }
 
-__host__ __device__ inline Layout make_layout(int K, int chunk, int stages, int hd, int elem) {
-  const int rs = hd * elem + 16;  // a K/V or Q row in shared memory, padded by 16 bytes
+// elem: bytes of q's type; kelem: of K/V's (elem, or 1 for int8 K/V)
+__host__ __device__ inline Layout make_layout(int K, int chunk, int stages, int hd, int elem,
+                                              int kelem) {
+  const int rs = hd * elem + 16;   // a Q row, padded by 16 bytes
+  const int rsk = hd * kelem + 16; // a K/V row of the ring
   Layout L;
   int off = 0;
-  const int ring = stages * kTile * rs;
+  const int ring = stages * kTile * rsk;
   const int ored = kWarps * kMaxQ * hd * 4;  // partial outputs, in the ring at the end
   L.ring = off;   off += up16(ring > ored ? ring : ored);
   L.q = off;      off += up16(kMaxQ * rs);
@@ -89,6 +115,11 @@ __host__ __device__ inline Layout make_layout(int K, int chunk, int stages, int 
   L.tflag = off;  off += up16(chunk / kTile * 4);
   L.mbits = off;  off += up16(chunk * 2);
   L.scores = off; off += up16(K * (chunk + 4) * 4);
+  L.ksc = L.vsc = off;
+  if (kelem != elem) {  // int8 K/V: the positions' scales
+    L.ksc = off;  off += up16(chunk * 4);
+    L.vsc = off;  off += up16(chunk * 4);
+  }
   L.total = off;
   return L;
 }
@@ -98,6 +129,16 @@ template <> __device__ __forceinline__ float from_f32<float>(float x) { return x
 template <> __device__ __forceinline__ __half from_f32<__half>(float x) { return __float2half_rn(x); }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
+}
+
+// x rounded to T, as a float
+template <typename T> __device__ __forceinline__ float round_to(float x);
+template <> __device__ __forceinline__ float round_to<float>(float x) { return x; }
+template <> __device__ __forceinline__ float round_to<__half>(float x) {
+  return __half2float(__float2half_rn(x));
+}
+template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 // two f32 rounded to T and packed, the first in the low half
@@ -156,6 +197,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_b
                : "memory");
 }
 
+// 4 bytes global -> shared; src_bytes 0 reads nothing and writes zeros
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -185,33 +233,73 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// ---- int8 K/V to float without I2F (a quarter-rate instruction on sm_90):
+// byte i of x = b ^ 0x80 = b + 128 under the exponent of 2^23 is the float
+// 2^23 + 128 + b, exactly; one byte permute and one add a value
+__device__ __forceinline__ float i8_to_f32(uint32_t x, uint32_t i) {
+  return __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7540u + i)) - 8388736.f;
+}
+
+// the two int8 values of the low 16 bits of w (low byte first) -> two T packed
+template <typename T>
+__device__ __forceinline__ uint32_t widen2(uint32_t w) {
+  const uint32_t x = w ^ 0x8080u;
+  return pack2<T>(i8_to_f32(x, 0), i8_to_f32(x, 1));
+}
+
+// four consecutive int8 values (4-byte aligned) -> float4, exactly
+__device__ __forceinline__ float4 load4_i8(const unsigned char* p) {
+  const uint32_t x = *reinterpret_cast<const uint32_t*>(p) ^ 0x80808080u;
+  return make_float4(i8_to_f32(x, 0), i8_to_f32(x, 1), i8_to_f32(x, 2), i8_to_f32(x, 3));
+}
+
 // ---- Q.K of one tile: f32 scores of rows < K into s (row stride SS) -----
-// Each thread also keeps the running maximum of the rows it scores.
+// Each thread also keeps the running maximum of the rows it scores.  With
+// kQ8 each score is multiplied by its position's k scale (ks) after the dot.
 
 // tensor cores: warp w scores positions 16w..16w+15 of the tile (two n8
 // tiles) against the 16 (padded) query rows held as A fragments; the thread
-// holds rows g and g + 8
-template <typename T, int HD>
+// holds rows g and g + 8.  int8 K (kQ8): the thread's B fragment of n tile
+// nt is K[16w + 8nt + g][16kk + 2c, +1] and [.. + 8, + 9], two 2-byte loads
+template <typename T, int HD, bool kQ8>
 __device__ __forceinline__ void score_tile_mma(const unsigned char* buf,
                                                const uint32_t (&qa)[HD / 16][4], float* s, int SS,
-                                               const uint16_t* mbits, int m0, int n_local, int K,
-                                               int warp, int lane, float (&rmax)[2]) {
-  constexpr int RS = HD * 2 + 16;
+                                               const uint16_t* mbits, const float* ks, int m0,
+                                               int n_local, int K, int warp, int lane,
+                                               float (&rmax)[2]) {
+  constexpr int RS = HD * (kQ8 ? 1 : 2) + 16;
+  const int g = lane >> 2, c = lane & 3;
   float acc[2][4] = {};
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
     uint32_t b[4];
-    const int pos = 16 * warp + (lane & 7) + 8 * (lane >> 4);
-    ldmatrix_x4(b, buf + pos * RS + (kk * 16 + 8 * ((lane >> 3) & 1)) * 2);
+    if constexpr (kQ8) {
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const unsigned char* rp = buf + (16 * warp + 8 * nt + g) * RS + kk * 16 + 2 * c;
+        b[2 * nt] = widen2<T>(*reinterpret_cast<const uint16_t*>(rp));
+        b[2 * nt + 1] = widen2<T>(*reinterpret_cast<const uint16_t*>(rp + 8));
+      }
+    } else {
+      const int pos = 16 * warp + (lane & 7) + 8 * (lane >> 4);
+      ldmatrix_x4(b, buf + pos * RS + (kk * 16 + 8 * ((lane >> 3) & 1)) * 2);
+    }
     mma16816<T>(acc[0], qa[kk], b[0], b[1]);
     mma16816<T>(acc[1], qa[kk], b[2], b[3]);
   }
-  const int g = lane >> 2, c = lane & 3;
 #pragma unroll
   for (int nt = 0; nt < 2; ++nt) {
     const int m = m0 + 16 * warp + 8 * nt + 2 * c;  // even: a float2 of two positions
     const unsigned bits0 = m < n_local ? mbits[m] : 0u;
     const unsigned bits1 = m + 1 < n_local ? mbits[m + 1] : 0u;
+    if constexpr (kQ8) {
+      const float2 sc = *reinterpret_cast<const float2*>(ks + m);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        acc[nt][2 * half] *= sc.x;
+        acc[nt][2 * half + 1] *= sc.y;
+      }
+    }
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int r = g + 8 * half;
@@ -226,18 +314,21 @@ __device__ __forceinline__ void score_tile_mma(const unsigned char* buf,
 
 // float32 on the CUDA cores: thread scores one position of the tile against
 // every other query row (rows half, half + 2, ...)
-template <int HD>
+template <int HD, bool kQ8>
 __device__ __forceinline__ void score_tile_f32(const unsigned char* buf, const float* q_s, float* s,
-                                               int SS, const uint16_t* mbits, int m0, int n_local,
-                                               int K, int tid, float (&rmax)[kMaxQ / 2]) {
-  constexpr int RSF = HD + 4;  // floats per padded row
+                                               int SS, const uint16_t* mbits, const float* ks,
+                                               int m0, int n_local, int K, int tid,
+                                               float (&rmax)[kMaxQ / 2]) {
+  constexpr int RSF = HD + 4;  // floats per padded q row (and K row, float32 K)
+  constexpr int RSK = HD + 16; // bytes per padded int8 K row
   const int p = tid % kTile;
   const int half = tid / kTile;  // warp-uniform
   const float* kr = reinterpret_cast<const float*>(buf) + p * RSF;
   float acc[kMaxQ / 2] = {};
 #pragma unroll 4
   for (int d = 0; d < HD; d += 4) {
-    const float4 kv = *reinterpret_cast<const float4*>(kr + d);
+    const float4 kv = kQ8 ? load4_i8(buf + p * RSK + d)
+                          : *reinterpret_cast<const float4*>(kr + d);
 #pragma unroll
     for (int j = 0; j < kMaxQ / 2; ++j) {
       const int r = half + 2 * j;
@@ -252,11 +343,12 @@ __device__ __forceinline__ void score_tile_f32(const unsigned char* buf, const f
   }
   const int m = m0 + p;
   const unsigned bits = m < n_local ? mbits[m] : 0u;
+  const float sc = kQ8 ? ks[m] : 1.f;
 #pragma unroll
   for (int j = 0; j < kMaxQ / 2; ++j) {
     const int r = half + 2 * j;
     if (r < K) {
-      const float x = (bits >> r) & 1u ? acc[j] : -INFINITY;
+      const float x = (bits >> r) & 1u ? (kQ8 ? acc[j] * sc : acc[j]) : -INFINITY;
       rmax[j] = fmaxf(rmax[j], x);
       s[r * SS + m] = x;
     }
@@ -268,19 +360,30 @@ __device__ __forceinline__ void score_tile_f32(const unsigned char* buf, const f
 // tensor cores: warp w takes positions 16w..16w+15 of the tile as one k16
 // step over all of hd; P (rounded to T; tile t of row r at p + r*PS +
 // 2*kTile*t) is the A operand.  Rows >= K read row K-1: their outputs are
-// dropped.
-template <typename T, int HD>
+// dropped.  int8 V (kQ8): the thread's B fragment of n tile (np, h8) is
+// V[16w + 2c, + 1][16np + 8h8 + g] and rows + 8, + 9: four byte loads
+template <typename T, int HD, bool kQ8>
 __device__ __forceinline__ void pv_tile_mma(const unsigned char* buf, const T* p, int PS, int t,
                                             int K, int warp, int lane, float (&o)[HD / 8][4]) {
-  constexpr int RS = HD * 2 + 16;
+  constexpr int RS = HD * (kQ8 ? 1 : 2) + 16;
   uint32_t a[4];
   const int prow = min((lane & 7) + 8 * ((lane >> 3) & 1), K - 1);
   ldmatrix_x4(a, p + prow * PS + 2 * kTile * t + 16 * warp + 8 * (lane >> 4));
   const int pos = 16 * warp + (lane & 7) + 8 * ((lane >> 3) & 1);
+  const int g = lane >> 2, c = lane & 3;
 #pragma unroll
   for (int np = 0; np < HD / 16; ++np) {
     uint32_t b[4];
-    ldmatrix_x4_trans(b, buf + pos * RS + (np * 16 + 8 * (lane >> 4)) * 2);
+    if constexpr (kQ8) {
+#pragma unroll
+      for (int h8 = 0; h8 < 2; ++h8) {
+        const unsigned char* cp = buf + (16 * warp + 2 * c) * RS + np * 16 + 8 * h8 + g;
+        b[2 * h8] = widen2<T>(cp[0] | (uint32_t)cp[RS] << 8);
+        b[2 * h8 + 1] = widen2<T>(cp[8 * RS] | (uint32_t)cp[9 * RS] << 8);
+      }
+    } else {
+      ldmatrix_x4_trans(b, buf + pos * RS + (np * 16 + 8 * (lane >> 4)) * 2);
+    }
     mma16816<T>(o[2 * np], a, b[0], b[1]);
     mma16816<T>(o[2 * np + 1], a, b[2], b[3]);
   }
@@ -288,10 +391,11 @@ __device__ __forceinline__ void pv_tile_mma(const unsigned char* buf, const T* p
 
 // float32: thread owns a float4 of hd (qd) for every row over a group of
 // the tile's positions; p is normalised in place in s
-template <int HD>
+template <int HD, bool kQ8>
 __device__ __forceinline__ void pv_tile_f32(const unsigned char* buf, const float* s, int SS,
                                             int m0, int K, int tid, float (&acc)[kMaxQ][4]) {
   constexpr int RSF = HD + 4;
+  constexpr int RSK = HD + 16;                 // bytes per padded int8 V row
   constexpr int QD = HD / 4;                   // float4 columns
   constexpr int PPG = kTile * QD / kThreads;   // positions per thread and tile
   const int qd = tid % QD;
@@ -299,8 +403,9 @@ __device__ __forceinline__ void pv_tile_f32(const unsigned char* buf, const floa
 #pragma unroll
   for (int i = 0; i < PPG; ++i) {
     const int mt = grp * PPG + i;
-    const float4 vv = *reinterpret_cast<const float4*>(reinterpret_cast<const float*>(buf) +
-                                                       mt * RSF + 4 * qd);
+    const float4 vv = kQ8 ? load4_i8(buf + mt * RSK + 4 * qd)
+                          : *reinterpret_cast<const float4*>(reinterpret_cast<const float*>(buf) +
+                                                             mt * RSF + 4 * qd);
 #pragma unroll
     for (int r = 0; r < kMaxQ; ++r) {
       if (r < K) {
@@ -314,18 +419,25 @@ __device__ __forceinline__ void pv_tile_f32(const unsigned char* buf, const floa
   }
 }
 
-template <typename T, int HD>
+template <typename T, typename TK, int HD>
 __global__ void __launch_bounds__(kThreads)
-decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const unsigned char* __restrict__ mask,
+decode_attention_kernel(const T* __restrict__ q, const TK* __restrict__ k,
+                        const TK* __restrict__ v, const float* __restrict__ k_scale,
+                        const float* __restrict__ v_scale, const unsigned char* __restrict__ mask,
                         T* __restrict__ out, int K, int M, int nh, int chunk, int stages) {
   constexpr bool kF32 = sizeof(T) == 4;
+  constexpr bool kQ8 = sizeof(TK) == 1;   // int8 K/V with per-vector scales
   constexpr int ELEM = sizeof(T);
-  constexpr int RS = HD * ELEM + 16;     // bytes of a padded row in shared memory
-  constexpr int CPR = HD * ELEM / 16;    // 16-byte pieces of a row
-  constexpr int VEC = 16 / ELEM;
+  constexpr int KELEM = sizeof(TK);
+  constexpr int RS = HD * ELEM + 16;     // bytes of a padded Q row
+  constexpr int RSK = HD * KELEM + 16;   // bytes of a padded K/V row of the ring
+  constexpr int QCPR = HD * ELEM / 16;   // 16-byte pieces of a Q row
+  constexpr int QVEC = 16 / ELEM;
+  constexpr int CPR = HD * KELEM / 16;   // 16-byte pieces of a K/V row
+  constexpr int VEC = 16 / KELEM;
   constexpr int PIECES = kTile * CPR / kThreads;  // 16-byte copies per thread and tile
   static_assert(HD % 32 == 0 && HD <= 128 && PIECES >= 1, "head dim");
+  static_assert(!kQ8 || sizeof(T) != 1, "q is float, half or bfloat16");
 
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -345,7 +457,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = tid / 32;
   const int lane = tid % 32;
 
-  const Layout L = make_layout(K, chunk, stages, HD, ELEM);
+  const Layout L = make_layout(K, chunk, stages, HD, ELEM, KELEM);
   unsigned char* ring = smem + L.ring;
   unsigned char* q_s = smem + L.q;
   float* o_blk = reinterpret_cast<float*>(smem + L.oblk);
@@ -358,6 +470,8 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   int* tflag = reinterpret_cast<int*>(smem + L.tflag);
   uint16_t* mbits = reinterpret_cast<uint16_t*>(smem + L.mbits);
   float* s = reinterpret_cast<float*>(smem + L.scores);
+  float* ks_s = reinterpret_cast<float*>(smem + L.ksc);  // int8 K/V: scales per position
+  float* vs_s = reinterpret_cast<float*>(smem + L.vsc);
   // score rows 4 mod 32 words apart: the ldmatrix rows of P hit distinct banks
   const int SS = chunk + 4;
 
@@ -366,8 +480,8 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int n_tiles = (n_local + kTile - 1) / kTile;
   const long row = (long)nh * HD;  // elements between consecutive positions / queries
   const T* qb = q + ((long)b * K * nh + h) * HD;
-  const T* kb = k + ((long)b * M * nh + h) * HD + (long)m_lo * row;
-  const T* vb = v + ((long)b * M * nh + h) * HD + (long)m_lo * row;
+  const TK* kb = k + ((long)b * M * nh + h) * HD + (long)m_lo * row;
+  const TK* vb = v + ((long)b * M * nh + h) * HD + (long)m_lo * row;
 
   // tile i of the stream: K tiles 0..n_tiles-1, then V tiles.  Thread tid
   // copies pieces tid, tid + kThreads, ... of every tile.  Until the mask
@@ -378,21 +492,34 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (i < 2 * n_tiles && (known || i < n_tiles)) {
       const int tt = i < n_tiles ? i : i - n_tiles;
       if (!known || tflag[tt]) {
-        const T* src = (i < n_tiles ? kb : vb) + (long)tt * kTile * row;
-        unsigned char* dst = ring + (i % stages) * (kTile * RS);
+        const TK* src = (i < n_tiles ? kb : vb) + (long)tt * kTile * row;
+        unsigned char* dst = ring + (i % stages) * (kTile * RSK);
 #pragma unroll
         for (int j = 0; j < PIECES; ++j) {
           const int piece = tid + j * kThreads;
           const int r = piece / CPR, c = piece % CPR;
           const int m = tt * kTile + r;
           const bool live = m < n_local && (!known || mbits[m] != 0);
-          cp_async16(dst + r * RS + c * 16, live ? src + r * row + c * VEC : src, live ? 16 : 0);
+          cp_async16(dst + r * RSK + c * 16, live ? src + r * row + c * VEC : src, live ? 16 : 0);
         }
       }
     }
     cp_async_commit();
   };
 
+  // int8 K/V: the scales of this block's positions for this head (zeros
+  // past them, to the last tile's end), the oldest cp.async group: every
+  // wait below that covers a later group covers it
+  if constexpr (kQ8) {
+    const float* ksb = k_scale + ((long)b * M + m_lo) * nh + h;
+    const float* vsb = v_scale + ((long)b * M + m_lo) * nh + h;
+    for (int m = tid; m < n_tiles * kTile; m += kThreads) {
+      const bool live = m < n_local;
+      cp_async4(ks_s + m, live ? ksb + (long)m * nh : k_scale, live ? 4 : 0);
+      cp_async4(vs_s + m, live ? vsb + (long)m * nh : v_scale, live ? 4 : 0);
+    }
+    cp_async_commit();
+  }
   // the mask of this block's positions, as raw bytes into the scores region
   // (free until pass 1): 16-byte cp.async of the aligned pieces that cover
   // each row, all in flight at once
@@ -418,15 +545,15 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < stages - 1; ++i) issue(i, false);  // the first K tiles fly with it
   }
   // queries, zero-padded to 16 rows
-  for (int i = tid; i < kMaxQ * CPR; i += kThreads) {
-    const int r = i / CPR, c = i % CPR;
+  for (int i = tid; i < kMaxQ * QCPR; i += kThreads) {
+    const int r = i / QCPR, c = i % QCPR;
     uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (r < K) x = *reinterpret_cast<const uint4*>(qb + (long)r * row + c * VEC);
+    if (r < K) x = *reinterpret_cast<const uint4*>(qb + (long)r * row + c * QVEC);
     *reinterpret_cast<uint4*>(q_s + r * RS + c * 16) = x;
   }
   for (int t = tid; t < n_tiles; t += kThreads) tflag[t] = mask == nullptr;
   if (mask != nullptr) {
-    cp_async_wait(stages - 1);  // the mask's group: the oldest
+    cp_async_wait(stages - 1);  // the mask's group (after the int8 scales')
     __syncthreads();
     int off[kMaxQ];
 #pragma unroll
@@ -466,12 +593,13 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();  // tile i landed for all; everyone is done with tile i - 1
     issue(i + stages - 1, true);
     if (tflag[i]) {
-      const unsigned char* buf = ring + (i % stages) * (kTile * RS);
+      const unsigned char* buf = ring + (i % stages) * (kTile * RSK);
       if constexpr (kF32) {
-        score_tile_f32<HD>(buf, reinterpret_cast<const float*>(q_s), s, SS, mbits, i * kTile,
-                           n_local, K, tid, rmax);
+        score_tile_f32<HD, kQ8>(buf, reinterpret_cast<const float*>(q_s), s, SS, mbits, ks_s,
+                                i * kTile, n_local, K, tid, rmax);
       } else {
-        score_tile_mma<T, HD>(buf, qa, s, SS, mbits, i * kTile, n_local, K, warp, lane, rmax);
+        score_tile_mma<T, HD, kQ8>(buf, qa, s, SS, mbits, ks_s, i * kTile, n_local, K, warp,
+                                   lane, rmax);
       }
     }
   }
@@ -582,6 +710,12 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const float q0 = p[j] * inv;
           p[j] = fmaf(fmaf(-q0, sum, p[j]), inv, q0);
         }
+        if constexpr (kQ8) {  // v's scale folded into P at the reference's rounding points
+          const float4 vs = reinterpret_cast<const float4*>(vs_s + t * kTile)[lane];
+          const float sc[4] = {vs.x, vs.y, vs.z, vs.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) p[j] = round_to<T>(p[j]) * round_to<T>(sc[j]);
+        }
         if constexpr (kF32) {
           *e = make_float4(p[0], p[1], p[2], p[3]);
         } else {
@@ -607,11 +741,11 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     issue(i + stages - 1, true);
     const int tt = i - n_tiles;
     if (tflag[tt]) {
-      const unsigned char* buf = ring + (i % stages) * (kTile * RS);
+      const unsigned char* buf = ring + (i % stages) * (kTile * RSK);
       if constexpr (kF32) {
-        pv_tile_f32<HD>(buf, s, SS, tt * kTile, K, tid, o_f32);
+        pv_tile_f32<HD, kQ8>(buf, s, SS, tt * kTile, K, tid, o_f32);
       } else {
-        pv_tile_mma<T, HD>(buf, p_s, PS, tt, K, warp, lane, o_mma);
+        pv_tile_mma<T, HD, kQ8>(buf, p_s, PS, tt, K, warp, lane, o_mma);
       }
     }
   }
@@ -664,16 +798,16 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   cluster_sync();  // no block leaves while rank 0 reads its shared memory
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, const void* mask, void* out, int B,
-           int K, int M, int nh, int cluster, int chunk, int stages, int smem_bytes,
-           cudaStream_t stream) {
-  auto kernel = decode_attention_kernel<T, HD>;
+template <typename T, typename TK, int HD>
+int launch(const void* q, const void* k, const void* v, const void* k_scale, const void* v_scale,
+           const void* mask, void* out, int B, int K, int M, int nh, int cluster, int chunk,
+           int stages, int smem_bytes, cudaStream_t stream) {
+  auto kernel = decode_attention_kernel<T, TK, HD>;
   // once per instance, before any launch (so never inside a graph capture)
   static const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (attr != cudaSuccess) return (int)attr;
-  if (smem_bytes < make_layout(K, chunk, stages, HD, (int)sizeof(T)).total) {
+  if (smem_bytes < make_layout(K, chunk, stages, HD, (int)sizeof(T), (int)sizeof(TK)).total) {
     return (int)cudaErrorInvalidValue;
   }
   cudaLaunchConfig_t cfg = {};
@@ -688,22 +822,32 @@ int launch(const void* q, const void* k, const void* v, const void* mask, void* 
   at[0].val.clusterDim.z = 1;
   cfg.attrs = at;
   cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(q), static_cast<const T*>(k),
-                                 static_cast<const T*>(v),
+  return (int)cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(q), static_cast<const TK*>(k),
+                                 static_cast<const TK*>(v), static_cast<const float*>(k_scale),
+                                 static_cast<const float*>(v_scale),
                                  static_cast<const unsigned char*>(mask), static_cast<T*>(out), K,
                                  M, nh, chunk, stages);
 }
 
-template <typename T>
-int launch_hd(const void* q, const void* k, const void* v, const void* mask, void* out, int B,
-              int K, int M, int nh, int hd, int cluster, int chunk, int stages, int smem_bytes,
-              cudaStream_t s) {
+template <typename T, typename TK>
+int launch_hd(const void* q, const void* k, const void* v, const void* ks, const void* vs,
+              const void* mask, void* out, int B, int K, int M, int nh, int hd, int cluster,
+              int chunk, int stages, int smem_bytes, cudaStream_t s) {
+#define D2T_ARGS q, k, v, ks, vs, mask, out, B, K, M, nh, cluster, chunk, stages, smem_bytes, s
   switch (hd) {
-    case 32: return launch<T, 32>(q, k, v, mask, out, B, K, M, nh, cluster, chunk, stages, smem_bytes, s);
-    case 64: return launch<T, 64>(q, k, v, mask, out, B, K, M, nh, cluster, chunk, stages, smem_bytes, s);
-    case 128: return launch<T, 128>(q, k, v, mask, out, B, K, M, nh, cluster, chunk, stages, smem_bytes, s);
+    case 32: return launch<T, TK, 32>(D2T_ARGS);
+    case 64: return launch<T, TK, 64>(D2T_ARGS);
+    case 128: return launch<T, TK, 128>(D2T_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef D2T_ARGS
+}
+
+bool bad_plan(int B, int K, int M, int nh, int cluster, int chunk, int stages, int smem_bytes) {
+  return B <= 0 || B > 65535 || K <= 0 || K > kMaxQ || M <= 0 || nh <= 0 || cluster <= 0 ||
+         cluster > kMaxCluster || (long)nh * cluster > 65535 || chunk <= 0 ||
+         chunk % kTile != 0 || (long)cluster * chunk < M || stages < 2 || stages > kMaxStages ||
+         smem_bytes > kMaxSmem;
 }
 
 }  // namespace
@@ -717,20 +861,44 @@ extern "C" int d2t_decode_attention(const void* q, const void* k, const void* v,
                                     const void* mask, void* out, int B, int K, int M, int nh,
                                     int hd, int dtype, int cluster, int chunk, int stages,
                                     int smem_bytes, void* stream) {
-  if (B <= 0 || B > 65535 || K <= 0 || K > kMaxQ || M <= 0 || nh <= 0 ||
-      cluster <= 0 || cluster > kMaxCluster || (long)nh * cluster > 65535 || chunk <= 0 ||
-      chunk % kTile != 0 || (long)cluster * chunk < M || stages < 2 || stages > kMaxStages ||
-      smem_bytes > kMaxSmem) {
+  if (bad_plan(B, K, M, nh, cluster, chunk, stages, smem_bytes)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int rc;
+#define D2T_ARGS q, k, v, nullptr, nullptr, mask, out, B, K, M, nh, hd, cluster, chunk, stages, \
+                 smem_bytes, s
+  switch (dtype) {
+    case 0: rc = launch_hd<float, float>(D2T_ARGS); break;
+    case 1: rc = launch_hd<__half, __half>(D2T_ARGS); break;
+    case 2: rc = launch_hd<__nv_bfloat16, __nv_bfloat16>(D2T_ARGS); break;
+    default: rc = (int)cudaErrorInvalidValue;
+  }
+#undef D2T_ARGS
+  if (rc != 0) return rc;
+  return (int)cudaGetLastError();
+}
+
+// The int8 K/V form: k, v int8 (B,M,nh,hd), k_scale, v_scale float
+// (B,M,nh); q and out of `dtype` (0 = float32, 2 = bfloat16).  The rest as
+// d2t_decode_attention; smem_bytes covers make_layout(..., kelem = 1).
+extern "C" int d2t_decode_attention_int8(const void* q, const void* k, const void* v,
+                                         const void* k_scale, const void* v_scale,
+                                         const void* mask, void* out, int B, int K, int M,
+                                         int nh, int hd, int dtype, int cluster, int chunk,
+                                         int stages, int smem_bytes, void* stream) {
+  if (bad_plan(B, K, M, nh, cluster, chunk, stages, smem_bytes) || k_scale == nullptr ||
+      v_scale == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc;
+#define D2T_ARGS q, k, v, k_scale, v_scale, mask, out, B, K, M, nh, hd, cluster, chunk, stages, \
+                 smem_bytes, s
   switch (dtype) {
-    case 0: rc = launch_hd<float>(q, k, v, mask, out, B, K, M, nh, hd, cluster, chunk, stages, smem_bytes, s); break;
-    case 1: rc = launch_hd<__half>(q, k, v, mask, out, B, K, M, nh, hd, cluster, chunk, stages, smem_bytes, s); break;
-    case 2: rc = launch_hd<__nv_bfloat16>(q, k, v, mask, out, B, K, M, nh, hd, cluster, chunk, stages, smem_bytes, s); break;
+    case 0: rc = launch_hd<float, int8_t>(D2T_ARGS); break;
+    case 2: rc = launch_hd<__nv_bfloat16, int8_t>(D2T_ARGS); break;
     default: rc = (int)cudaErrorInvalidValue;
   }
+#undef D2T_ARGS
   if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }

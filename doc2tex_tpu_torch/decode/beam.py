@@ -47,14 +47,16 @@ def make_gather_fn(static_fields: tuple[str, ...] = ()) -> Callable:
 
 
 # Beam-invariant fields of the LSTM head's state: the attention memory is
-# the same for every beam of a sample, and the scales are (0,) placeholders.
+# the same for every beam of a sample, and so are its int8 scales (B, 1, 1)
+# (or the (0,) placeholders when the memory is not int8).
 LSTM_STATIC = ("enc", "enc_proj", "enc_scale", "proj_scale")
 lstm_gather = make_gather_fn(LSTM_STATIC)
 
 
 def tfm_gather(state, beam_idx, batch_size, k):
     """Reorder only the (B, K, T, K) ancestry selection by parent beam — an
-    exact index gather; the KV caches stay in their fixed slots."""
+    exact index gather; the KV caches (and int8 scales) stay in their fixed
+    slots."""
     rows = torch.arange(batch_size, device=beam_idx.device)[:, None]
     state.sel = state.sel[rows, beam_idx]
     return state

@@ -4,7 +4,10 @@
 A page (already resized to width 1280 by the caller, ``app.App``) is cut
 into 512x512 windows at stride 128, mean-subtracted (246, 246, 246), run
 through SSD512 as one batch in float32 (cuDNN's TF32 off, whatever the
-process sets), decoded and NMS'd per window on the device;
+process sets; ``quantize="bf16"`` computes it in bfloat16, ``"int8"``
+sends its gated convolutions through the int8 op, whose activation scale
+is the abs-max of the whole window batch), decoded and NMS'd per window on
+the device in float32;
 the boxes come to the host once, are un-mapped to page pixels, page-level
 NMS'd at IoU 0.1 (on the device, top 200 of at most 512) and grown by 5 %.
 
@@ -55,15 +58,16 @@ class MathDetector:
         """``weights_path``: a flax msgpack of the detector (every leaf must
         fill the model); None gives a random init from ``seed``.
         ``batch_size`` is the window chunk of the host path
-        (``device_windows=False``)."""
-        if quantize is not None:
-            raise NotImplementedError(f"detection quantize={quantize!r} is not ported yet "
-                                      "(ROADMAP A7)")
+        (``device_windows=False``; a short last chunk is padded with white
+        windows, as in JAX, so int8's per-batch scale sees the same batch).
+        ``quantize``: None, ``bf16`` or ``int8`` (``SSD512.set_quantize``)."""
         if mesh is not None:
             raise NotImplementedError("multi-card detection is not ported yet (ROADMAP A10)")
         with torch.random.fork_rng(devices=[]):  # seeds the init without touching the caller's RNG
             torch.manual_seed(seed)
             self.model = SSD512(num_classes=2)
+        self.quantize = quantize
+        self.int8_layers = self.model.set_quantize(quantize)
         if weights_path:
             load_weights(self.model, weights_path)
         self.device = torch.device(device)
@@ -103,6 +107,8 @@ class MathDetector:
         """uint8 (n, win, win, C) windows on the device -> (boxes (n, 200, 4),
         scores (n, 200)) on the device, window-normalized."""
         loc, conf = self.ssd(self.model_input(windows))
+        # decode and NMS in float32 whatever the trunk's compute type
+        loc, conf = loc.float(), conf.float()
         return batched_detect(loc, conf, self.priors, conf_thresh=self.conf_thresh,
                               iou_thresh=self.iou_thresh)
 

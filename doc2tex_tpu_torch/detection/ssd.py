@@ -11,6 +11,15 @@ in creation order, ``L2Norm_0``), so ``weights.load_weights`` reads the
 released detector (``saved_models/math_detect``) into this module.  They
 are cuDNN calls on the card: the JAX package computes them with XLA, not a
 Pallas kernel.
+
+``set_quantize`` takes the detector's ``quantize`` modes, as the JAX
+package's ``MathDetector`` applies them: ``bf16`` computes every
+convolution in bfloat16 (input, kernel and bias cast, the bias added after
+the output is rounded, as flax does) while the parameters stay float32;
+``L2Norm`` squares in float32 and its output is float32.  ``int8`` keeps
+float32 and sends each convolution that passes the shape gates of
+``ops/quant.py`` through the int8 op (conv6's dilation included): the
+512-channel trunk, conv6/conv7 and the extras; the heads stay float32.
 """
 
 from __future__ import annotations
@@ -19,22 +28,42 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops import quant
 from .priors import MATH_GTDB_512
 
 
 class Conv2d(nn.Module):
-    """flax ``nn.Conv`` with bias on NCHW input; ``kernel`` is OIHW."""
+    """flax ``nn.Conv`` with bias on NCHW input; ``kernel`` is OIHW.  It
+    computes in ``dtype``, or, with ``int8`` set and the shape gates
+    passed, through the int8 op."""
 
     def __init__(self, cin: int, cout: int, kernel=(3, 3), stride: int = 1,
                  padding=(1, 1), dilation: int = 1):
         super().__init__()
         self.stride, self.padding, self.dilation = stride, tuple(padding), dilation
+        self.dtype = torch.float32
+        self.int8 = False
+        self._int8_kernel = None
         self.kernel = nn.Parameter(torch.empty(cout, cin, *kernel))
         self.bias = nn.Parameter(torch.zeros(cout))
         nn.init.kaiming_normal_(self.kernel, mode="fan_in")
 
+    def takes_int8(self) -> bool:
+        cout, cin, kh, kw = self.kernel.shape
+        return self.int8 and quant.gated(cin * kh * kw, cout)
+
     def forward(self, x):
-        return F.conv2d(x, self.kernel, self.bias, self.stride, self.padding, self.dilation)
+        if self.takes_int8():
+            w_q, w_scale = quant.layer_weight(self, quant.quantize_conv_weight)
+            return quant.int8_conv2d(x, w_q, w_scale, self.bias, tuple(self.kernel.shape[2:]),
+                                     (self.stride,) * 2, self.padding, self.dtype,
+                                     (self.dilation,) * 2)
+        if self.dtype == torch.float32:
+            return F.conv2d(x, self.kernel, self.bias, self.stride, self.padding, self.dilation)
+        # in a narrower type the bias is added after the output is rounded
+        y = F.conv2d(x.to(self.dtype), self.kernel.to(self.dtype), None, self.stride,
+                     self.padding, self.dilation)
+        return y + self.bias.to(self.dtype).view(1, -1, 1, 1)
 
 
 class L2Norm(nn.Module):
@@ -75,7 +104,8 @@ _SOURCE_CHANNELS = [512, 1024, 512, 256, 256, 256, 256]
 
 class SSD512(nn.Module):
     """SSD512 over 512x512 windows: float32 (B, 3, 512, 512) ->
-    (loc (B, N, 4), conf (B, N, num_classes)), N = 65,532."""
+    (loc (B, N, 4), conf (B, N, num_classes)), N = 65,532, in the compute
+    type (bfloat16 under ``set_quantize("bf16")``)."""
 
     def __init__(self, num_classes: int = 2, head_kernel: tuple[int, int] = (1, 5)):
         super().__init__()
@@ -101,6 +131,21 @@ class SSD512(nn.Module):
 
     def conv(self, i: int) -> Conv2d:
         return getattr(self, f"Conv_{i}")
+
+    def set_quantize(self, quantize) -> list[str]:
+        """None, ``bf16`` or ``int8`` (see the module docstring); returns
+        the names of the convolutions that take the int8 op."""
+        if quantize not in (None, "bf16", "int8"):
+            raise ValueError(f"detection quantize must be None, 'bf16' or 'int8'; got "
+                             f"{quantize!r}")
+        names = []
+        for i in range(self.n_convs):
+            conv = self.conv(i)
+            conv.dtype = torch.bfloat16 if quantize == "bf16" else torch.float32
+            conv.int8 = quantize == "int8"
+            if conv.takes_int8():
+                names.append(f"Conv_{i}")
+        return names
 
     def forward(self, x):
         for i in range(len(_TRUNK)):

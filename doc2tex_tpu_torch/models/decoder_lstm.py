@@ -31,8 +31,15 @@ the step's attention runs B2's kernel with its hand-written backward
 (``ops.attention_step.CoverageAttentionStepFn``); on the CPU autograd runs
 through the plain version.
 
-Not ported (they raise): the ``bahdanau`` and ``luong`` attention types, the
-int8 attention memory.
+int8 attention memory (the ``decoder_mem`` part in ``quant_parts``, set by
+``Model.set_quantize``): ``init_state`` quantizes ``enc`` and ``enc_proj``
+with one scale per sample (``ops.quant.quantize_memory``; the JAX package
+quantizes its beam-repeated rows, whose scales are the sample's), and
+``step`` hands them with their scales to B2's int8 form, which dequantizes
+``enc_proj`` in the compute type and scales the context after its sum, as
+the JAX step does.  ``decoder_kv`` is ignored, as in JAX.
+
+Not ported (they raise): the ``bahdanau`` and ``luong`` attention types.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.attention_step import coverage_attention_step
+from ..ops.quant import quantize_memory
 from .layers import dropout
 
 
@@ -54,10 +62,10 @@ class DecoderState(NamedTuple):
     c: torch.Tensor           # (B, H) f32
     alpha_cum: torch.Tensor   # (B, S) f32: coverage, the sum of past alignments
     alpha_prev: torch.Tensor  # (B, S) f32: the last alignment
-    enc: torch.Tensor         # (B, S, D) compute type: attention values, per sample
-    enc_proj: torch.Tensor    # (B, S, H) compute type: precomputed keys, per sample
-    enc_scale: torch.Tensor   # (0,) placeholder of the int8 memory's scale
-    proj_scale: torch.Tensor  # (0,) placeholder
+    enc: torch.Tensor         # (B, S, D) compute type (or int8): attention values, per sample
+    enc_proj: torch.Tensor    # (B, S, H) compute type (or int8): precomputed keys, per sample
+    enc_scale: torch.Tensor   # (B, 1, 1) f32 scale of the int8 memory; (0,) when not int8
+    proj_scale: torch.Tensor  # (B, 1, 1) f32; (0,) when not int8
 
 
 def _lstm_cell(x, h, c, w_ih, b_ih, w_hh, b_hh):
@@ -86,6 +94,7 @@ class LSTMAttentionDecoder(nn.Module):
         self.attn_type, self.enc_init = attn_type, enc_init
         self.seqmodel, self.v2 = seqmodel, v2
         self.droprate, self.dtype = droprate, dtype
+        self.quant_parts: tuple = ()   # "decoder_mem" (Model.set_quantize)
         k = 2 * kernel_size + 1
         shapes = {
             "embedding": (V, E), "w_key": (D, H), "b_key": (H,), "w_query": (H, H),
@@ -131,21 +140,26 @@ class LSTMAttentionDecoder(nn.Module):
         if K > 1:
             h, c = h.repeat_interleave(K, dim=0), c.repeat_interleave(K, dim=0)
         zeros = torch.zeros(B * K, S, device=enc.device)
-        placeholder = torch.zeros(0, device=enc.device)
-        return DecoderState(h, c, zeros, zeros, enc, enc_proj, placeholder, placeholder)
+        if "decoder_mem" in self.quant_parts:
+            enc, enc_scale = quantize_memory(enc)
+            enc_proj, proj_scale = quantize_memory(enc_proj)
+        else:
+            enc_scale = proj_scale = torch.zeros(0, device=enc.device)
+        return DecoderState(h, c, zeros, zeros, enc, enc_proj, enc_scale, proj_scale)
 
     def step(self, state: DecoderState, tokens) -> tuple[DecoderState, torch.Tensor]:
         """One decode step: tokens (B,) -> (new state, logits (B, V) f32)."""
-        if state.enc_proj.dtype == torch.int8:
-            raise NotImplementedError("the int8 attention memory is not ported yet")
         emb = self._embed(tokens)
         mem = state.alpha_cum if self.attn_type == "coverage" else state.alpha_prev
         q = state.h @ self.w_query + self.b_query
+        # int8 memory (read from its type, as in JAX): B2's int8 form
+        int8 = (dict(enc_scale=state.enc_scale, proj_scale=state.proj_scale,
+                     compute_dtype=self.dtype) if state.enc_proj.dtype == torch.int8 else {})
         # the JAX step adds b_score to every score before the softmax, which
         # does not change alpha, so the kernel is not given it
         context, alpha = coverage_attention_step(
             state.enc, state.enc_proj, q, mem, self.loc_conv_w, self.loc_conv_b,
-            self.w_loc, self.b_loc, self.w_score)
+            self.w_loc, self.b_loc, self.w_score, **int8)
         x = torch.cat([context, emb], dim=-1)
         h_new, c_new = _lstm_cell(x, state.h, state.c, self.w_ih, self.b_ih,
                                   self.w_hh, self.b_hh)

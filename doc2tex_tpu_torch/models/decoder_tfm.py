@@ -16,7 +16,14 @@ Decode state (see ``TFMState``), as in the JAX package:
   beam shuffle; ``sel[b, k, t', j]`` says that position t' of hypothesis
   k's prefix lives in slot j, and the step masks the attention by it;
 - cache layout is position-major, flat index m = t*K + j, so the K slot
-  writes of a step are one contiguous slice.
+  writes of a step are one contiguous slice;
+- int8 decode memory (``quant_parts``, set by ``Model.set_quantize``):
+  under ``decoder_mem`` the cross-attention K/V are quantized once in
+  ``init_state`` (one scale per vector of a head, ``quantize_kv``); under
+  ``decoder_kv`` the caches are int8 too, each step's new rows quantized as
+  they are written, their scales in (B, Tlive*K, nh) tensors that grow with
+  the caches.  ``step`` reads the mode from the buffers' types and hands
+  the scales to B1's int8 K/V form.
 
 Unlike the JAX package the caches and ``sel`` are updated IN PLACE (the
 step mutates and returns the state), which saves a cache copy per step.
@@ -32,13 +39,14 @@ inputs, as JAX's type promotion makes them.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.decode_attention import decode_attention
+from ..ops.quant import quantize_kv
 from .layers import dropout, word_posenc
 
 _LAYER_PARAMS = (
@@ -57,6 +65,13 @@ class TFMState:
     v_mem: list          # L x (B, S, nh, hd)
     sel: torch.Tensor    # (B, K, Tmax, K) bool — ancestry slot selection
     t: int               # current step
+    # int8 decode memory: the per-vector float32 scales (caches: L x (B,
+    # Tlive*K, nh) under decoder_kv; memory: L x (B, S, nh) under
+    # decoder_mem); empty lists when the buffers are not int8
+    k_scales: list = field(default_factory=list)
+    v_scales: list = field(default_factory=list)
+    k_mem_scales: list = field(default_factory=list)
+    v_mem_scales: list = field(default_factory=list)
 
 
 def _mha(q, k, v, nheads: int, mask=None):
@@ -85,6 +100,7 @@ class TransformerDecoder(nn.Module):
         self.num_layers = num_decoder_layers
         self.padding_idx = padding_idx
         self.dtype = dtype
+        self.quant_parts: tuple = ()   # "decoder_mem", "decoder_kv" (Model.set_quantize)
         d, ff = d_model, dim_feedforward
         shapes = {"ff_w1": (d, ff), "ff_b1": (ff,), "ff_w2": (ff, d)}
         for i in range(num_decoder_layers):
@@ -157,20 +173,31 @@ class TransformerDecoder(nn.Module):
         """Precompute cross-attention K/V from the UNexpanded (B, S, D)
         memory and allocate the self-attention caches for B*beam_size
         hypotheses.  ``live_steps`` caps the first cache capacity for
-        chunked decode (``grow_decode_state`` extends it)."""
+        chunked decode (``grow_decode_state`` extends it).  Under the
+        ``decoder_mem`` part the cross-attention K/V are int8 with their
+        scales; under ``decoder_kv`` the caches are int8 with zero scales."""
         B, S, _ = memory.shape
         nh, hd = self.nhead, self.d_model // self.nhead
         cap = max_steps if live_steps is None else min(live_steps, max_steps)
+        qmem, qkv = "decoder_mem" in self.quant_parts, "decoder_kv" in self.quant_parts
+        cache_dtype = torch.int8 if qkv else self.dtype
         mem = memory.to(self.dtype)
-        k_mem, v_mem, k_cache, v_cache = [], [], [], []
+        state = TFMState([], [], [], [], None, 0)
         for i in range(self.num_layers):
-            k_mem.append(self._proj(mem, i, "ca_k").to(self.dtype).reshape(B, S, nh, hd))
-            v_mem.append(self._proj(mem, i, "ca_v").to(self.dtype).reshape(B, S, nh, hd))
-            k_cache.append(memory.new_zeros((B, cap * beam_size, nh, hd), dtype=self.dtype))
-            v_cache.append(memory.new_zeros((B, cap * beam_size, nh, hd), dtype=self.dtype))
-        sel = torch.zeros((B, beam_size, max_steps, beam_size), dtype=torch.bool,
-                          device=memory.device)
-        return TFMState(k_cache, v_cache, k_mem, v_mem, sel, 0)
+            for name, buf, scales in (("ca_k", state.k_mem, state.k_mem_scales),
+                                      ("ca_v", state.v_mem, state.v_mem_scales)):
+                x = self._proj(mem, i, name).to(self.dtype).reshape(B, S, nh, hd)
+                if qmem:
+                    x, scale = quantize_kv(x)
+                    scales.append(scale)
+                buf.append(x)
+            for buf, scales in ((state.k_cache, state.k_scales), (state.v_cache, state.v_scales)):
+                buf.append(memory.new_zeros((B, cap * beam_size, nh, hd), dtype=cache_dtype))
+                if qkv:
+                    scales.append(memory.new_zeros((B, cap * beam_size, nh), dtype=torch.float32))
+        state.sel = torch.zeros((B, beam_size, max_steps, beam_size), dtype=torch.bool,
+                                device=memory.device)
+        return state
 
     def step(self, state: TFMState, tokens) -> tuple[TFMState, torch.Tensor]:
         """One decode step: tokens (B*K,) -> (state, logits (B*K, V) f32)."""
@@ -191,17 +218,27 @@ class TransformerDecoder(nn.Module):
 
         scale = 1.0 / math.sqrt(hd)
         dt = self.dtype
+        # int8 decode memory, read from the buffers' types (as in JAX)
+        qkv = state.k_cache[0].dtype == torch.int8
+        qmem = state.k_mem[0].dtype == torch.int8
+        rows = slice(t * K, (t + 1) * K)
         for i in range(self.num_layers):
             xq = x.to(dt)
             k_new = self._proj(xq, i, "sa_k").to(dt).reshape(Bs, K, nh, hd)
             v_new = self._proj(xq, i, "sa_v").to(dt).reshape(Bs, K, nh, hd)
-            state.k_cache[i][:, t * K:(t + 1) * K] = k_new
-            state.v_cache[i][:, t * K:(t + 1) * K] = v_new
+            if qkv:   # the new rows quantized after their cast, as written
+                k_new, state.k_scales[i][:, rows] = quantize_kv(k_new)
+                v_new, state.v_scales[i][:, rows] = quantize_kv(v_new)
+            state.k_cache[i][:, rows] = k_new
+            state.v_cache[i][:, rows] = v_new
             qh = (self._proj(xq, i, "sa_q") * scale).to(dt).reshape(Bs, K, nh, hd)
-            ctx = decode_attention(qh, state.k_cache[i], state.v_cache[i], sel_mask)
+            ctx = decode_attention(qh, state.k_cache[i], state.v_cache[i], sel_mask,
+                                   *((state.k_scales[i], state.v_scales[i]) if qkv else ()))
             x = self._ln(x + self._proj(ctx.reshape(BK, d), i, "sa_o"), i, 1)
             qh = (self._proj(x.to(dt), i, "ca_q") * scale).to(dt).reshape(Bs, K, nh, hd)
-            ctx = decode_attention(qh, state.k_mem[i], state.v_mem[i])
+            ctx = decode_attention(qh, state.k_mem[i], state.v_mem[i], None,
+                                   *((state.k_mem_scales[i], state.v_mem_scales[i]) if qmem
+                                     else ()))
             x = self._ln(x + self._proj(ctx.reshape(BK, d), i, "ca_o"), i, 2)
             h = F.relu(x.to(dt).float() @ self._p(i, "ff_w1") + self._p(i, "ff_b1"))
             h = h @ self._p(i, "ff_w2") + self._p(i, "ff_b2")
@@ -213,7 +250,8 @@ class TransformerDecoder(nn.Module):
 
 def grow_decode_state(state: TFMState, new_steps: int, beam_size: int) -> TFMState:
     """Zero-pad the KV caches to ``new_steps * beam_size`` slots (chunked
-    decode: early steps only stream the live prefix).  Slot m keeps its
+    decode: early steps only stream the live prefix), and int8 caches'
+    scales with them (a zero scale, as in JAX).  Slot m keeps its
     (position, slot) meaning, so decode results are unchanged."""
     m_new = new_steps * beam_size
     m_old = state.k_cache[0].shape[1]
@@ -222,4 +260,6 @@ def grow_decode_state(state: TFMState, new_steps: int, beam_size: int) -> TFMSta
     pad = (0, 0, 0, 0, 0, m_new - m_old)
     state.k_cache = [F.pad(c, pad) for c in state.k_cache]
     state.v_cache = [F.pad(c, pad) for c in state.v_cache]
+    state.k_scales = [F.pad(s, pad[2:]) for s in state.k_scales]
+    state.v_scales = [F.pad(s, pad[2:]) for s in state.v_scales]
     return state

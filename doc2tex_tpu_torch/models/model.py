@@ -7,7 +7,9 @@ Ported stage combinations: FeatureExtraction 'None' + SequenceModeling 'ViT'
 ``NotImplementedError``.
 
 ``quantize: int8`` in the config (or ``set_quantize``) routes the
-encoder's gated products through the int8 op (``ops/quant.py``).
+encoder's gated products through the int8 op (``ops/quant.py``);
+``int8_full`` also keeps the head's decode memory in int8, and an explicit
+parts tuple can add the TFM head's ``decoder_kv``.
 
 Interface, as the JAX module's:
 - ``forward(image, text, train, generator)``: teacher-forced logits
@@ -24,7 +26,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from ..ops.quant import parts_for_mode
+from ..ops.quant import check_parts
 from .decoder_lstm import LSTMAttentionDecoder
 from .decoder_tfm import TransformerDecoder
 from .vit import ViTEncoder, grid_size_for
@@ -99,13 +101,18 @@ class Model(nn.Module):
         self.set_quantize(config.get("quantize"))
 
     def set_quantize(self, mode) -> list[str]:
-        """Set the quantized parts from a ``quantize:`` mode (``int8`` or
-        None; see ``ops/quant.parts_for_mode``).  Only the encoder goes
-        int8: its convolutions and the ViT blocks' Denses, where the shape
-        gates pass.  Returns the names of the layers that take the int8
-        op."""
-        self.quant_parts = parts_for_mode(mode)
-        self.int8_layers = self.seqmodeler.set_int8(self.quant_parts is not None)
+        """Set the quantized parts from a ``quantize:`` mode (``int8``,
+        ``int8_full`` or None) or an explicit tuple of parts (the JAX
+        package's ``quantized_inference(parts=...)``; see
+        ``ops/quant.check_parts``).  ``encoder``: the encoder's
+        convolutions and the ViT blocks' Denses go int8 where the shape
+        gates pass; ``decoder_mem``/``decoder_kv`` go to the head, which
+        keeps its decode memory in int8 (``decoder_kv`` only in the TFM
+        head).  Returns the names of the layers that take the int8 op."""
+        self.quant_parts = check_parts(mode)
+        parts = self.quant_parts or ()
+        self.predicter.quant_parts = tuple(p for p in parts if p != "encoder")
+        self.int8_layers = self.seqmodeler.set_int8("encoder" in parts)
         return self.int8_layers
 
     def encode(self, image, train: bool = False, generator=None):

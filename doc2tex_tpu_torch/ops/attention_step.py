@@ -19,10 +19,21 @@ in two forms of the location term ``locH``:
   former step: ``location_features``, the memory repeated K times, then
   ``attention_step_reference``.
 
+The coverage form also takes int8 memory (the ``decoder_mem`` quantized
+part): ``enc`` and ``enc_proj`` int8 with one float32 scale per sample,
+``enc_scale`` and ``proj_scale`` (Bs, 1, 1), and the model's compute type,
+as the JAX package's LSTM step reads them:
+
+    enc_proj = round_to(compute type, enc_proj_int8 * round_to(compute type, proj_scale))
+    context  = (sum_s alpha * enc_int8) * enc_scale                     (f32)
+
 Both run one hand-written CUDA kernel (``csrc/attention_step.cu``, the form a
-template parameter) on CUDA tensors, with the grid ``launch_plan`` chooses,
-and their plain PyTorch versions on CPU tensors.  Neither falls back from
-one to the other: on a CUDA tensor each launches the kernel or raises.
+template parameter, and the memory's type: its int8 form) on CUDA tensors,
+with the grid ``launch_plan`` chooses, and their plain PyTorch versions on
+CPU tensors.  Neither falls back from one to the other: on a CUDA tensor
+each launches the kernel or raises.  ``coverage_attention_step.launches``
+counts the coverage form's float launches, ``.int8_launches`` its int8
+ones.
 
 Training: on a CUDA tensor that needs a gradient, ``coverage_attention_step``
 runs through ``CoverageAttentionStepFn``, whose forward is the kernel above
@@ -50,7 +61,8 @@ BWD_CHUNK = 64            # positions per block in the backward's passes over S
 BWD_VECS = 7              # per-block partial vectors of H: d q, d w_score, 5 taps
 NEG_INF = -1e30
 WIDTHS = (128, 256)            # D = H the kernel is built for
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 2}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 2}   # the memory's type, or the compute type
+_MEM_CODE = {**_DTYPE_CODE, torch.int8: 3}            # the memory's type (int8: coverage form)
 FEATURE, COVERAGE = "feature", "coverage"
 
 # The kernel's grid (csrc/attention_step.cu): per sample, `zsplit` groups of
@@ -126,8 +138,9 @@ def launch_plan(Bs: int, K: int, S: int, D: int, H: int, Kl: int, dtype: torch.d
     kernel does not take: D != H, widths outside WIDTHS, taps (2 *
     kernel_size + 1) above MAX_TAPS, Kl not a multiple of 4 in the feature
     form, and an S that MAX_CLUSTER blocks cannot hold."""
-    if dtype not in _DTYPE_CODE:
-        raise TypeError(f"kernel takes float32/bfloat16 memory; got {dtype}")
+    if dtype not in _DTYPE_CODE and not (dtype == torch.int8 and form == COVERAGE):
+        raise TypeError(f"kernel takes float32/bfloat16 memory (or int8 in the coverage "
+                        f"form); got {dtype}")
     if form not in (FEATURE, COVERAGE):
         raise ValueError(f"form must be {FEATURE!r} or {COVERAGE!r}; got {form!r}")
     if D != H or D not in WIDTHS:
@@ -190,6 +203,20 @@ def attention_step_reference(enc, enc_proj, q, loc_feat, w_loc, b_loc, w_score,
     alpha = torch.softmax(e, dim=-1)
     context = torch.einsum("bs,bsd->bd", alpha, enc.to(ft))
     return context, alpha
+
+
+def coverage_attention_step_int8_reference(enc, enc_proj, q, mem, loc_conv_w, loc_conv_b,
+                                           w_loc, b_loc, w_score, valid_len, enc_scale,
+                                           proj_scale, compute_dtype):
+    """Plain PyTorch version of the coverage form on int8 memory: enc
+    (Bs,S,D) and enc_proj (Bs,S,H) int8, enc_scale and proj_scale (Bs,1,1)
+    float32, the rest as ``coverage_attention_step_reference``; the JAX
+    package's LSTM step under ``decoder_mem``."""
+    proj = enc_proj.to(compute_dtype) * proj_scale.to(compute_dtype)
+    context, alpha = coverage_attention_step_reference(
+        enc, proj, q, mem, loc_conv_w, loc_conv_b, w_loc, b_loc, w_score, valid_len)
+    K = q.shape[0] // enc.shape[0]
+    return context * enc_scale.reshape(-1, 1).repeat_interleave(K, dim=0), alpha
 
 
 def location_features(mem, loc_conv_w, loc_conv_b):
@@ -282,7 +309,7 @@ def _kernels():
     feat.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + tail
     cov = lib.d2t_attention_step_coverage
     cov.restype = ctypes.c_int
-    cov.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + tail
+    cov.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 10 + tail
     return {FEATURE: feat, COVERAGE: cov}, info
 
 
@@ -310,9 +337,10 @@ def _check_memory(enc, enc_proj, q):
     return q.shape[0] // Bs
 
 
-def _check_kernel_inputs(enc, enc_proj, f32):
+def _check_kernel_inputs(enc, enc_proj, f32, int8=False):
     """What every launch needs beyond the plan: types, layout, alignment."""
-    if enc.dtype != enc_proj.dtype or enc.dtype not in _DTYPE_CODE:
+    if enc.dtype != enc_proj.dtype or (enc.dtype not in _DTYPE_CODE
+                                       and not (int8 and enc.dtype == torch.int8)):
         raise TypeError(f"enc and enc_proj must share float32 or bfloat16; got "
                         f"{enc.dtype}, {enc_proj.dtype}")
     if any(t.dtype != torch.float32 for t in f32):
@@ -322,6 +350,24 @@ def _check_kernel_inputs(enc, enc_proj, f32):
         raise ValueError("all inputs must be contiguous")
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("all inputs must be 16-byte aligned")
+
+
+def _check_coverage(enc, enc_proj, q, mem, loc_conv_w, loc_conv_b, w_loc, b_loc, w_score):
+    """The coverage form's shapes; returns K."""
+    K = _check_memory(enc, enc_proj, q)
+    Bs, S, _ = enc.shape
+    H = enc_proj.shape[-1]
+    if mem.shape != (Bs * K, S):
+        raise ValueError(f"mem must be (rows of q, S) = {(Bs * K, S)}; got {tuple(mem.shape)}")
+    if (loc_conv_w.dim() != 3 or loc_conv_w.shape[1] != 1 or loc_conv_w.shape[0] % 2 == 0
+            or loc_conv_b.shape != loc_conv_w.shape[2:]):
+        raise ValueError(f"loc_conv_w must be (odd k, 1, Kl) and loc_conv_b (Kl,); got "
+                         f"{tuple(loc_conv_w.shape)}, {tuple(loc_conv_b.shape)}")
+    Kl = loc_conv_w.shape[2]
+    if w_loc.shape != (Kl, H) or b_loc.shape != (H,) or w_score.numel() != H:
+        raise ValueError(f"weights must be w_loc (Kl,H), b_loc (H,), w_score (H,); got "
+                         f"{tuple(w_loc.shape)}, {tuple(b_loc.shape)}, {tuple(w_score.shape)}")
+    return K
 
 
 def _valid_code(valid_len) -> int:
@@ -366,7 +412,8 @@ fused_attention_step.launches = 0
 
 
 def coverage_attention_step(enc, enc_proj, q, mem, loc_conv_w, loc_conv_b, w_loc, b_loc,
-                            w_score, valid_len=None):
+                            w_score, valid_len=None, enc_scale=None, proj_scale=None,
+                            compute_dtype=None):
     """One attention step with the location conv folded in; see the module
     docstring.
 
@@ -376,47 +423,72 @@ def coverage_attention_step(enc, enc_proj, q, mem, loc_conv_w, loc_conv_b, w_loc
     (Kl,H), b_loc (H,), w_score (H,) or (H,1).  Returns (context (Bs*K, D)
     float32, alpha (Bs*K, S) float32).  On CUDA tensors of which one needs
     a gradient (K = 1 only), through ``CoverageAttentionStepFn``: the
-    backward is a kernel too."""
-    K = _check_memory(enc, enc_proj, q)
-    Bs, S, D = enc.shape
-    H = enc_proj.shape[-1]
-    if mem.shape != (Bs * K, S):
-        raise ValueError(f"mem must be (rows of q, S) = {(Bs * K, S)}; got {tuple(mem.shape)}")
-    if (loc_conv_w.dim() != 3 or loc_conv_w.shape[1] != 1 or loc_conv_w.shape[0] % 2 == 0
-            or loc_conv_b.shape != loc_conv_w.shape[2:]):
-        raise ValueError(f"loc_conv_w must be (odd k, 1, Kl) and loc_conv_b (Kl,); got "
-                         f"{tuple(loc_conv_w.shape)}, {tuple(loc_conv_b.shape)}")
-    taps, Kl = loc_conv_w.shape[0], loc_conv_w.shape[2]
-    if w_loc.shape != (Kl, H) or b_loc.shape != (H,) or w_score.numel() != H:
-        raise ValueError(f"weights must be w_loc (Kl,H), b_loc (H,), w_score (H,); got "
-                         f"{tuple(w_loc.shape)}, {tuple(b_loc.shape)}, {tuple(w_score.shape)}")
+    backward is a kernel too.  Int8 memory comes with ``enc_scale`` and
+    ``proj_scale`` (Bs, 1, 1) float32 and ``compute_dtype`` (float32 or
+    bfloat16); it takes no gradient."""
+    K = _check_coverage(enc, enc_proj, q, mem, loc_conv_w, loc_conv_b, w_loc, b_loc, w_score)
+    Bs, D, H, taps = enc.shape[0], enc.shape[2], enc_proj.shape[-1], loc_conv_w.shape[0]
     tensors = (enc, enc_proj, q, mem, loc_conv_w, loc_conv_b, w_loc, b_loc, w_score)
-    _same_device(tensors)
+    scales = _check_int8(enc, enc_proj, enc_scale, proj_scale, compute_dtype)
+    _same_device(tensors + scales)
     if enc.device.type == "cpu":
+        if scales:
+            return coverage_attention_step_int8_reference(*tensors, valid_len, *scales,
+                                                          compute_dtype)
         return coverage_attention_step_reference(*tensors, valid_len=valid_len)
     if enc.device.type != "cuda":
         raise ValueError(f"unsupported device {enc.device}")
-    _check_kernel_inputs(enc, enc_proj, tensors[2:])
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+    if scales:
+        if grad:
+            raise NotImplementedError("int8 memory is an inference mode: B2's int8 form takes "
+                                      "no gradient")
+        scales = tuple(t.reshape(Bs).contiguous() for t in scales)
+    _check_kernel_inputs(enc, enc_proj, tensors[2:] + scales, int8=bool(scales))
+    if grad:
         if K != 1:
             raise NotImplementedError(f"B2's backward takes K = 1 (the teacher-forced pass); "
                                       f"got K = {K} with a gradient")
         _check_backward_shape(D, H, taps, enc.dtype)
         return CoverageAttentionStepFn.apply(*tensors, valid_len)
-    return _coverage_forward(tensors, valid_len)
+    return _coverage_forward(tensors, valid_len, scales, compute_dtype)
 
 
 coverage_attention_step.launches = 0
+coverage_attention_step.int8_launches = 0
 
 
-def _coverage_forward(tensors, valid_len):
-    """The coverage form's kernel on checked CUDA tensors, counted."""
+def _check_int8(enc, enc_proj, enc_scale, proj_scale, compute_dtype):
+    """The int8 memory's scales, () for float memory (no scales and no
+    ``compute_dtype``)."""
+    if enc_scale is None and proj_scale is None and compute_dtype is None:
+        return ()
+    if enc.dtype != torch.int8 or enc_proj.dtype != torch.int8:
+        raise TypeError(f"with scales enc and enc_proj must be int8; got {enc.dtype}, "
+                        f"{enc_proj.dtype}")
+    if compute_dtype not in _DTYPE_CODE:
+        raise TypeError(f"compute_dtype must be float32 or bfloat16; got {compute_dtype}")
+    Bs = enc.shape[0]
+    for t in (enc_scale, proj_scale):
+        if t is None or t.dtype != torch.float32 or t.numel() != Bs:
+            raise ValueError(f"enc_scale and proj_scale must be float32 (Bs, 1, 1) with Bs = "
+                             f"{Bs}; got {None if t is None else (t.dtype, tuple(t.shape))}")
+    return enc_scale, proj_scale
+
+
+def _coverage_forward(tensors, valid_len, scales=(), compute_dtype=None):
+    """The coverage form's kernel on checked CUDA tensors, counted; with
+    ``scales`` (enc_scale, proj_scale) (Bs,) its int8 memory form."""
     enc, enc_proj, q, _, loc_conv_w = tensors[:5]
     Bs, S, D = enc.shape
     plan = launch_plan(Bs, q.shape[0] // Bs, S, D, enc_proj.shape[-1], loc_conv_w.shape[2],
                        enc.dtype, COVERAGE, loc_conv_w.shape[0])
-    out = launch(COVERAGE, plan, *tensors, valid_len=valid_len)
-    coverage_attention_step.launches += 1
+    out = launch(COVERAGE, plan, *tensors, valid_len=valid_len, scales=scales,
+                 compute_dtype=compute_dtype)
+    if scales:
+        coverage_attention_step.int8_launches += 1
+    else:
+        coverage_attention_step.launches += 1
     return out
 
 
@@ -537,12 +609,14 @@ def build_backward() -> dict:
 
 
 def launch(form: str, plan: LaunchPlan, enc, enc_proj, q, *loc_and_weights, valid_len=None,
-           kernel=None):
+           kernel=None, scales=(), compute_dtype=None):
     """Launch the kernel's ``form`` (or ``kernel``, a library function of
     the same C signature) with ``plan`` on checked CUDA tensors: after q,
     ``loc_feat, w_loc, b_loc, w_score`` (feature form) or ``mem,
-    loc_conv_w, loc_conv_b, w_loc, b_loc, w_score`` (coverage form).
-    Returns (context, alpha).  The callers count their launches."""
+    loc_conv_w, loc_conv_b, w_loc, b_loc, w_score`` (coverage form; on int8
+    memory with ``scales`` = (enc_scale, proj_scale) (Bs,) float32 and
+    ``compute_dtype``).  Returns (context, alpha).  The callers count
+    their launches."""
     Bs, S, D = enc.shape
     H = enc_proj.shape[-1]
     K = q.shape[0] // Bs
@@ -551,13 +625,16 @@ def launch(form: str, plan: LaunchPlan, enc, enc_proj, q, *loc_and_weights, vali
     ctx = torch.empty((Bs * K, D), dtype=torch.float32, device=enc.device)
     alpha = torch.empty((Bs * K, S), dtype=torch.float32, device=enc.device)
     shape = [Bs, K, S, D, H, w_loc.shape[0]]
+    codes = [_MEM_CODE[enc.dtype]]
+    pointers = [t.data_ptr() for t in loc_and_weights]
     if form == COVERAGE:
         shape.append(loc_and_weights[1].shape[0])  # taps
+        pointers += [t.data_ptr() for t in scales] if scales else [None, None]
+        codes.append(_DTYPE_CODE[compute_dtype or enc.dtype])
     with torch.cuda.device(enc.device):
         rc = kernel(
-            enc.data_ptr(), enc_proj.data_ptr(), q.data_ptr(),
-            *(t.data_ptr() for t in loc_and_weights), ctx.data_ptr(), alpha.data_ptr(),
-            *shape, _valid_code(valid_len), _DTYPE_CODE[enc.dtype], *plan,
+            enc.data_ptr(), enc_proj.data_ptr(), q.data_ptr(), *pointers, ctx.data_ptr(),
+            alpha.data_ptr(), *shape, _valid_code(valid_len), *codes, *plan,
             torch.cuda.current_stream(enc.device).cuda_stream,
         )
     if rc != 0:

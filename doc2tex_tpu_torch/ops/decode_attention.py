@@ -11,11 +11,23 @@ Tmax*K, masked by the beam ancestry) or the beam-shared encoder memory
     p = softmax_m(scores)                                (f32, over all M)
     ctx[b,k,h,d] = sum_m round_to(v.dtype, p)[b,k,h,m] * v[b,m,h,d]
 
+With int8 K/V (``k_scale``/``v_scale`` (B, M, nh) float32, the
+``decoder_mem`` and ``decoder_kv`` quantized parts), the order of the
+reference's int8 branch, the scales folded around the reduces and the
+output in q's type:
+
+    scores = (sum_d q * k_int8) * k_scale                (f32)
+    p = round_to(q.dtype, softmax_m(masked scores))
+    ctx = sum_m round_to(q.dtype, p * round_to(q.dtype, v_scale)) * v_int8
+
 ``decode_attention`` runs the hand-written CUDA kernel
-(``csrc/decode_attention.cu``) on CUDA tensors, with the grid that
-``launch_plan`` chooses, and the plain PyTorch version,
-``decode_attention_reference``, on CPU tensors.  It never falls back from
-one to the other: on a CUDA tensor it launches the kernel or raises.
+(``csrc/decode_attention.cu``; its int8 K/V form for int8 K/V) on CUDA
+tensors, with the grid that ``launch_plan`` chooses, and the plain PyTorch
+versions, ``decode_attention_reference`` and
+``decode_attention_int8_reference``, on CPU tensors.  It never falls back
+from one to the other: on a CUDA tensor it launches the kernel or raises.
+Each form counts its launches: ``decode_attention.launches`` and
+``decode_attention.int8_launches``.
 """
 
 from __future__ import annotations
@@ -32,6 +44,7 @@ SOURCE = "decode_attention.cu"
 MAX_BEAM = 16            # queries per sample the kernel holds on chip
 HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+INT8_Q_DTYPES = (torch.float32, torch.bfloat16)   # q's types of the int8 K/V form
 
 # The kernel's grid (csrc/decode_attention.cu): one cluster of up to
 # MAX_CLUSTER blocks per (sample, head), each block owning `chunk` positions
@@ -46,6 +59,10 @@ SMS = 132                 # H100 SXM
 # 64 registers a thread below float32 at hd <= 64, 127 at hd 128; float32
 # 126-128, and 183 at hd 128 (nvcc -Xptxas -v, PR 6)
 BLOCKS_PER_SM = {(2, 32): 4, (2, 64): 4, (2, 128): 2, (4, 32): 2, (4, 64): 2, (4, 128): 1}
+# the int8 K/V form, by q's element bytes and hd: 48 registers at bf16 hd 32,
+# 64 at hd 64, 118 at hd 128; float32 125, 128 and 167 (nvcc -Xptxas -v)
+BLOCKS_PER_SM_INT8 = {(2, 32): 5, (2, 64): 4, (2, 128): 2, (4, 32): 2, (4, 64): 2,
+                      (4, 128): 1}
 # launch_plan: one block per (sample, head) when that makes at least
 # ONE_BLOCK_MIN blocks and fits; else the plan of least modelled time,
 # waves of blocks x (FIXED_US + CLUSTER_US if split + US_PER_POSITION x
@@ -69,43 +86,59 @@ def _up16(x: int) -> int:
     return (x + 15) // 16 * 16
 
 
-def smem_bytes(K: int, chunk: int, stages: int, hd: int, elem: int) -> int:
-    """Dynamic shared memory of one block: ``make_layout`` of the kernel."""
-    rs = hd * elem + 16  # a padded K/V or Q row
-    return (_up16(max(stages * TILE * rs, WARPS * MAX_BEAM * hd * 4))  # ring / partial outputs
+def smem_bytes(K: int, chunk: int, stages: int, hd: int, elem: int, kelem: int | None = None
+               ) -> int:
+    """Dynamic shared memory of one block: ``make_layout`` of the kernel.
+    ``elem``: bytes of q's type; ``kelem``: of K/V's (1 for int8 K/V, whose
+    form adds the positions' scales)."""
+    kelem = elem if kelem is None else kelem
+    rs = hd * elem + 16  # a padded Q row
+    rsk = hd * kelem + 16  # a padded K/V row of the ring
+    q8 = 2 * _up16(chunk * 4) if kelem != elem else 0
+    return (_up16(max(stages * TILE * rsk, WARPS * MAX_BEAM * hd * 4))  # ring / partial outputs
             + _up16(MAX_BEAM * rs)                                   # queries
             + _up16(MAX_BEAM * hd * 4)                               # the block's output
             + _up16((WARPS + 4) * MAX_BEAM * 4)                      # row max and sum
             + _up16(MAX_BEAM * WARPS * 4)                            # sums per row and warp
             + _up16(chunk // TILE * 4)                               # tile flags
             + _up16(chunk * 2)                                       # mask bits per position
-            + _up16(K * (chunk + 4) * 4))                            # f32 scores
+            + _up16(K * (chunk + 4) * 4)                             # f32 scores
+            + q8)                                                    # int8: k and v scales
 
 
 @functools.lru_cache(maxsize=None)
-def launch_plan(B: int, K: int, M: int, nh: int, hd: int, dtype: torch.dtype) -> LaunchPlan:
+def launch_plan(B: int, K: int, M: int, nh: int, hd: int, dtype: torch.dtype,
+                kv_dtype: torch.dtype | None = None) -> LaunchPlan:
     """The kernel's grid for one call, over cluster sizes 1..MAX_CLUSTER
     and rings of 3 or 2 tiles whose blocks fit shared memory: a cluster of
     one when B*nh >= ONE_BLOCK_MIN and it fits, with the ring that takes
     the fewest waves of blocks; else the plan of least modelled time (see
     FIXED_US).  Ties go to the smaller cluster, then the deeper ring.
+    ``kv_dtype`` torch.int8 plans the int8 K/V form (its own blocks per SM;
+    the model's times are the bf16 form's).
     Raises where M does not fit MAX_CLUSTER blocks."""
     if dtype not in _DTYPE_CODE:
         raise TypeError(f"kernel takes float32/float16/bfloat16; got {dtype}")
+    if kv_dtype not in (None, dtype, torch.int8) or (kv_dtype == torch.int8
+                                                      and dtype not in INT8_Q_DTYPES):
+        raise TypeError(f"kernel takes K/V of q's type, or int8 with q float32/bfloat16; "
+                        f"got q {dtype}, K/V {kv_dtype}")
     if not (0 < K <= MAX_BEAM) or hd not in HEAD_DIMS or M <= 0 or B <= 0 or nh <= 0:
         raise ValueError(f"kernel takes K <= {MAX_BEAM}, hd in {HEAD_DIMS}, M > 0; "
                          f"got K={K}, hd={hd}, M={M}")
     elem = dtype.itemsize
+    kelem = elem if kv_dtype is None else kv_dtype.itemsize
     best = None
     for cluster in range(1, MAX_CLUSTER + 1):
         chunk = -(-(-(-M // cluster)) // TILE) * TILE
         if -(-M // chunk) != cluster:
             continue  # the same chunks as a smaller cluster
         for stages in (3, 2):
-            smem = smem_bytes(K, chunk, stages, hd, elem)
+            smem = smem_bytes(K, chunk, stages, hd, elem, kelem)
             if smem > SMEM_LIMIT:
                 continue
-            per_sm = min(BLOCKS_PER_SM[elem, hd], SMEM_PER_SM // (smem + 1024))
+            blocks = BLOCKS_PER_SM if kelem == elem else BLOCKS_PER_SM_INT8
+            per_sm = min(blocks[elem, hd], SMEM_PER_SM // (smem + 1024))
             waves = -(-B * nh * cluster // (SMS * per_sm))
             if cluster == 1 and B * nh >= ONE_BLOCK_MIN:
                 cost = waves
@@ -130,6 +163,21 @@ def decode_attention_reference(q, k, v, mask=None):
     return torch.einsum("bkhm,bmhd->bkhd", attn, v)
 
 
+def decode_attention_int8_reference(q, k, v, mask, k_scale, v_scale):
+    """Plain PyTorch version of the int8 K/V form, step for step the JAX
+    package's ``_reference`` int8 branch: q (B,K,nh,hd) float32 or
+    bfloat16, k/v (B,M,nh,hd) int8, k_scale/v_scale (B,M,nh) float32, mask
+    (B,K,M) bool or None -> (B,K,nh,hd) in q's type."""
+    dtype = q.dtype
+    sc = torch.einsum("bkhd,bmhd->bkhm", q.float(), k.float())
+    sc = sc * k_scale.permute(0, 2, 1)[:, None]
+    if mask is not None:
+        sc = sc.masked_fill(~mask[:, :, None, :], float("-inf"))
+    attn = torch.softmax(sc, dim=-1).to(dtype)
+    aw = attn * v_scale.to(dtype).permute(0, 2, 1)[:, None]
+    return torch.einsum("bkhm,bmhd->bkhd", aw, v.to(dtype))
+
+
 def _kernel():
     lib, info = load_library(SOURCE)
     fn = lib.d2t_decode_attention
@@ -138,12 +186,20 @@ def _kernel():
     return fn, info
 
 
+def _int8_kernel():
+    lib, _ = load_library(SOURCE)
+    fn = lib.d2t_decode_attention_int8
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    return fn
+
+
 def build() -> dict:
     """Build (if needed) and load the kernel; returns ``load_library``'s info."""
     return _kernel()[1]
 
 
-def _check(q, k, v, mask):
+def _check(q, k, v, mask, k_scale=None, v_scale=None):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be 4-D: (B,K,nh,hd), (B,M,nh,hd), (B,M,nh,hd)")
     B, K, nh, hd = q.shape
@@ -152,53 +208,73 @@ def _check(q, k, v, mask):
     if mask is not None:
         if mask.dtype != torch.bool or mask.shape != (B, K, k.shape[1]):
             raise ValueError(f"mask must be bool (B,K,M); got {mask.dtype} {tuple(mask.shape)}")
-    devices = {t.device for t in (q, k, v) + (() if mask is None else (mask,))}
+    quantized = (k_scale, v_scale)
+    if any(t is None for t in quantized) != all(t is None for t in quantized):
+        raise ValueError("k_scale and v_scale come together (int8 K/V) or not at all")
+    if k_scale is not None:
+        if k.dtype != torch.int8 or v.dtype != torch.int8 or q.dtype not in INT8_Q_DTYPES:
+            raise TypeError(f"with scales K/V must be int8 and q float32/bfloat16; got q "
+                            f"{q.dtype}, k {k.dtype}, v {v.dtype}")
+        for t in quantized:
+            if t.dtype != torch.float32 or t.shape != k.shape[:3]:
+                raise ValueError(f"k_scale/v_scale must be float32 (B,M,nh) = "
+                                 f"{tuple(k.shape[:3])}; got {t.dtype} {tuple(t.shape)}")
+    devices = {t.device for t in (q, k, v) + (() if mask is None else (mask,))
+               + (() if k_scale is None else quantized)}
     if len(devices) != 1:
         raise ValueError(f"tensors on different devices: {devices}")
 
 
 def decode_attention(q, k, v, mask=None, k_scale=None, v_scale=None):
-    """Beam decode attention; see the module docstring.
-
-    ``k_scale``/``v_scale`` (int8 K/V) are not ported yet and raise."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError("int8 K/V decode attention is not ported yet")
-    _check(q, k, v, mask)
+    """Beam decode attention; see the module docstring.  With
+    ``k_scale``/``v_scale`` (B, M, nh) float32, k and v are int8 and the
+    output is in q's type."""
+    _check(q, k, v, mask, k_scale, v_scale)
+    q8 = k_scale is not None
     if q.device.type == "cpu":
+        if q8:
+            return decode_attention_int8_reference(q, k, v, mask, k_scale, v_scale)
         return decode_attention_reference(q, k, v, mask)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     B, K, nh, hd = q.shape
     M = k.shape[1]
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODE:
+    if not q8 and (not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODE):
         raise TypeError(f"q, k, v must share one of float32/float16/bfloat16; got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     tensors = (q, k, v) + (() if mask is None else (mask,))
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("q, k, v and mask must be contiguous")
+    if not all(t.is_contiguous() for t in tensors + ((k_scale, v_scale) if q8 else ())):
+        raise ValueError("q, k, v, mask and the scales must be contiguous")
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("q, k, v and mask must be 16-byte aligned")
-    return launch(q, k, v, mask, launch_plan(B, K, M, nh, hd, q.dtype))
+    plan = launch_plan(B, K, M, nh, hd, q.dtype, k.dtype if q8 else None)
+    return launch(q, k, v, mask, plan, scales=(k_scale, v_scale) if q8 else None)
 
 
-def launch(q, k, v, mask, plan: LaunchPlan, kernel=None):
+def launch(q, k, v, mask, plan: LaunchPlan, kernel=None, scales=None):
     """Launch the kernel (or ``kernel``, a library of the same C
     signature) with ``plan`` on checked CUDA tensors; returns the output.
-    Every launch adds one to ``decode_attention.launches``."""
+    With ``scales`` = (k_scale, v_scale), the int8 K/V form, its output
+    in q's type.  Every launch adds one to ``decode_attention.launches``,
+    or ``.int8_launches`` for the int8 form."""
     B, K, nh, hd = q.shape
-    kernel = kernel or _kernel()[0]
     out = torch.empty_like(q)
+    kernel = kernel or (_kernel()[0] if scales is None else _int8_kernel())
+    pointers = [t.data_ptr() for t in (q, k, v) + (scales or ())]
     with torch.cuda.device(q.device):
         rc = kernel(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if mask is None else mask.data_ptr(), out.data_ptr(),
+            *pointers, None if mask is None else mask.data_ptr(), out.data_ptr(),
             B, K, k.shape[1], nh, hd, _DTYPE_CODE[q.dtype], *plan,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA error {rc}")
-    decode_attention.launches += 1
+    if scales is None:
+        decode_attention.launches += 1
+    else:
+        decode_attention.int8_launches += 1
     return out
 
 
 decode_attention.launches = 0
+decode_attention.int8_launches = 0

@@ -20,11 +20,26 @@ order, so the results equal the JAX package's bit for bit.
 
 The layers the reference's hook reaches go int8, each only where the
 shape gates below pass: the encoder's convolutions (the ResNet's and the
-patch conv) and the ViT blocks' Dense layers; the decoder heads stay in
-the compute type.  The JAX package injects the int8 op at trace time from
-a context; here the quantized parts are a plain attribute of the model
-(``Model.set_quantize``), and each int8 layer keeps its quantized kernel
-(``layer_weight``).
+patch conv) and the ViT blocks' Dense layers; the decoder heads' weights
+stay in the compute type.  The JAX package injects the int8 op at trace
+time from a context; here the quantized parts are a plain attribute of the
+model (``Model.set_quantize``), and each int8 layer keeps its quantized
+kernel (``layer_weight``).
+
+The parts (the reference's ``quantized_inference(parts=...)``):
+
+- ``encoder``: the products above;
+- ``decoder_mem``: the decode-step attention memory is stored in int8,
+  quantized once at decode start: the LSTM head's ``enc``/``enc_proj``
+  with one scale per sample (``quantize_memory``), the TFM head's
+  cross-attention K/V with one scale per vector of a head
+  (``quantize_kv``).  B1 and B2 have int8 forms that read it;
+- ``decoder_kv``: the TFM head's growing self-attention caches too, each
+  step's new rows quantized as they are written (an LSTM head ignores it).
+
+The modes of the config's ``quantize:`` are ``int8`` (the encoder) and
+``int8_full`` (the encoder and ``decoder_mem``); ``decoder_kv`` is reached
+only through an explicit parts tuple, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -46,22 +61,33 @@ _EPS = 1e-8
 # float32(1 / 127): what XLA makes of the reference's ``max / 127.0``
 _RECIP_127 = float(np.float32(1.0) / np.float32(127.0))
 
-_NOT_PORTED = ("quantize={!r} keeps decoder memory in int8, which is not ported yet "
-               "(ROADMAP A5: int8_full and decoder_kv, with B1's int8 K/V form and B2's "
-               "int8 memory form); use quantize: int8 or null")
+PARTS = ("encoder", "decoder_mem", "decoder_kv")
+_MODES = {"int8": ("encoder",), "int8_full": ("encoder", "decoder_mem")}
 
 
 def parts_for_mode(mode) -> Optional[tuple]:
     """The config's ``quantize:`` value -> the quantized parts (None =
-    unquantized).  ``int8`` quantizes the encoder; the modes that also
-    quantize decoder memory raise, and so does any other value."""
+    unquantized): ``int8`` -> the encoder, ``int8_full`` -> the encoder
+    and ``decoder_mem``.  Any other value raises ``ValueError``, the part
+    name ``decoder_kv`` included (the JAX package's lookup returns None
+    for it, which runs unquantized)."""
     if mode is None or mode == "":
         return None
-    if mode == "int8":
-        return ("encoder",)
-    if mode in ("int8_full", "decoder_kv"):
-        raise NotImplementedError(_NOT_PORTED.format(mode))
-    raise ValueError(f"unknown quantize mode {mode!r} (int8 or null)")
+    if mode not in _MODES:
+        raise ValueError(f"unknown quantize mode {mode!r} (int8, int8_full or null)")
+    return _MODES[mode]
+
+
+def check_parts(parts) -> Optional[tuple]:
+    """A mode string, or an explicit tuple of PARTS (the JAX package's
+    ``quantized_inference(parts=...)``) -> the parts tuple, or None."""
+    if parts is None or isinstance(parts, str):
+        return parts_for_mode(parts)
+    parts = tuple(parts)
+    bad = sorted(set(parts) - set(PARTS))
+    if bad:
+        raise ValueError(f"unknown quant parts {bad} (of {PARTS})")
+    return parts or None
 
 
 def gated(contract: int, n_out: int) -> bool:
@@ -153,26 +179,48 @@ def quantize_conv_weight(kernel: torch.Tensor, dtype: torch.dtype) -> tuple[torc
 def int8_conv2d(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
                 bias: Optional[torch.Tensor], kernel_size: tuple[int, int],
                 stride: tuple[int, int], padding: tuple[int, int],
-                dtype: torch.dtype) -> torch.Tensor:
+                dtype: torch.dtype, dilation: tuple[int, int] = (1, 1)) -> torch.Tensor:
     """flax Conv through the int8 op, on NCHW input: the input quantized
     with one scale, zero-padded in int8 (a zero pad leaves the abs-max as it
-    is), its windows gathered into one (B*Ho*Wo, I*kh*kw) int8 matrix and
+    is), its windows (taps ``dilation`` apart, the reference's
+    ``rhs_dilation``) gathered into one (B*Ho*Wo, I*kh*kw) int8 matrix and
     multiplied with the kernel as ``quantize_conv_weight`` gives it.
     Returns (B, O, Ho, Wo) in ``dtype``."""
     x = x.to(dtype)
     a_q, a_scale = quantize(x)
-    (kh, kw), (sh, sw), (ph, pw) = kernel_size, stride, padding
+    (kh, kw), (sh, sw), (ph, pw), (dh, dw) = kernel_size, stride, padding, dilation
     if ph or pw:
         a_q = F.pad(a_q, (pw, pw, ph, ph))
     B, C, H, W = a_q.shape
-    Ho, Wo = (H - kh) // sh + 1, (W - kw) // sw + 1
-    if (kh, kw) == (sh, sw) and (H, W) == (Ho * kh, Wo * kw):
+    Ho, Wo = (H - dh * (kh - 1) - 1) // sh + 1, (W - dw * (kw - 1) - 1) // sw + 1
+    if (kh, kw) == (sh, sw) and (dh, dw) == (1, 1) and (H, W) == (Ho * kh, Wo * kw):
         # non-overlapping windows that tile the map (the patch conv): a view
         cols = a_q.reshape(B, C, Ho, kh, Wo, kw).permute(0, 2, 4, 1, 3, 5)
     else:
-        taps = [a_q[:, :, i:i + sh * (Ho - 1) + 1:sh, j:j + sw * (Wo - 1) + 1:sw]
+        taps = [a_q[:, :, i * dh:i * dh + sh * (Ho - 1) + 1:sh,
+                    j * dw:j * dw + sw * (Wo - 1) + 1:sw]
                 for i in range(kh) for j in range(kw)]
         cols = torch.stack(taps, dim=2).permute(0, 3, 4, 1, 2)   # (B, Ho, Wo, C, kh*kw)
     acc = int_mm(cols.reshape(B * Ho * Wo, C * kh * kw), w_q)
     out = _rescale(acc, a_scale, w_scale, bias, dtype)
     return out.reshape(B, Ho, Wo, -1).permute(0, 3, 1, 2)
+
+
+# ---- decoder memory (the ``decoder_mem`` and ``decoder_kv`` parts) ----------
+
+def quantize_memory(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One scale per sample of a (B, S, D) attention memory: (int8 values,
+    float32 scale (B, 1, 1)), the reference's ``quantize_memory``."""
+    return quantize(x, dims=tuple(range(1, x.dim())))
+
+
+def dequantize_memory(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.float() * scale
+
+
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One scale per vector of the last axis: a (B, M, nh, hd) K or V ->
+    (int8 values, float32 scale (B, M, nh)), the reference's
+    ``quantize_kv``."""
+    q, scale = quantize(x, dims=-1)
+    return q, scale.squeeze(-1)

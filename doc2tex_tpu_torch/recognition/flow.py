@@ -111,15 +111,16 @@ class MathRecognition:
         block turns it off, as the releases trained without it do): CLAHE
         (clip 2, a 2x2 grid) before the resize, as the reference's demo
         recognizer applies it.  ``quantize`` in the config is ``int8`` (the
-        encoder's gated products in int8, as every release ships) or None;
-        the modes that quantize decoder memory raise: they are not ported
-        yet.  ``coalesce_ratio`` overrides the config's."""
+        encoder's gated products in int8, as every release ships),
+        ``int8_full`` (also the decode attention memory in int8) or None;
+        ``model.set_quantize`` takes an explicit parts tuple too.
+        ``coalesce_ratio`` overrides the config's."""
         if config is None:
             raise ValueError("MathRecognition needs a config (see load_recog_config)")
         self.config = config
         self.device = device
         self.use_clahe = bool(self.config.get("clahe", True) if use_clahe is None else use_clahe)
-        parts_for_mode(self.config.get("quantize"))  # refuses what is not ported, early
+        parts_for_mode(self.config.get("quantize"))  # refuses an unknown mode, early
         self.coalesce_ratio = float(
             coalesce_ratio if coalesce_ratio is not None
             else self.config.get("coalesce_ratio", 0.0) or 0.0)
@@ -133,8 +134,9 @@ class MathRecognition:
         self.model.to(device).eval()
         if self.model.quant_parts:
             layers = self.model.int8_layers
-            print(f"MathRecognition: quantize {self.config['quantize']}: {len(layers)} int8 "
-                  f"layers: {', '.join(layers) or 'none'}", file=sys.stderr, flush=True)
+            print(f"MathRecognition: quantize {self.config['quantize']} (parts "
+                  f"{', '.join(self.model.quant_parts)}): {len(layers)} int8 layers: "
+                  f"{', '.join(layers) or 'none'}", file=sys.stderr, flush=True)
         self.beam_size = (beam_size if beam_size is not None
                           else int(self.config.get("beam_size", 1)))
         self.table = make_ladder(

@@ -171,7 +171,7 @@ extern "C" int d2t_read_stamps(void* host) {
     lib = ctypes.CDLL(path + ".so")
     fn = lib.d2t_attention_step_coverage
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 16 + [ctypes.c_void_p]
     return lib
 
 

@@ -5,14 +5,15 @@ to end (the port's twin of the repository's ``tools/page_eval.py``).
         [--version synthetic_tfm_big] [--coalesce_ratio R] [--conf 0.5]
         [--nms_iou 0.1] [--expand 0.05] [--iou 0.5] [--oracle_boxes]
         [--regions hard|structured] [--detect_weights W] [--stitch]
-        [--device cuda] [--out result.json]
+        [--bf16_detect | --int8_detect] [--device cuda] [--out result.json]
 
 The same evaluation as the JAX package's: pages of 1024x1280 with up to 6
 pasted formula renders (seed 35; hard-benchmark renders, or with
 ``--regions structured`` the structured grammar's), the page pipeline
 (``app.App.detect_and_crop``: the released detector or ``--detect_weights``
-in float32, page NMS or with ``--stitch`` the voting stitch, 5 %
-expansion) and the version block's recognizer as it ships
+in float32, or with ``--bf16_detect``/``--int8_detect`` in bfloat16 or
+with its gated convolutions in int8, page NMS or with ``--stitch`` the
+voting stitch, 5 % expansion) and the version block's recognizer as it ships
 (``quantize: int8``, beam 10) on each page's crops in one call.
 Detections are matched to the ground-truth boxes greedily at IoU
 ``--iou``, in the detector's order; the row holds detection precision,
@@ -87,11 +88,12 @@ def synth_labelled_page(rng: np.random.Generator, n_regions: int = 6, style: str
 def result_key(version: str, pages: int, coalesce_ratio=None, conf: float = 0.5,
                nms_iou: float = 0.1, expand: float = 0.05, iou: float = 0.5,
                oracle_boxes: bool = False, stitch: bool = False, regions: str = "hard",
-               detect_weights=None) -> str:
+               detect_weights=None, detect_quantize=None) -> str:
     """The reference's row key: every knob off its default is named."""
     return version + ("_stitch" if stitch else "") + (
         f"_co{coalesce_ratio:g}" if coalesce_ratio else "") + (
         f"_{regions}" if regions != "hard" else "") + (
+        f"_{detect_quantize}det" if detect_quantize else "") + (
         "_customdet" if detect_weights else "") + (
         "_oracle" if oracle_boxes else "") + (
         f"_iou{iou:g}" if iou != 0.5 else "") + (
@@ -105,9 +107,10 @@ def evaluate(pages: int = 100, version: str = "synthetic_tfm_big", coalesce_rati
              conf: float = 0.5, nms_iou: float = 0.1, expand: float = 0.05,
              iou: float = 0.5, oracle_boxes: bool = False, device: str = "cuda",
              recognizer: MathRecognition | None = None, stitch: bool = False,
-             regions: str = "hard", detect_weights=None) -> dict:
+             regions: str = "hard", detect_weights=None, detect_quantize=None) -> dict:
     """The row of one arm.  ``recognizer`` replaces the version block's
-    (a test's tiny model); ``coalesce_ratio`` is then its own."""
+    (a test's tiny model); ``coalesce_ratio`` is then its own.
+    ``detect_quantize``: the detector's None, ``bf16`` or ``int8``."""
     if device != "cpu":
         if not torch.cuda.is_available():
             raise SystemExit("page_eval: no CUDA card; pass --device cpu to run on the CPU")
@@ -116,7 +119,8 @@ def evaluate(pages: int = 100, version: str = "synthetic_tfm_big", coalesce_rati
         cfg, weights = load_recog_config(version=version)
         recog = MathRecognition(cfg, weights, coalesce_ratio=coalesce_ratio, device=device)
     app = App(use_detect=True, recognizer=recog, detect_weights=detect_weights, conf_thresh=conf,
-              nms_iou=nms_iou, expand_frac=expand, stitch=stitch, device=device)
+              nms_iou=nms_iou, expand_frac=expand, stitch=stitch,
+              detect_quantize=detect_quantize, device=device)
     rng = np.random.default_rng(EVAL_SEED)
     data = [synth_labelled_page(rng, style=regions) for _ in range(pages)]
     n_gt = sum(len(b) for _, b, _ in data)
@@ -124,6 +128,7 @@ def evaluate(pages: int = 100, version: str = "synthetic_tfm_big", coalesce_rati
     print(f"page_eval: {pages} pages / {n_gt} GT regions, version={version} "
           f"beam={recog.beam_size} quantize={recog.config.get('quantize')} "
           f"coalesce={recog.coalesce_ratio} stitch={stitch} regions={regions} "
+          f"detect_quantize={detect_quantize} "
           f"device={device} tf32={tf32}",
           file=sys.stderr, flush=True)
 
@@ -175,7 +180,7 @@ def evaluate(pages: int = 100, version: str = "synthetic_tfm_big", coalesce_rati
         "version": version, "pages": pages, "gt_regions": n_gt, "stitch": bool(stitch),
         "beam": recog.beam_size, "quantize": recog.config.get("quantize"),
         "coalesce_ratio": recog.coalesce_ratio, "iou_thresh": iou, "conf_thresh": conf,
-        "nms_iou": nms_iou, "expand_frac": expand, "detect_quantize": None,
+        "nms_iou": nms_iou, "expand_frac": expand, "detect_quantize": detect_quantize,
         "oracle_boxes": bool(oracle_boxes), "regions": regions,
         "det_precision": round(prec, 4), "det_precision_ci": wilson(tp, tp + fp),
         "det_recall": round(rec, 4), "det_recall_ci": wilson(tp, tp + fn),
@@ -210,15 +215,22 @@ def main(argv=None) -> None:
                     help="detector msgpack instead of the shipped one (a retrained detector)")
     ap.add_argument("--stitch", action="store_true",
                     help="the voting stitch instead of the page NMS")
+    quant = ap.add_mutually_exclusive_group()
+    quant.add_argument("--int8_detect", action="store_true",
+                       help="the detector's gated convolutions in int8 (ops/quant.py)")
+    quant.add_argument("--bf16_detect", action="store_true",
+                       help="the detector's convolutions in bfloat16 (parameters float32)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default=OUT_PATH)
     args = ap.parse_args(argv)
+    detect_quantize = "int8" if args.int8_detect else "bf16" if args.bf16_detect else None
     row = evaluate(args.pages, args.version, args.coalesce_ratio, args.conf, args.nms_iou,
                    args.expand, args.iou, args.oracle_boxes, args.device, stitch=args.stitch,
-                   regions=args.regions, detect_weights=args.detect_weights)
+                   regions=args.regions, detect_weights=args.detect_weights,
+                   detect_quantize=detect_quantize)
     key = result_key(args.version, args.pages, args.coalesce_ratio, args.conf, args.nms_iou,
                      args.expand, args.iou, args.oracle_boxes, args.stitch, args.regions,
-                     args.detect_weights)
+                     args.detect_weights, detect_quantize)
     merged = {}
     if os.path.exists(args.out):
         with open(args.out) as f:

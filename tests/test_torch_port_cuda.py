@@ -561,3 +561,123 @@ def test_stitch_on_card_matches_jax_golden():
     strings, B1 launching."""
     _need_card()
     chip_smoke.stitch_check(time.perf_counter(), "cuda", n_pages=1)
+
+
+# ---- the int8 forms of B1 and B2 (decode memory in int8) -----------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_kv_kernel_matches_plain_version(dtype):
+    """B1's int8 K/V form against its plain version (chip_smoke.TOL) at the
+    release shapes, where M is split over a cluster, a dead cache tail, and
+    hd 64 and 128; bit for bit (bf16) on the rounding-point inputs."""
+    _need_card()
+    cases = ((64, 10, 1510, 8, 32, True, 150), (64, 10, 623, 8, 32, False, None),
+             (1, 10, 5010, 8, 32, True, 500), (8, 10, 1510, 8, 32, True, None),
+             (64, 10, 930, 8, 32, True, 71), (4, 16, 96, 4, 64, True, None),
+             (4, 3, 70, 2, 128, False, None), (2, 5, 300, 2, 128, True, None))
+    before = decode_attention.int8_launches
+    for B, K, M, nh, hd, masked, step in cases:
+        chip_smoke.check_attention_int8(B, K, M, nh, hd, dtype, masked, seed=M, step=step)
+    assert chip_smoke.int8_rounding_point_check() == 6
+    assert decode_attention.int8_launches == before      # the checks do not count
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_memory_kernel_matches_plain_version(dtype):
+    """B2's int8 form (coverage; float32 or bf16 compute) against its plain
+    version (chip_smoke.B2_TOL): K 1, 5, 10, D = H 128 and 256, S split
+    over clusters, valid_len None and S - 17."""
+    _need_card()
+    from doc2tex_tpu_torch.ops.attention_step import coverage_attention_step_int8_reference
+
+    shapes = ((64, 10, 623, 128, 128, 64), (3, 1, 83, 128, 128, 64), (8, 5, 445, 256, 256, 128),
+              (2, 10, 2525, 256, 256, 128))
+    for i, (Bs, K, S, D, H, Kl) in enumerate(shapes):
+        kw, q8 = chip_smoke.coverage_int8_inputs(Bs, K, S, D, H, Kl, dtype, 150, seed=i)
+        for valid in (None, S - 17):
+            before = coverage_attention_step.int8_launches
+            got = coverage_attention_step(**kw, valid_len=valid, **q8)
+            assert coverage_attention_step.int8_launches == before + 1
+            ref = coverage_attention_step_int8_reference(*kw.values(), valid, q8["enc_scale"],
+                                                         q8["proj_scale"], dtype)
+            torch.cuda.synchronize()
+            chip_smoke._check_b2("int8 form", got, ref, (Bs, K, S, D, valid))
+
+
+def _tiny_decode_config(head: str) -> dict:
+    if head == "TFM":
+        return make_config(dict(
+            max_dimension=[64, 128], min_dimension=[32, 32], batch_max_length=40,
+            dtype="float32", FeatureExtraction={"name": "None"},
+            SequenceModeling={"name": "ViT", "params": {
+                "backbone": {"name": "resnet", "input_channel": 1, "output_channel": 64},
+                "fix_embed": True, "patching_style": "2d", "patch_size": [2, 2],
+                "depth": 2, "num_heads": 2, "hidden_size": 64}},
+            Prediction={"name": "TFM", "params": {
+                "d_model": 64, "nhead": 2, "num_decoder_layers": 2, "dim_feedforward": 128}}))
+    return make_config(dict(
+        max_dimension=[64, 128], min_dimension=[32, 32], batch_max_length=40, dtype="float32",
+        FeatureExtraction={"name": "None"},
+        SequenceModeling={"name": "ViT", "params": {
+            "backbone": {"name": "resnet", "input_channel": 1, "output_channel": 32},
+            "fix_embed": True, "patching_style": "2d", "patch_size": [2, 2],
+            "depth": 1, "num_heads": 2, "hidden_size": 128}},
+        Prediction={"name": "Attnv2", "params": {
+            "seqmodel": "TFM", "input_size": 128, "hidden_size": 128, "kernel_size": 2,
+            "kernel_dim": 16, "enc_init": True, "attn_type": "coverage"}}))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head,parts", [("TFM", ("decoder_mem",)),
+                                        ("TFM", ("decoder_mem", "decoder_kv")),
+                                        ("Attnv2", ("decoder_mem",))])
+def test_int8_memory_decode_on_card_matches_cpu(head, parts):
+    """Tiny random-weight models, beam 5, float32, decode memory in int8:
+    the same tokens on the card (the int8 forms; no float launch where the
+    memory is int8) as on the CPU (their plain versions)."""
+    _need_card()
+    cfg = _tiny_decode_config(head)
+    torch.manual_seed(0)
+    model = build_model(cfg, 24).eval()
+    if head != "TFM":
+        with torch.no_grad():  # weights of unit fan-in scale, so logits are far from ties
+            for p in model.predicter.parameters():
+                p.normal_(0.0, p.shape[0] ** -0.5 if p.dim() > 1 else 0.1)
+    model.set_quantize(parts)
+    images = np.random.default_rng(0).integers(0, 256, (4, 32, 64, 1)).astype(np.uint8)
+    cpu_tokens, _ = make_decode_fn(model, cfg, beam_size=5, device="cpu")(images)
+    model.cuda()
+    chip_smoke.reset_launches()
+    gpu_tokens, _ = make_decode_fn(model, cfg, beam_size=5, device="cuda")(images)
+    counts = chip_smoke.launch_counts()
+    if head == "TFM":
+        assert counts["decode_attention_int8"] > 0
+        assert (counts["decode_attention"] == 0) == ("decoder_kv" in parts)
+    else:
+        assert counts["attention_step_int8"] > 0 and counts["attention_step"] == 0
+    np.testing.assert_array_equal(gpu_tokens.cpu().numpy(), cpu_tokens.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_quantized_detector_runs_on_card(mode):
+    """MathDetector in bf16 and int8 on a seeded page: boxes on the card,
+    loc/conf of a window near the CPU's (the gates of
+    tests/test_torch_port_detect.py's quantized test, against the CPU)."""
+    _need_card()
+    from doc2tex_tpu_torch.detection.flow import SHIPPED_WEIGHTS, MathDetector
+    from doc2tex_tpu_torch.tools.page_eval import synth_labelled_page
+
+    page = synth_labelled_page(np.random.default_rng(35))[0]
+    det = MathDetector(SHIPPED_WEIGHTS, quantize=mode)
+    boxes, scores = det.detect_page(page)
+    assert len(boxes) > 0 and np.all(scores >= det.conf_thresh)
+    cpu = MathDetector(SHIPPED_WEIGHTS, quantize=mode, device="cpu")
+    x = det.model_input(det.page_windows(page)[0][:2])
+    with torch.inference_mode():
+        got = [t.float().cpu() for t in det.ssd(x)]
+        want = [t.float() for t in cpu.ssd(x.cpu())]
+    for g, w in zip(got, want):
+        assert (g - w).abs().max().item() <= 0.05 * w.abs().max().item()

@@ -14,16 +14,21 @@
   detectors returning the same fixed boxes;
 - ``detect_preprocess`` byte-equal to PIL's LANCZOS; the page-eval twin's
   ``synth_labelled_page`` byte-equal to ``tools/page_eval.py``'s; the
-  twin's scoring on oracle boxes; the detector loader fills every leaf.
+  twin's scoring on oracle boxes; the detector loader fills every leaf;
+- the quantized detector (``quantize="bf16"`` and ``"int8"``) on one
+  seeded window against JAX's SSD under the same mode (tolerances at the
+  test), and its int8 layers the JAX hook's.
 
 The golden pages that ``chip_smoke.py`` holds the card to are written by
 the JAX package on the CPU (``PYTHONPATH=. python
-tests/test_torch_port_detect.py --write-golden-pages``); the tests only
-read them.
+tests/test_torch_port_detect.py --write-golden-pages``, and
+``--write-golden-pages-quant`` for the bf16 and int8 detector's boxes);
+the tests only read them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -48,6 +53,11 @@ from doc2tex_tpu_torch.weights import convert_variables, load_weights
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 GOLDEN_PAGES = os.path.join(HERE, "torch_port_golden_pages.json")
+# the bf16 and int8 detector's boxes on the same pages (host windows, 5 a
+# batch, as the float32 golden's: the int8 activation scale is the batch's)
+GOLDEN_PAGES_QUANT = {q: os.path.join(HERE, f"torch_port_golden_pages_{q}.json")
+                      for q in ("bf16", "int8")}
+GOLDEN_QUANT_WINDOW_BATCH = 5
 N_GOLDEN_PAGES = 3
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 
@@ -64,6 +74,50 @@ def _test_page(seed: int = 35) -> np.ndarray:
     from doc2tex_tpu_torch.tools.page_eval import synth_labelled_page
 
     return np.ascontiguousarray(synth_labelled_page(np.random.default_rng(seed))[0][:512, :768])
+
+
+@contextlib.contextmanager
+def exact_int8_conv():
+    """JAX's int8 convolution (``int8_conv_general_dilated``'s int32 product
+    of int8 operands) computed as float32 convolutions over groups of input
+    channels small enough that every partial sum is an integer below 2^24,
+    so exact in any order, summed in int32: the same integers as XLA's
+    int8 convolution, which takes ~55 s a 512x512 SSD window on this CPU.
+    The JAX package is not changed: its module's ``lax`` is swapped for the
+    block's duration (trace time)."""
+    import doc2tex_tpu.ops.quant as jq
+
+    lax = jax.lax
+
+    class ExactLax:
+        def __getattr__(self, name):
+            return getattr(lax, name)
+
+        @staticmethod
+        def conv_general_dilated(lhs, rhs, *args, preferred_element_type=None, **kwargs):
+            if preferred_element_type != jnp.int32:
+                return lax.conv_general_dilated(lhs, rhs, *args,
+                                                preferred_element_type=preferred_element_type,
+                                                **kwargs)
+            kh, kw, cin, _ = rhs.shape         # HWIO, the input channels last in lhs
+            assert lhs.dtype == rhs.dtype == jnp.int8 and lhs.shape[-1] == cin
+            step = max(1, (2 ** 24 // 127 ** 2) // (kh * kw))
+            acc = 0
+            for c0 in range(0, cin, step):
+                part = lax.conv_general_dilated(
+                    lhs[..., c0:c0 + step].astype(jnp.float32),
+                    rhs[:, :, c0:c0 + step].astype(jnp.float32), *args,
+                    precision=lax.Precision.HIGHEST,
+                    **{k: v for k, v in kwargs.items() if k != "precision"})
+                acc = acc + part.astype(jnp.int32)
+            return acc
+
+    real = jq.lax
+    jq.lax = ExactLax()
+    try:
+        yield
+    finally:
+        jq.lax = real
 
 
 @pytest.fixture(scope="module")
@@ -144,6 +198,71 @@ def test_ssd512_with_released_weights_matches_jax(detectors):
     for got, want in ((loc, jloc), (conf, jconf)):
         want = np.asarray(want)
         np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=1e-4)
+
+
+# loc/conf of the quantized SSD against JAX's in the same mode, on the
+# seeded window: relative to each output's largest magnitude (loc ~4.7,
+# conf ~17).  bf16: every convolution rounds its output to bf16 (2^-8
+# relative) and the two packages' convolutions sum in other orders, so the
+# outputs part by a few units in the last place over 22 layers; the port
+# measured 3.3e-3 (loc) and 7.3e-3 (conf) of the largest magnitude.  int8:
+# the products are exact in both, but a float32 layer that differs in its
+# last bit (the first two convolutions and the heads stay float32) can put
+# an activation on the other side of a rounding boundary: one quantization
+# step, ~1 % of its tensor's abs-max, which the next layers carry; the port
+# measured 1.7e-2 (loc) and 6.5e-3 (conf).  In both modes the port's
+# outputs must lie nearer to JAX's in that mode than the port's float32
+# outputs do, so a mode that silently ran in float32 fails: the mean error
+# was 0.45 (loc) and 0.09 (conf) of the float32 outputs' from JAX's bf16
+# ones, and 0.49 and 0.48 from JAX's int8 ones.  The gates are about 3
+# times the measured errors, and the mean at 0.75.
+SSD_QUANT_TOL = {"bf16": 0.02, "int8": 0.05}
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_ssd512_quantized_matches_jax(mode):
+    """SSD512 under ``quantize`` bf16 (bfloat16 compute, float32 weights)
+    and int8 (the gated convolutions through the int8 op) on the seeded
+    window: loc and conf within SSD_QUANT_TOL of the largest magnitude of
+    JAX's in the same mode, and nearer to JAX's in that mode than the
+    float32 outputs are."""
+    from doc2tex_tpu.detection.flow import MathDetector as JaxDetector
+    from doc2tex_tpu.ops.quant import quantized_inference
+
+    x = (np.random.default_rng(0).integers(0, 256, (1, 512, 512, 3)).astype(np.float32)
+         - np.float32(246))
+    jdet = JaxDetector(weights_path=SHIPPED_WEIGHTS, quantize=mode)
+    with exact_int8_conv(), (quantized_inference() if mode == "int8"
+                             else contextlib.nullcontext()):
+        want = [np.asarray(w, np.float32)
+                for w in jax.jit(jdet.model.apply)(jdet.variables, jnp.asarray(x))]
+    tdet = MathDetector(SHIPPED_WEIGHTS, quantize=mode, device="cpu")
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).contiguous()
+    with torch.inference_mode():
+        got = [g.float().numpy() for g in tdet.model(xt)]
+        tdet.model.set_quantize(None)
+        plain = [g.numpy() for g in tdet.model(xt)]
+    assert got[0].shape == (1, 65532, 4) and got[1].shape == (1, 65532, 2)
+    for g, w, f in zip(got, want, plain):
+        top = np.abs(w).max()
+        np.testing.assert_allclose(g, w, atol=SSD_QUANT_TOL[mode] * top, rtol=0)
+        assert np.abs(g - w).mean() < 0.75 * np.abs(f - w).mean()  # the mode is in effect
+
+
+def test_exact_int8_conv_equals_jax_int8_conv():
+    """The golden writer's exact convolution gives XLA's int8 integers."""
+    import doc2tex_tpu.ops.quant as jq
+
+    rng = np.random.default_rng(3)
+    x = jnp.asarray(rng.normal(size=(2, 11, 13, 300)).astype(np.float32))
+    w = jnp.asarray(rng.normal(size=(3, 3, 300, 128)).astype(np.float32) * 0.05)
+    dn = ("NHWC", "HWIO", "NHWC")
+    op = lambda a, k: jq.int8_conv_general_dilated(a, k, (1, 1), "SAME", rhs_dilation=(2, 2),
+                                                   dimension_numbers=dn)
+    want = np.asarray(jax.jit(op)(x, w))
+    with exact_int8_conv():
+        got = np.asarray(jax.jit(op)(x, w))
+    np.testing.assert_array_equal(got, want)
 
 
 def _seeded_loc_conf(seed: int = 5, B: int = 4, N: int = 3000):
@@ -341,11 +460,13 @@ def test_app_detect_and_crop_matches_demo_app(detectors, monkeypatch):
     assert no_detect.detect_and_crop(page)[0] == [(0, 0, 900, 700)]
     assert no_detect(page) == [((0, 0, 900, 700), "y")]
     # the voting stitch is ported (tests/test_torch_port_stitch.py holds it);
-    # bf16 detection still raises
+    # detect_quantize reaches the detector: bf16 convolutions, float32 weights
     stitching = App(stitch=True, recognizer=lambda c: c, device="cpu")
     assert stitching.stitch and stitching.stitch_votes == 8
-    with pytest.raises(NotImplementedError, match="A7"):
-        App(detect_quantize="bf16", recognizer=lambda c: c, device="cpu")
+    bf16 = App(detect_quantize="bf16", recognizer=lambda c: c, device="cpu")
+    assert bf16.detector.quantize == "bf16" and not bf16.detector.int8_layers
+    assert {bf16.detector.model.conv(i).dtype for i in range(39)} == {torch.bfloat16}
+    assert {p.dtype for p in bf16.detector.model.parameters()} == {torch.float32}
 
 
 def test_app_cli_reads_a_png_page(tmp_path, capsys):
@@ -450,8 +571,13 @@ def test_detector_loader_consumes_every_leaf():
     assert torch.equal(model.Conv_13.kernel,
                        torch.from_numpy(kernel.astype(np.float32).transpose(3, 2, 0, 1)))
     assert model.L2Norm_0.weight.dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="A7"):
-        MathDetector(quantize="int8", device="cpu")
+    # int8: the convolutions that pass the shape gates, conv6 (dilation 6)
+    # and conv7 among them; the heads stay float32.  Other modes raise.
+    det = MathDetector(quantize="int8", device="cpu")
+    assert det.int8_layers == [f"Conv_{i}" for i in range(2, 25)]
+    assert det.model.Conv_13.dilation == 6 and det.model.Conv_13.takes_int8()
+    with pytest.raises(ValueError, match="quantize"):
+        MathDetector(quantize="fp8", device="cpu")
 
 
 def test_golden_pages_regenerate():
@@ -521,7 +647,139 @@ def write_golden_pages(n_pages: int = N_GOLDEN_PAGES) -> None:
         f.write("\n")
 
 
+def write_golden_pages_quant(n_pages: int = N_GOLDEN_PAGES) -> None:
+    """The JAX package's MathDetector (the released weights) with
+    ``quantize`` bf16 and int8 on the golden pages on the CPU, through its
+    host-window path, GOLDEN_QUANT_WINDOW_BATCH windows a batch (the int8
+    scale is a batch's), the int8 convolutions through
+    ``exact_int8_conv``; writes each mode's boxes and scores."""
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_default_matmul_precision", "float32")
+    from doc2tex_tpu.detection.flow import MathDetector as JaxDetector
+
+    with open(GOLDEN_PAGES) as f:
+        plain = json.load(f)
+    for mode, path in GOLDEN_PAGES_QUANT.items():
+        det = JaxDetector(weights_path=SHIPPED_WEIGHTS, quantize=mode)
+        det.device_windows, det.batch_size = False, GOLDEN_QUANT_WINDOW_BATCH
+        rng = np.random.default_rng(_jax_page_eval().EVAL_SEED)
+        pages = []
+        with exact_int8_conv():
+            for g in plain["pages"][:n_pages]:
+                page, _, _ = _jax_page_eval().synth_labelled_page(rng)
+                assert hashlib.sha256(page.tobytes()).hexdigest() == g["sha256"]
+                boxes, scores = det.detect_page(page)
+                pages.append({"sha256": g["sha256"], "boxes": np.asarray(boxes).tolist(),
+                              "scores": np.asarray(scores).tolist()})
+                print(f"{mode} page {len(pages)}: {len(boxes)} boxes", flush=True)
+        golden = {
+            "seed": plain["seed"], "page_hw": plain["page_hw"], "detector": plain["detector"],
+            "quantize": mode, "window_batch": GOLDEN_QUANT_WINDOW_BATCH,
+            "conf_thresh": plain["conf_thresh"], "nms_iou": plain["nms_iou"],
+            "expand_frac": plain["expand_frac"], "pages": pages,
+        }
+        with open(path, "w") as f:
+            json.dump(golden, f, indent=1)
+            f.write("\n")
+
+
+def page_detection_counts(gt_per_page, boxes_per_page) -> tuple[int, int, int]:
+    """(true, false, missed) boxes over pages as ``tools/page_eval.py``
+    counts them: greedy unique matching in the detector's order at IoU 0.5."""
+    tp = fp = fn = 0
+    for gt, boxes in zip(gt_per_page, boxes_per_page):
+        gt = np.asarray(gt, np.float32).reshape(-1, 4)
+        db = np.asarray(boxes, np.float32).reshape(-1, 4)
+        ious, taken = teval.iou_matrix(db, gt), np.zeros(len(gt), bool)
+        for i in range(len(db)):
+            cand = np.where(~taken, ious[i], -1.0)
+            j = int(np.argmax(cand)) if len(gt) else -1
+            hit = j >= 0 and bool(cand[j] >= 0.5)
+            if hit:
+                taken[j] = True
+            tp, fp = tp + hit, fp + (not hit)
+        fn += int((~taken).sum())
+    return tp, fp, fn
+
+
+def compare_int8_pages(n_pages: int = 4) -> dict:
+    """The page-eval twin's first ``n_pages`` pages (seed 35) through the
+    JAX package's float32 and int8 detectors (CPU; the device-window path,
+    a page's windows in one batch; int8 through ``exact_int8_conv``) and
+    the port's int8 detector on the CPU: (true, false, missed) boxes at IoU
+    0.5 for each, and the port's int8 boxes paired with JAX's within 3 px
+    (``chip_smoke.check_detections``).  Not part of the tests: a check of
+    where int8 detection's precision goes."""
+    import chip_smoke
+
+    jax.config.update("jax_platforms", "cpu")
+    from doc2tex_tpu.detection.flow import MathDetector as JaxDetector
+
+    rng = np.random.default_rng(_jax_page_eval().EVAL_SEED)
+    pages = [_jax_page_eval().synth_labelled_page(rng) for _ in range(n_pages)]
+
+    def score(boxes_per_page):
+        return page_detection_counts([gt for _, gt, _ in pages], boxes_per_page)
+
+    out, jax_int8 = {}, None
+    with exact_int8_conv():
+        for mode in (None, "int8"):
+            det = JaxDetector(weights_path=SHIPPED_WEIGHTS, quantize=mode)
+            jax_int8 = [det.detect_page(page) for page, _, _ in pages]
+            out[f"jax_{mode or 'float32'}"] = score([b for b, _ in jax_int8])
+    port = MathDetector(SHIPPED_WEIGHTS, quantize="int8", device="cpu")
+    results = [port.detect_page(page) for page, _, _ in pages]
+    out["port_int8"] = score([b for b, _ in results])
+    golden = {"pages": [{"boxes": np.asarray(b).tolist(), "scores": np.asarray(sc).tolist()}
+                        for b, sc in jax_int8]}
+    n_pairs, worst_px, worst_score, unmatched = chip_smoke.check_detections(
+        golden, results, 0.5, {"box_px": 3.0, "score": 1.0, "unmatched": 99, "near": 1.0})
+    out["port_vs_jax_int8"] = {"pairs": n_pairs, "worst_px": worst_px,
+                               "worst_score": worst_score, "unmatched": unmatched}
+    return out
+
+
+def jax_page_detect(n_pages: int = 40, mode: str | None = "int8") -> dict:
+    """Detection precision and recall of the JAX package's page path in
+    ``mode`` on the page-eval twin's first ``n_pages`` pages (seed 35), as
+    ``tools/page_eval.py`` scores them: ``demo/app.py``'s
+    ``detect_and_crop`` (shipped detector, conf 0.5, NMS 0.1, expansion
+    0.05), greedy unique matching at IoU 0.5, Wilson 95 % intervals.  CPU;
+    int8 through ``exact_int8_conv``; no recognition.  Not part of the
+    tests: JAX's own row beside the port's ``page_eval --int8_detect``."""
+    from doc2tex_tpu_torch.tools.release_eval import wilson
+
+    jax.config.update("jax_platforms", "cpu")
+    import demo.app as demo_app
+
+    rng = np.random.default_rng(_jax_page_eval().EVAL_SEED)
+    pages = [_jax_page_eval().synth_labelled_page(rng) for _ in range(n_pages)]
+    with exact_int8_conv():
+        app = demo_app.App(use_detect=True, recognizer=lambda crops: [""] * len(crops),
+                           detect_quantize=mode)
+        boxes = [app.detect_and_crop(page)[0] for page, _, _ in pages]
+    tp, fp, fn = page_detection_counts([gt for _, gt, _ in pages], boxes)
+    return {"pages": n_pages, "detect_quantize": mode, "tp": tp, "fp": fp, "fn": fn,
+            "det_precision": round(tp / max(tp + fp, 1), 4),
+            "det_precision_ci": wilson(tp, tp + fp),
+            "det_recall": round(tp / max(tp + fn, 1), 4), "det_recall_ci": wilson(tp, tp + fn)}
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--jax-page-detect"]:
+        sys.path.insert(0, ROOT)
+        n, mode = (sys.argv[2:] + ["40", "int8"])[:2]
+        print(json.dumps(jax_page_detect(int(n), None if mode == "float32" else mode)))
+        sys.exit(0)
+    if sys.argv[1:] == ["--write-golden-pages-quant"]:
+        write_golden_pages_quant()
+        sys.exit(0)
+    if sys.argv[1:2] == ["--compare-int8-pages"]:
+        sys.path.insert(0, ROOT)
+        print(json.dumps(compare_int8_pages(*map(int, sys.argv[2:3]))))
+        sys.exit(0)
     if sys.argv[1:] != ["--write-golden-pages"]:
-        sys.exit("usage: PYTHONPATH=. python tests/test_torch_port_detect.py --write-golden-pages")
+        sys.exit("usage: PYTHONPATH=. python tests/test_torch_port_detect.py "
+                 "--write-golden-pages | --write-golden-pages-quant | --compare-int8-pages [n] | "
+                 "--jax-page-detect [n] [int8|bf16|float32]")
     write_golden_pages()

@@ -7,10 +7,10 @@ package's ``api/infer.py``.
   one checkpoint of numpy draws for every leaf: the same images from
   ``load_csv_dataset``, the same ``predictions.csv`` rows and the same
   metric lines.
-- Each refusal raises by name: ``--resizer`` (A6), ``--int8-full`` and
-  ``quantize: int8_full`` (A5), an LMDB ``eval_data`` folder (A11),
-  ``--platform``; a missing ``saved_model`` or vocabulary raises as JAX's
-  CLI does.
+- Each refusal raises by name: ``--resizer`` (A6), an LMDB ``eval_data``
+  folder (A11), ``--platform``; a missing ``saved_model`` or vocabulary
+  raises as JAX's CLI does.  ``--int8-full`` and ``quantize: int8_full``
+  run: the CLI's predictions equal the JAX CLI's with ``--int8-full``.
 - ``tests/torch_port_golden_infer.json`` (the JAX CLI's predictions over the
   ``synthetic_long`` golden crops, which ``chip_smoke.py``'s infer phase
   holds the card to) names those crops and their labels, and the PNG
@@ -183,22 +183,38 @@ def test_main_equals_jax_cli(manifest, small, tmp_path, capsys):
         assert rows["port_metrics"][key] == pytest.approx(rows["jax_metrics"][key], abs=1e-9)
 
 
-@pytest.mark.parametrize("flag,item", [("--resizer", "A6"), ("--int8-full", "A5"),
+@pytest.mark.parametrize("flag,item", [("--resizer", "A6"), ("--int8-full", None),
                                        ("--platform", "platform")])
-def test_refusals_raise_by_name(manifest, small, flag, item):
+def test_refusals_raise_by_name(manifest, small, flag, item, tmp_path, capsys):
+    """The refusals raise by name; ``--int8-full`` (int8 encoder and decode
+    memory) runs, and its predictions.csv equals the JAX CLI's with the
+    same flag."""
     csv_path, img_dir, _ = manifest
     argv = ["--config", small[0], "--csv_dir", csv_path, "--data_dir", img_dir,
             "--device", "cpu", flag] + (["cpu"] if flag == "--platform" else [])
-    with pytest.raises(NotImplementedError, match=item):
-        infer.main(argv)
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            infer.main(argv)
+        return
+    jax_argv = [a for a in argv if a not in ("--device", "cpu")]
+    _jax_main(jax_argv + ["--log_path", str(tmp_path / "jax")], capsys)
+    infer.main(argv + ["--log_path", str(tmp_path / "port")])
+    rows = {}
+    for side in ("jax", "port"):
+        with open(tmp_path / side / "predictions.csv", newline="") as f:
+            rows[side] = list(csv.reader(f))
+    assert rows["port"] == rows["jax"] and len(rows["port"]) == 11
 
 
 def test_config_refusals_raise_by_name(manifest, small, tmp_path):
     csv_path, img_dir, _ = manifest
     cfg = load_config(small[0])
     dataset = infer.load_csv_dataset(csv_path, img_dir, cfg)
-    with pytest.raises(NotImplementedError, match="A5"):
-        infer.run_infer(dict(cfg, quantize="int8_full"), dataset, device="cpu")
+    # quantize: int8_full runs (no refusal); an unknown mode raises
+    result = infer.run_infer(dict(cfg, quantize="int8_full"), dataset, device="cpu")
+    assert result["n_samples"] == 10
+    with pytest.raises(ValueError, match="unknown quantize mode"):
+        infer.run_infer(dict(cfg, quantize="int8_kv"), dataset, device="cpu")
     lmdb = tmp_path / "eval_lmdb"
     lmdb.mkdir()
     path = tmp_path / "lmdb.yaml"

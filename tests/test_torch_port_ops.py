@@ -48,8 +48,11 @@ def test_plain_version_matches_jax_reference(K, masked):
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     q, k, v, mask = (torch.from_numpy(x) for x in _inputs(2, 3, 9, True, seed=0))
-    with pytest.raises(NotImplementedError, match="int8"):
+    # int8 K/V: both scales, and int8 K and V (tests/test_torch_port_quant_decoder.py)
+    with pytest.raises(ValueError, match="together"):
         decode_attention(q, k, v, mask, k_scale=torch.ones(2, 9, NH))
+    with pytest.raises(TypeError, match="int8"):
+        decode_attention(q, k, v, mask, torch.ones(2, 9, NH), torch.ones(2, 9, NH))
     with pytest.raises(ValueError, match="shape"):
         decode_attention(q, k[:, :, :2], v, mask)
     with pytest.raises(ValueError, match="mask"):

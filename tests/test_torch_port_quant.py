@@ -17,7 +17,7 @@
   of its tensor's abs-max, in the other, and the next layers carry it),
   and beam-5 tokens equal for both head families.
 - The flow: the batch snap's padding rows (copies of row 0) leave int8
-  strings unchanged, and the modes not ported are refused.
+  strings unchanged; ``int8_full`` runs, and unknown modes are refused.
 """
 
 from __future__ import annotations
@@ -328,12 +328,29 @@ def test_padding_rows_leave_int8_strings_unchanged(no_gates):
     assert (memory(other) - memory(exact)).abs().max() > 0.05
 
 
-@pytest.mark.parametrize("mode,error", [("int8_full", NotImplementedError),
-                                        ("decoder_kv", NotImplementedError),
+@pytest.mark.parametrize("mode,error", [("int8_full", None), ("decoder_kv", ValueError),
                                         ("fp8", ValueError)])
 def test_modes_not_ported_are_refused(mode, error):
-    with pytest.raises(error, match="ROADMAP A5" if error is NotImplementedError else "unknown"):
-        _tiny_recognizer(quantize=mode)
+    """``int8_full`` runs (the encoder and the decode memory in int8: the
+    parts reach the head, whose state holds int8 memory); ``decoder_kv`` is
+    a part, not a mode, and raises like any unknown mode (the JAX package's
+    lookup gives None for it, which runs unquantized)."""
+    if error is not None:
+        with pytest.raises(error, match="unknown"):
+            _tiny_recognizer(quantize=mode)
+        return
+    rec = _tiny_recognizer(quantize=mode)
+    assert rec.model.quant_parts == ("encoder", "decoder_mem")
+    assert rec.model.predicter.quant_parts == ("decoder_mem",)
+    crop = synth_hard_sample(np.random.default_rng(0), min_len=3, max_len=10, max_h=60,
+                             max_w=120)[0]
+    with torch.inference_mode():
+        x = normalize(torch.from_numpy(rec.make_batch([rec._preprocess(crop)],
+                                                      rec.bucket_key(crop))))
+        state = rec.model.init_decode_state(rec.model.encode(x), 13, 3)
+    assert state.enc.dtype == state.enc_proj.dtype == torch.int8
+    assert tuple(state.enc_scale.shape) == tuple(state.proj_scale.shape) == (1, 1, 1)
+    assert isinstance(rec(crop), str)
 
 
 def test_release_configs_accept_int8():

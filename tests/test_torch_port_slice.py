@@ -11,9 +11,15 @@ same crops with the int8 encoder (``quantize: int8``, as the releases
 ship), still float32.  ``synthetic_tfm`` and ``synthetic_long`` have the
 same four files (``torch_port_golden_synthetic_{tfm,long}[_int8].json``);
 the long release's crops are 16 ``synth_long_sample`` displays inside
-448x960.  Each is written once by ``write_golden``
-(``PYTHONPATH=. python tests/test_torch_port_slice.py --write-golden
-[version] [--quantize int8]``); the tests only read them.
+448x960.  ``synthetic_tfm_big`` and ``synthetic`` also have the strings
+with decoder memory in int8 (``quantize: int8_full``: the encoder and the
+attention memory), ``torch_port_golden[_synthetic]_int8_full.json``, and
+``synthetic_tfm_big`` with the growing self-attention caches in int8 too
+(the parts ``encoder, decoder_mem, decoder_kv``, which no ``quantize:``
+mode names), ``torch_port_golden_int8_kv.json``.  Each is written once by
+``write_golden`` (``PYTHONPATH=. python tests/test_torch_port_slice.py
+--write-golden [version] [--quantize int8|int8_full|int8_kv]``); the tests
+only read them.
 """
 
 from __future__ import annotations
@@ -45,6 +51,16 @@ GOLDEN_INT8_FILES = {
     "synthetic": os.path.join(HERE, "torch_port_golden_synthetic_int8.json"),
     "synthetic_tfm": os.path.join(HERE, "torch_port_golden_synthetic_tfm_int8.json"),
     "synthetic_long": os.path.join(HERE, "torch_port_golden_synthetic_long_int8.json")}
+# the same crops with decoder memory in int8, in float32: the JAX
+# package's parts of each mode (``int8_kv`` is no ``quantize:`` mode: its
+# parts are set on the recognizer)
+QUANT_PARTS = {"int8": ("encoder",), "int8_full": ("encoder", "decoder_mem"),
+               "int8_kv": ("encoder", "decoder_mem", "decoder_kv")}
+GOLDEN_QUANT_FILES = {
+    "int8": GOLDEN_INT8_FILES,
+    "int8_full": {v: GOLDEN_FILES[v].replace(".json", "_int8_full.json")
+                  for v in ("synthetic_tfm_big", "synthetic")},
+    "int8_kv": {"synthetic_tfm_big": GOLDEN.replace(".json", "_int8_kv.json")}}
 VERSION = "synthetic_tfm_big"
 N_CROPS = 16
 CROP_MAX = (224, 704)
@@ -86,8 +102,8 @@ def sha256(img: np.ndarray) -> str:
 
 def write_golden(version: str = VERSION, quantize: str | None = None) -> None:
     """Run the JAX package's MathRecognition with the released ``version``
-    on the 16 crops (CPU, float32, ``quantize`` None or ``int8``) and write
-    its golden file.  Not part of the tests."""
+    on the 16 crops (CPU, float32, ``quantize`` None or a key of
+    QUANT_PARTS) and write its golden file.  Not part of the tests."""
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -97,11 +113,13 @@ def write_golden(version: str = VERSION, quantize: str | None = None) -> None:
     from doc2tex_tpu.recognition.flow import coalesce_groups
     from doc2tex_tpu.recognition.flow import load_recog_config as jax_load
 
+    from test_torch_port_detect import exact_int8_conv
+
     seeds = golden_crop_seeds(version=version)
     crops = [make_crop(s, version) for s in seeds]
     cfg, weights = jax_load(version=version)
     cfg["dtype"] = "float32"
-    cfg["quantize"] = quantize
+    cfg["quantize"] = "int8_full" if quantize == "int8_kv" else quantize
     if version == "synthetic_long":
         # the 16 crops share one 448x960 bucket, which the batch snap pads
         # to 64 rows; the padding rows repeat row 0, so they change neither
@@ -111,7 +129,12 @@ def write_golden(version: str = VERSION, quantize: str | None = None) -> None:
     outputs = {}
     for name, beam in (("beam10", 10), ("greedy", 1)):
         rec = JaxRecognition(cfg.copy(), weights, beam_size=beam)
-        outputs[name] = rec([img for img, _ in crops])
+        if quantize:
+            rec.quant_parts = QUANT_PARTS[quantize]
+        # XLA's int8 convolution on the CPU, in exact float32 pieces (the same
+        # integers, see exact_int8_conv)
+        with exact_int8_conv():
+            outputs[name] = rec([img for img, _ in crops])
         buckets = [rec.bucket_key(img) for img, _ in crops]
     groups: dict = {}
     for i, b in enumerate(buckets):
@@ -135,7 +158,7 @@ def write_golden(version: str = VERSION, quantize: str | None = None) -> None:
     }
     if generator != "synth_hard_sample":
         golden["generator"] = generator
-    with open((GOLDEN_INT8_FILES if quantize else GOLDEN_FILES)[version], "w") as f:
+    with open((GOLDEN_QUANT_FILES[quantize] if quantize else GOLDEN_FILES)[version], "w") as f:
         json.dump(golden, f, indent=1, ensure_ascii=False)
         f.write("\n")
 
@@ -156,14 +179,15 @@ def test_synthetic_crops_reproduce_golden_sha256():
         assert label == c["label"]
 
 
-@pytest.mark.parametrize("version", list(GOLDEN_INT8_FILES))
-def test_int8_goldens_hold_the_float32_crops(version):
-    """The int8 golden files were written on the same 16 crops, decoded in
-    the same buckets, as the float32 ones."""
-    with open(GOLDEN_INT8_FILES[version]) as f:
+@pytest.mark.parametrize("mode,version", [(m, v) for m, files in GOLDEN_QUANT_FILES.items()
+                                          for v in files])
+def test_int8_goldens_hold_the_float32_crops(mode, version):
+    """The int8 golden files (each mode's) were written on the same 16
+    crops, decoded in the same buckets, as the float32 ones."""
+    with open(GOLDEN_QUANT_FILES[mode][version]) as f:
         int8 = json.load(f)
     plain = load_golden(version)
-    assert int8["version"] == version and int8["quantize"] == "int8"
+    assert int8["version"] == version and int8["quantize"] == mode
     assert int8["dtype"] == plain["dtype"] == "float32"
     keys = ("seed", "shape", "sha256", "native_bucket", "decode_bucket", "label")
     assert [[c[k] for k in keys] for c in int8["crops"]] == \
@@ -259,7 +283,10 @@ if __name__ == "__main__":
     quantize = None
     if args[-2:-1] == ["--quantize"]:
         quantize, args = args[-1], args[:-2]
-    if sys.argv[1:2] != ["--write-golden"] or len(args) > 1 or quantize not in (None, "int8"):
+    if (sys.argv[1:2] != ["--write-golden"] or len(args) > 1
+            or (quantize is not None and (args or [VERSION])[0] not in
+                GOLDEN_QUANT_FILES.get(quantize, {}))):
         sys.exit("usage: PYTHONPATH=. python tests/test_torch_port_slice.py --write-golden "
-                 f"[{'|'.join(GOLDEN_FILES)}] [--quantize int8] | --compare-bfloat16 [version]")
+                 f"[{'|'.join(GOLDEN_FILES)}] [--quantize {'|'.join(GOLDEN_QUANT_FILES)}] | "
+                 "--compare-bfloat16 [version]")
     write_golden(*args, quantize=quantize)
