@@ -189,7 +189,26 @@ Needs one CUDA card; exits non-zero without one.  Phases, one line each:
    the long golden crops as PNGs with a TSV manifest
    (``tests/torch_port_infer_synthetic_long.yaml``: float32, beam 10): its
    predictions.csv equal to the JAX CLI's (``tests/torch_port_golden_infer.json``)
-   on >= 15 of 16 rows, B1 launching.
+   on >= 15 of 16 rows, B1 launching;
+19. realdata — the reference's data chain (``tools/realdata.py``'s twin):
+   (a) its package fallback writes 512 hard PNGs (seed 77) and its lmdb
+   stage packs them into a store (``tools.lmdb_builder``), and the first 64
+   into a validation store: every stored image decodes equal to its source
+   array, and the share of each PNG row filter in the store (``encode_png``
+   picks one per row, mostly Paeth, as PIL's writer does) beside
+   ``decode_png``'s host time a sample through the native row unfilter and
+   the plain Python one; (b) ``config/train.yaml`` (ViT 256x6 on the 512-channel ResNet,
+   ``Attnv2`` coverage hidden 256, kernel_dim 128, batch 16, 800x800,
+   augment on) with the stores as ``train_data``/``valid_data`` and the
+   hard vocabulary: one float32 step on the store's first batch on the card
+   against the CPU (``TRAIN_TOL``, the ResNet's leaves within 4 times the
+   CPU's own spread), bf16 steps on that batch (steps/s, peak memory), then
+   ``REALDATA_STEPS`` bf16 steps and one validation through ``python -m
+   doc2tex_tpu_torch.api.train``, B2's forward and backward launching, each
+   shape they launched held against the plain versions; (c) ``api.infer``
+   with ``eval_data`` an LMDB store of the 16 long golden crops: >= 15 of
+   16 rows equal to the JAX CLI's, B1 launching, and the scoring time
+   (``score_s``) with the native edit distance beside the plain one.
 
 Then a JSON line with the five kernels' numbers (B2's backward: its
 launches in (c), timed at the recipe's largest launch; the int8 forms:
@@ -225,6 +244,11 @@ GOLDEN_INT8 = {
 GOLDEN_INFER = os.path.join(ROOT, "tests", "torch_port_golden_infer.json")
 INFER_CONFIG = os.path.join(ROOT, "tests", "torch_port_infer_synthetic_long.yaml")
 MIN_INFER_MATCH = 15
+# the realdata phase: the reference's training config, from LMDB stores the
+# port's chain builds (512 hard PNGs of the JAX tool's seed; the first 64 as
+# the validation store), a few bf16 steps through api.train, validating once
+REALDATA_CONFIG = os.path.join(ROOT, "config", "train.yaml")
+REALDATA_N, REALDATA_VALID_N, REALDATA_STEPS = 512, 64, 6
 # the version blocks without weights (the reference architecture: 512-channel
 # backbone, ViT 256x6, the coverage head at width 256, kernel_dim 128), run
 # at random init from seed 0 with CLAHE on; the card-against-CPU check
@@ -2001,8 +2025,8 @@ def _worst_leaves(got, want, norm):
 
 
 def _train_step_parity(t0, cfg, weights, batch, text, device, phase="train", spread=False):
-    """(a): one float32 step of the same state on ``device`` and on the CPU.
-    With ``spread``, the CPU's gradient again with the weights scaled by
+    """(a): one float32 step of the same state on ``device`` and on the CPU,
+    dropout and the augmentation off.  With ``spread``, the CPU's gradient again with the weights scaled by
     (1 + WEIGHT_NOISE N(0, 1)): the ResNet's leaves are then held within
     the larger of ``grad_rtol`` and SPREAD_FACTOR times the CPU's own
     spread (its float32 gradient is not smooth: ReLU choices flip)."""
@@ -2015,7 +2039,9 @@ def _train_step_parity(t0, cfg, weights, batch, text, device, phase="train", spr
     from doc2tex_tpu_torch.transforms.augment import normalize
 
     cfg = copy.deepcopy(cfg)
-    cfg.update(dtype="float32", warmup_epochs=0, pretrained_weight=weights)
+    # dropout and the augmentation draw from a generator on the device, so the
+    # card and the CPU would draw differently: both off, the same inputs
+    cfg.update(dtype="float32", warmup_epochs=0, pretrained_weight=weights, augment=False)
     head = cfg["Prediction"]["params"]
     head["droprate" if cfg["Prediction"]["name"].startswith("Attn") else "dropout"] = 0.0
     runs, own = {}, (0.0, "")
@@ -2061,10 +2087,11 @@ def _train_step_parity(t0, cfg, weights, batch, text, device, phase="train", spr
         raise AssertionError("(a) the card's float32 train step disagrees with the CPU's")
 
 
-def _bf16_steps(t0, phase, cfg, n, bucket, device):
+def _bf16_steps(t0, phase, cfg, n, bucket, device, batch=None):
     """(b): TRAIN_BF16_STEPS steps of the config's type on one fixed batch
-    from a seeded random init: every loss finite and the last below the
-    first; steps/s and the peak memory printed.  Returns the batch."""
+    (``fixed_batch``'s, or ``batch``: (images, text)) from a seeded random
+    init: every loss finite and the last below the first; steps/s and the
+    peak memory printed.  Returns the batch."""
     import copy
 
     import numpy as np
@@ -2073,7 +2100,7 @@ def _bf16_steps(t0, phase, cfg, n, bucket, device):
     from doc2tex_tpu_torch.engine.training import init_training
 
     cuda = device != "cpu"
-    batch, text = fixed_batch(cfg, n, bucket)
+    batch, text = batch if batch is not None else fixed_batch(cfg, n, bucket)
     b = init_training(copy.deepcopy(cfg), device=device)
     gen = torch.Generator().manual_seed(7)
     if cuda:
@@ -2883,6 +2910,203 @@ def detect_quant_phase(t0):
             f"{ms[None]:.2f} ms (a call's mean over 5 between CUDA events, after 3 warm-ups)")
 
 
+def _decode_times(reader, n_plain=16) -> str:
+    """The share of each PNG row filter in a store's images, and
+    ``decode_png``'s host time a sample through the native row unfilter
+    and, on the first ``n_plain`` images, through the plain Python one."""
+    import struct
+    import zlib
+    from collections import Counter
+
+    from doc2tex_tpu_torch.data.lmdb_reader import KEY_IMAGE
+    from doc2tex_tpu_torch.utils import png
+
+    raws = [reader.txn.get((KEY_IMAGE % (i + 1)).encode()) for i in range(len(reader))]
+    kinds = Counter()
+    for raw in raws:
+        chunks = dict(png._chunks(raw))   # one IDAT chunk: encode_png writes one
+        w, h, _, color = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
+        rows = zlib.decompress(chunks[b"IDAT"])
+        stride = w * png._CHANNELS[color]
+        kinds.update(rows[y * (stride + 1)] for y in range(h))
+    names = ("none", "Sub", "Up", "Average", "Paeth")
+    share = ", ".join(f"{names[k]} {100 * v / sum(kinds.values()):.1f} %"
+                      for k, v in sorted(kinds.items()))
+    times = {}
+    for kind, unfilter, some in (("native", png._unfilter, raws),
+                                 ("plain", png._unfilter_py, raws[:n_plain])):
+        saved, png._unfilter = png._unfilter, unfilter
+        try:
+            t = time.perf_counter()
+            for raw in some:
+                png.decode_png(raw, rgb=reader.rgb)
+            times[kind] = (time.perf_counter() - t) / len(some) * 1e3
+        finally:
+            png._unfilter = saved
+    return (f"the stored rows' filters: {share}; decode_png {times['native']:.4f} ms a sample "
+            f"through the native unfilter ({len(raws)} samples), {times['plain']:.4f} ms through "
+            f"the plain Python one (first {min(n_plain, len(raws))})")
+
+
+def realdata_phase(t0, device="cuda", n=REALDATA_N, valid_n=REALDATA_VALID_N,
+                   steps=REALDATA_STEPS, config=REALDATA_CONFIG, infer_config=INFER_CONFIG):
+    """The data chain (phase 19): (a) ``tools.realdata``'s package fallback
+    and lmdb stages on the host, every stored image decoding to its source
+    array; (b) ``config`` trained through ``api.train`` from those stores;
+    (c) ``api.infer`` over an LMDB ``eval_data`` of the long golden crops.
+    The defaults are the card's; tiny ones (and ``infer_config`` None,
+    which leaves (c) out) rehearse (a) and (b) on the CPU
+    (``tests/test_torch_port_lmdb.py``)."""
+    import copy
+    import csv
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from doc2tex_tpu_torch.api import infer
+    from doc2tex_tpu_torch.config import load_config
+    from doc2tex_tpu_torch.data.lmdb_reader import LmdbReader, write_lmdb
+    from doc2tex_tpu_torch.data.loader import build_loader
+    from doc2tex_tpu_torch.data.synthetic import HARD_VOCAB_PATH, synth_hard_dataset
+    from doc2tex_tpu_torch.eval import metrics
+    from doc2tex_tpu_torch.ops.attention_step import (coverage_attention_step,
+                                                      coverage_attention_step_backward)
+    from doc2tex_tpu_torch.ops.decode_attention import decode_attention
+    from doc2tex_tpu_torch.tokenizer.converters import create_converter
+    from doc2tex_tpu_torch.tools import realdata
+
+    cuda = device != "cpu"
+    card = nvidia_smi() if cuda else "cpu"
+    with tempfile.TemporaryDirectory() as work:
+        # (a) the chain on the host
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            realdata.stage_package_fallback(work, n)
+            t_pack = time.perf_counter() - t
+            store = realdata.stage_lmdb(work, valid_n)
+        t_lmdb = time.perf_counter() - t - t_pack
+        t = time.perf_counter()
+        reader = LmdbReader(store)
+        stored = [reader.image(i + 1) for i in range(len(reader))]
+        t_read = time.perf_counter() - t
+        images, labels = synth_hard_dataset(n, seed=realdata.FALLBACK_SEED)
+        same = sum(a.shape == b.shape and bool((a == b).all()) for a, b in zip(stored, images))
+        decode = _decode_times(reader)
+        log("realdata", t0, f"(a) tools.realdata package --synthetic_fallback --n {n} (seed "
+            f"{realdata.FALLBACK_SEED}) {t_pack:.2f} s, lmdb --valid_n {valid_n} {t_lmdb:.2f} s "
+            f"({os.path.getsize(os.path.join(store, 'data.mdb')) / 2 ** 20:.2f} MiB); the store "
+            f"read back in {t_read:.2f} s: {same}/{n} images equal to their source arrays, "
+            f"labels {'equal' if [reader.label(i + 1) for i in range(n)] == labels else 'DIFFER'}; "
+            f"{decode}; host of {card}")
+        if same != n or len(reader) != n or [reader.label(i + 1) for i in range(n)] != labels:
+            raise AssertionError("(a) the store does not hold the generator's images and labels")
+
+        # (b) config/train.yaml through api.train from the stores
+        cfg_path = realdata.train_config(work, steps, HARD_VOCAB_PATH, config, val_interval=steps)
+        cfg = load_config(cfg_path)
+        seq, head = cfg["SequenceModeling"]["params"], cfg["Prediction"]["params"]
+        first = next(iter(build_loader(copy.deepcopy(cfg), create_converter(copy.deepcopy(cfg)),
+                                       seed=cfg["manualSeed"])[0]))
+        log("realdata", t0, f"(b) {os.path.relpath(config, ROOT)} with train_data/valid_data the "
+            f"stores, the hard vocabulary, num_iter {steps}: {seq['backbone']['name']} "
+            f"{seq['backbone']['output_channel']} + ViT {seq['hidden_size']}x{seq['depth']}, "
+            f"{cfg['Prediction']['name']} {head['attn_type']} hidden {head['hidden_size']} "
+            f"kernel_dim {head['kernel_dim']}, batch {cfg['batch_size']}, max_dimension "
+            f"{cfg['max_dimension']}, augment {cfg['augment']}, {cfg['dtype']}; the store's first "
+            f"train batch: {first.images.shape[0]} at {first.bucket}")
+        with recorded_launches() as seen:
+            _train_step_parity(t0, cfg, None, first.images, first.text, device, phase="realdata",
+                               spread=True)
+            _bf16_steps(t0, "realdata", cfg, first.images.shape[0], first.bucket, device,
+                        batch=(first.images, first.text))
+            seen["b2"].clear()
+            seen["b2_bwd"].clear()
+            seen["b2_bwd_inputs"].clear()
+            coverage_attention_step.launches = coverage_attention_step_backward.launches = 0
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(sys.stderr):
+                realdata.stage_train(work, steps, HARD_VOCAB_PATH, config, device,
+                                     val_interval=steps, in_process=True)
+            t_run = time.perf_counter() - t
+            fwd, bwd = coverage_attention_step.launches, coverage_attention_step_backward.launches
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else float("nan")
+            with open(os.path.join(work, "run", "summary.csv"), newline="") as f:
+                val = list(csv.DictReader(f))
+            fwd_shapes, bwd_shapes = sorted(seen["b2"]), sorted(seen["b2_bwd"])
+            bwd_inputs = dict(seen["b2_bwd_inputs"])
+        log("realdata", t0, f"(b) python -m doc2tex_tpu_torch.api.train: {steps} steps and "
+            f"{len(val)} validation over {valid_n} samples in {t_run:.1f} s with set-up "
+            f"({steps / t_run:.3f} steps/s); validation EM {float(val[-1]['accuracy']):.4f}, loss "
+            f"{float(val[-1]['loss']):.4f}; peak memory allocated {peak:.2f} GiB; "
+            f"attention_step launches {fwd}, backward {bwd}; {card}")
+        if len(val) != 1 or not np.isfinite(float(val[-1]["loss"])):
+            raise AssertionError(f"(b) the run's validations: {val}")
+        if cuda:
+            if fwd <= 0 or bwd <= 0:
+                raise AssertionError(f"(b) B2 launched {fwd} times, its backward {bwd}")
+            checks, text = check_coverage_shapes(fwd_shapes)
+            log("realdata", t0, f"(b) B2 matches its plain version at the {len(fwd_shapes)} "
+                f"(samples, K, S, D, H, Kl) the run launched, {checks} checks: {fwd_shapes}; {text}")
+            worst = {}
+            for shape in bwd_shapes:
+                err = check_backward(bwd_inputs[shape], f"launched shape {shape}")
+                worst[shape[-1]] = tuple(map(max, worst.get(shape[-1], (0.0, 0.0)), err))
+            log("realdata", t0, f"(b) B2's backward matches its plain version, two runs equal "
+                f"bit for bit, at the {len(bwd_shapes)} (B, S, D, H, Kl, type) launched: "
+                f"{bwd_shapes}; max abs err " + ", ".join(
+                    f"{k} {e:.3e} (at most {r:.2f} of its tolerance)" for k, (e, r) in worst.items()))
+
+    # (c) api.infer over an LMDB eval_data of the long golden crops
+    if infer_config is None:
+        return
+    with open(GOLDEN_INFER) as f:
+        want = {r["name"]: r["pred"] for r in json.load(f)["rows"]}
+    golden, crops = golden_crops("synthetic_long")
+    names = [f"long_{c['seed']:05d}.png" for c in golden["crops"]]
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(ROOT):
+        write_lmdb(os.path.join(tmp, "eval"), crops, [c["label"] for c in golden["crops"]], names)
+        with open(infer_config) as f:
+            text = realdata.override_yaml(f.read(), {"eval_data": os.path.join(tmp, "eval")})
+        cfg_path = os.path.join(tmp, "infer.yaml")
+        with open(cfg_path, "w") as f:
+            f.write(text)
+        out_dir = os.path.join(tmp, "out")
+        decode_attention.launches = 0
+        t = time.perf_counter()
+        infer.main(["--config", cfg_path, "--log_path", out_dir, "--device", device])
+        seconds = time.perf_counter() - t
+        launches = decode_attention.launches
+        with open(os.path.join(out_dir, "predictions.csv"), newline="") as f:
+            rows = list(csv.DictReader(f))
+    got = {r["name"]: r["pred"] for r in rows}
+    match = sum(got.get(name) == pred for name, pred in want.items())
+    preds, gts = [r["pred"] for r in rows], [r["label"] for r in rows]
+    scored = {}
+    for kind, lev in (("native", metrics.levenshtein), ("plain", metrics._lev_py)):
+        saved, metrics.levenshtein = metrics.levenshtein, lev
+        try:
+            t = time.perf_counter()
+            value = (sum(metrics.get_single_ED(g, p) for g, p in zip(gts, preds)),
+                     metrics.get_word_NED(preds, gts))
+            scored[kind] = (time.perf_counter() - t, value)
+        finally:
+            metrics.levenshtein = saved
+    log("realdata", t0, f"(c) api.infer with eval_data an LMDB store of the {len(crops)} long "
+        f"golden crops ({os.path.relpath(infer_config, ROOT)}): {match}/{len(want)} predictions "
+        f"equal to the JAX CLI's over the PNG manifest; {seconds:.1f} s with set-up, "
+        f"decode_attention launches {launches}; score_s (char and word match of the "
+        f"{len(rows)} predictions) native {scored['native'][0]:.4f} s, plain "
+        f"{scored['plain'][0]:.4f} s, equal {scored['native'][1] == scored['plain'][1]}; {card}")
+    if cuda and launches <= 0:
+        raise AssertionError("(c) api.infer launched decode_attention 0 times")
+    if match < MIN_INFER_MATCH or scored["native"][1] != scored["plain"][1]:
+        raise AssertionError(f"(c) {match}/{len(want)} predictions equal the JAX CLI's "
+                             f"(need {MIN_INFER_MATCH}), or the scorers disagree: {scored}")
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(TIME_LIMIT_S, exit=True)
     t0 = time.perf_counter()
@@ -2931,6 +3155,7 @@ def main() -> int:
         log("kernel", t0, "attention_step (reference widths, 8 crops x beam 10) "
             + coverage_step_timing(8, 10, S, *B2_WIDE)["text"])
     infer_phase(t0)
+    realdata_phase(t0)
     print(json.dumps({"kernels": records}), flush=True)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

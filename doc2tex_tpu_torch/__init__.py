@@ -10,7 +10,9 @@ PyTorch; each TPU kernel is a hand-written CUDA kernel for Hopper
 ``csrc/attention_step.cu`` for the coverage-attention step, and
 ``csrc/attention_step_backward.cu`` for that step's backward, which the TPU
 package leaves to autodiff), built with nvcc at first use and loaded with
-ctypes.  Every entry point takes a ``device`` argument that defaults to
+ctypes.  Host code in C++ (the edit distance, the LaTeX tokenizer and
+``csrc/png_unfilter.cpp``) is built with g++ by ``native.py``.  Every entry
+point takes a ``device`` argument that defaults to
 ``"cuda"``; the CPU is used only when the caller asks for it.
 
 The package imports torch, numpy and the standard library only: the release

@@ -5,10 +5,12 @@
         [--int8 | --int8-full] [--amp] [--strong_log] [--device cuda|cpu]
 
 Evaluates a model over a TSV manifest (``name<TAB>label``, an optional
-header row) and an image folder, or over ``synthetic_data: N`` flat
-synthetic samples of the config, and reports exact match, BLEU-4, char and
-word NED match, time and memory; with ``--log_path`` it writes
-``predictions.csv`` (name, pred, label, ed, iscorrect) and ``metrics.json``.
+header row) and an image folder, over the LMDB store that the config's
+``eval_data`` names (``data.loader.LmdbDataset``, images as stored), or
+over ``synthetic_data: N`` flat synthetic samples of the config, and
+reports exact match, BLEU-4, char and word NED match, time and memory;
+with ``--log_path`` it writes ``predictions.csv`` (name, pred, label, ed,
+iscorrect) and ``metrics.json``.
 Images go through the same bucket ladder and batches as the JAX package's
 CLI (``data.loader.BucketLoader``, every batch decoded as it is), so
 ``quantize: int8`` takes the same per-batch activation scales.
@@ -17,8 +19,8 @@ memory in int8, through the int8 forms of B1 and B2 on the card.
 
 Images are PNGs, read by ``utils.png.decode_png`` (PIL's ``convert("L")``
 bytes; the card's machine has no PIL).  What is not ported raises, naming
-its ROADMAP item: ``--resizer`` (A6), an LMDB ``eval_data`` folder (A11)
-and ``--platform`` (a JAX switch; the port takes ``--device``).
+its ROADMAP item: ``--resizer`` (A6), JPEG images (A11) and ``--platform``
+(a JAX switch; the port takes ``--device``).
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ import time
 import torch
 
 from ..config import load_config
-from ..data.loader import ArrayDataset, BucketLoader
+from ..data.loader import ArrayDataset, BucketLoader, LmdbDataset
 from ..decode.runner import make_decode_fn
 from ..engine.inferencing import validation
 from ..models import build_model
@@ -152,8 +154,7 @@ def main(argv=None) -> None:
     if args.csv_dir and args.data_dir:
         dataset = load_csv_dataset(args.csv_dir, args.data_dir, config)
     elif config.get("eval_data") and os.path.isdir(config["eval_data"]):
-        raise NotImplementedError("LMDB eval_data is not ported yet (ROADMAP A11); pass "
-                                  "--csv_dir/--data_dir or synthetic_data")
+        dataset = LmdbDataset(config["eval_data"], rgb=config.get("rgb", False))
     elif config.get("synthetic_data"):
         from ..data.synthetic import synth_dataset
 

@@ -118,11 +118,19 @@ def get_size(ori_h: float, ori_w: float, config) -> tuple[int, int]:
     return int(new_h), int(new_w)
 
 
+def make_exact_table(sizes) -> BucketTable:
+    """A BucketTable of exactly the given (h, w) sizes (``bucket_mode:
+    exact``, the reference's clustering by equal size)."""
+    return BucketTable(tuple(sorted(set(sizes))))
+
+
 def plan_buckets(sizes: Sequence[tuple[int, int]], config,
                  overpad_rng: np.random.Generator | None = None
                  ) -> tuple[BucketTable, dict[tuple[int, int], list[int]], list[int]]:
-    """Assign each sample (by target size) to the smallest ladder bucket
-    that holds it.  Returns (table, {bucket: [sample index, ...]} in order
+    """Assign each sample (by target size) to the smallest bucket that
+    holds it: of the ladder (``bucket_mode: ladder``, the default) or of
+    the samples' own target sizes (any other ``bucket_mode``, as in the
+    JAX package).  Returns (table, {bucket: [sample index, ...]} in order
     of each bucket's first sample, excluded indices: samples larger than
     every bucket).
 
@@ -131,12 +139,14 @@ def plan_buckets(sizes: Sequence[tuple[int, int]], config,
     most ``overpad_ratio`` times its bucket's area (drawn once, when the
     loader is built: the promotion is fixed for a run, as in the JAX
     package)."""
-    if config.get("bucket_mode", "ladder") != "ladder":
-        raise NotImplementedError(f"bucket_mode {config['bucket_mode']!r} is not ported yet")
     overpad_prob = float(config.get("overpad_prob", 0.0) or 0.0)
     overpad_ratio = float(config.get("overpad_ratio", 4.0) or 4.0)
-    table = make_ladder(config["min_dimension"], config["max_dimension"],
-                        config.get("scale_factor", 32), growth=config.get("bucket_growth", 1.5))
+    if config.get("bucket_mode", "ladder") == "ladder":
+        table = make_ladder(config["min_dimension"], config["max_dimension"],
+                            config.get("scale_factor", 32),
+                            growth=config.get("bucket_growth", 1.5))
+    else:
+        table = make_exact_table(get_size(h, w, config) for h, w in sizes)
     clusters: dict[tuple[int, int], list[int]] = {}
     excluded: list[int] = []
     for i, (h, w) in enumerate(sizes):

@@ -57,6 +57,31 @@ class ArrayDataset:
         return self.names[i]
 
 
+class LmdbDataset:
+    """0-based view of an LMDB store (``lmdb_reader.LmdbReader``, 1-based);
+    ``size`` reads the h/w sidecar keys without decoding the image."""
+
+    def __init__(self, root: str, rgb: bool = False):
+        from .lmdb_reader import LmdbReader
+
+        self.reader = LmdbReader(root, rgb=rgb)
+
+    def __len__(self) -> int:
+        return len(self.reader)
+
+    def image(self, i: int) -> np.ndarray:
+        return self.reader.image(i + 1)
+
+    def label(self, i: int) -> str:
+        return self.reader.label(i + 1)
+
+    def size(self, i: int) -> tuple[int, int]:
+        return self.reader.size(i + 1)
+
+    def name(self, i: int) -> str:
+        return self.reader.name(i + 1)
+
+
 @dataclass
 class Batch:
     bucket: tuple[int, int]
@@ -195,11 +220,12 @@ class BucketLoader:
 
 
 def build_loader(config, converter, seed: int = 0):
-    """(train_loader, valid_loader).  The data is ``synthetic_data: N``
-    samples made in memory (N for training, max(N // 10, 4) for validation,
-    from ``seed`` and ``seed + 1``), by the ``flat``, ``structured`` or
-    ``hard`` generator (``synthetic_style``).  LMDB roots
-    (``train_data``/``valid_data``) are not ported (ROADMAP A11)."""
+    """(train_loader, valid_loader).  ``train_data``/``valid_data`` name
+    LMDB roots (``LmdbDataset``); where the path is not a folder and
+    ``synthetic_data: N`` is set, the split is N samples made in memory (N
+    for training, max(N // 10, 4) for validation, from ``seed`` and
+    ``seed + 1``) by the ``flat``, ``structured`` or ``hard`` generator
+    (``synthetic_style``)."""
     from . import synthetic
 
     gens = {"flat": synthetic.synth_dataset, "structured": synthetic.synth_structured_dataset,
@@ -208,17 +234,19 @@ def build_loader(config, converter, seed: int = 0):
     def split(key: str, train: bool):
         path = config.get(key)
         if path and os.path.isdir(path):
-            raise NotImplementedError(f"{key}: LMDB datasets are not ported yet (ROADMAP A11)")
-        if not config.get("synthetic_data"):
+            dataset = LmdbDataset(path, rgb=config.get("rgb", False))
+        elif config.get("synthetic_data"):
+            style = str(config.get("synthetic_style") or "flat")
+            if style not in gens:
+                raise ValueError(f"synthetic_style {style!r}: pick one of {sorted(gens)}")
+            n = int(config["synthetic_data"])
+            images, labels = gens[style](n if train else max(n // 10, 4),
+                                         seed=seed if train else seed + 1,
+                                         **dict(config.get("synthetic_kwargs") or {}))
+            dataset = ArrayDataset(images, labels)
+        else:
             raise FileNotFoundError(f"{key}: {path!r} not found")
-        style = str(config.get("synthetic_style") or "flat")
-        if style not in gens:
-            raise ValueError(f"synthetic_style {style!r}: pick one of {sorted(gens)}")
-        n = int(config["synthetic_data"])
-        images, labels = gens[style](n if train else max(n // 10, 4),
-                                     seed=seed if train else seed + 1,
-                                     **dict(config.get("synthetic_kwargs") or {}))
-        return BucketLoader(ArrayDataset(images, labels), config, converter=converter,
-                            train=train, seed=seed, prefetch=2)
+        return BucketLoader(dataset, config, converter=converter, train=train, seed=seed,
+                            prefetch=2)
 
     return split("train_data", True), split("valid_data", False)

@@ -1,8 +1,10 @@
 """Evaluation metrics (copied from ``doc2tex_tpu.eval.metrics``): corpus
 BLEU-4, normalized edit distances and exact match.
 
-Levenshtein is the two-row dynamic program in Python; the JAX package
-calls a native kernel when one is built, which gives the same integers.
+``levenshtein`` runs the repository's native edit distance
+(``native.levenshtein``, built from ``native/levenshtein.cpp``), as the JAX
+package does; ``_lev_py``, the two-row dynamic program in Python, is its
+plain version, which the tests hold it to.
 """
 
 from __future__ import annotations
@@ -11,8 +13,10 @@ import math
 from collections import Counter
 from typing import Hashable, Sequence
 
+from .. import native
 
-def levenshtein(a: Sequence[Hashable], b: Sequence[Hashable]) -> int:
+
+def _lev_py(a: Sequence[Hashable], b: Sequence[Hashable]) -> int:
     """Classic two-row DP Levenshtein."""
     if len(a) < len(b):
         a, b = b, a
@@ -25,6 +29,11 @@ def levenshtein(a: Sequence[Hashable], b: Sequence[Hashable]) -> int:
             cur.append(min(prev[j] + 1, cur[j - 1] + 1, prev[j - 1] + (ca != cb)))
         prev = cur
     return prev[-1]
+
+
+def levenshtein(a: Sequence[Hashable], b: Sequence[Hashable]) -> int:
+    """Edit distance of two strings or two token lists (native)."""
+    return native.levenshtein(a, b)
 
 
 def get_single_ED(gt: str, pred: str) -> float:

@@ -31,6 +31,7 @@ from doc2tex_tpu_torch.ops.attention_step import (
     COVERAGE, FEATURE, MAX_BEAM, MAX_CLUSTER, SMEM_LIMIT, TILES, coverage_attention_step,
     coverage_attention_step_reference, launch_plan, smem_bytes)
 from doc2tex_tpu_torch.tools.bench_attention_step import SHAPES as BENCH_SHAPES
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 KS = 2  # kernel_size of every shipped config
 

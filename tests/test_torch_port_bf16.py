@@ -37,6 +37,7 @@ from doc2tex_tpu_torch.models.resnet import ConvBN
 from doc2tex_tpu_torch.weights import load_variables
 import test_torch_port_lstm as lstm_tests
 import test_torch_port_model as tfm_tests
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 BF16 = torch.bfloat16
 

@@ -29,6 +29,7 @@ from doc2tex_tpu_torch.ops.decode_attention import (
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402  (the repository root: the shared input makers)
+from torch_port_threads import one_torch_thread  # noqa: E402,F401
 
 JNP = {torch.bfloat16: jnp.bfloat16, torch.float16: jnp.float16}
 

@@ -53,6 +53,7 @@ from doc2tex_tpu_torch.detection import data as tdata
 from doc2tex_tpu_torch.detection import loss as tloss
 from doc2tex_tpu_torch.detection.flow import SHIPPED_WEIGHTS, MathDetector
 from doc2tex_tpu_torch.detection.priors import make_priors
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)

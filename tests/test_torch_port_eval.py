@@ -43,6 +43,7 @@ from doc2tex_tpu_torch.models import build_model
 from doc2tex_tpu_torch.tools.release_eval import GENERATOR, soak_config
 from doc2tex_tpu_torch.weights import load_variables
 from test_torch_port_model import _random_variables, tiny_config
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOKENS = [f"t{i}" for i in range(20)]   # the tiny model's 20 tokens after 4 specials

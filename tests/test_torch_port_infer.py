@@ -7,9 +7,9 @@ package's ``api/infer.py``.
   one checkpoint of numpy draws for every leaf: the same images from
   ``load_csv_dataset``, the same ``predictions.csv`` rows and the same
   metric lines.
-- Each refusal raises by name: ``--resizer`` (A6), an LMDB ``eval_data``
-  folder (A11), ``--platform``; a missing ``saved_model`` or vocabulary
-  raises as JAX's CLI does.  ``--int8-full`` and ``quantize: int8_full``
+- Each refusal raises by name: ``--resizer`` (A6), ``--platform``; an
+  ``eval_data`` folder without a store, a missing ``saved_model`` or
+  vocabulary raise as JAX's CLI does.  ``--int8-full`` and ``quantize: int8_full``
   run: the CLI's predictions equal the JAX CLI's with ``--int8-full``.
 - ``tests/torch_port_golden_infer.json`` (the JAX CLI's predictions over the
   ``synthetic_long`` golden crops, which ``chip_smoke.py``'s infer phase
@@ -30,7 +30,6 @@ import sys
 
 import numpy as np
 import pytest
-import torch
 
 from doc2tex_tpu_torch.api import infer
 from doc2tex_tpu_torch.config import load_config
@@ -42,16 +41,9 @@ ROOT = os.path.dirname(HERE)
 sys.path.insert(0, HERE)
 sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402  (the manifest writer and the infer phase's files)
+from torch_port_threads import one_torch_thread  # noqa: E402,F401
 
 METRIC_LINES = ("samples:", "exact match:", "BLEU-4:", "char NED match:", "word NED match:")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -215,11 +207,13 @@ def test_config_refusals_raise_by_name(manifest, small, tmp_path):
     assert result["n_samples"] == 10
     with pytest.raises(ValueError, match="unknown quantize mode"):
         infer.run_infer(dict(cfg, quantize="int8_kv"), dataset, device="cpu")
+    # an LMDB eval_data folder is read (tests/test_torch_port_lmdb.py); one
+    # without data.mdb raises FileNotFoundError, as the JAX package's reader does
     lmdb = tmp_path / "eval_lmdb"
     lmdb.mkdir()
     path = tmp_path / "lmdb.yaml"
     path.write_text(open(small[0]).read() + f"eval_data: {lmdb}\n")
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(FileNotFoundError, match="data.mdb"):
         infer.main(["--config", str(path), "--device", "cpu"])
     with pytest.raises(SystemExit):    # no data at all: argparse's error, as JAX's CLI
         infer.main(["--config", small[0], "--device", "cpu"])

@@ -44,6 +44,7 @@ from doc2tex_tpu_torch.recognition import MathRecognition, load_recog_config
 from doc2tex_tpu_torch.weights import convert_variables, load_variables
 from test_torch_port_model import _images, _normalized, _random_variables
 from test_torch_port_slice import _short_crops, load_golden, make_crop
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 V = 24            # 3 specials + 21 tokens
 END = 1           # Attn family: [GO]=0, [s]=1

@@ -24,6 +24,7 @@ from doc2tex_tpu_torch.decode.beam import tfm_gather
 from doc2tex_tpu_torch.decode.runner import make_decode_fn
 from doc2tex_tpu_torch.models import build_model
 from doc2tex_tpu_torch.weights import load_variables
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 V = 24            # 4 specials + 20 tokens
 END = 2

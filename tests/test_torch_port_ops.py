@@ -15,6 +15,7 @@ import torch
 
 from doc2tex_tpu.ops.decode_attention import decode_attention as jax_decode_attention
 from doc2tex_tpu_torch.ops.decode_attention import decode_attention
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 NH, HD = 4, 32
 

@@ -38,21 +38,11 @@ from doc2tex_tpu_torch.train import optim
 from doc2tex_tpu_torch.train.loss import create_criterion
 from doc2tex_tpu_torch.train.schedule import schedule_from_config, warmup_cosine_schedule
 from doc2tex_tpu_torch.weights import convert_variables, tree_to_flax
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 SHAPES = {"conv": {"kernel": (3, 2, 4, 5)}, "dense": {"kernel": (6, 7), "bias": (7,)},
           "cls_token": (1, 1, 8)}
 OPT_TOL = 1e-6
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One torch thread for this file: its tensors are tiny, and the
-    suite's xdist workers (each with a thread pool as large as the
-    machine) otherwise oversubscribe the cores many times over."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _draw(rng, shapes, scale):

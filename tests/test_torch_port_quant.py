@@ -45,6 +45,7 @@ from test_torch_port_lstm import _images_apart
 from test_torch_port_lstm import tiny_config as lstm_tiny_config
 from test_torch_port_model import _images, _normalized, _random_variables
 from test_torch_port_model import tiny_config as tfm_tiny_config
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 DENSE_DN = (((2,), (0,)), ((), ()))

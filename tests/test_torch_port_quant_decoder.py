@@ -51,20 +51,11 @@ from test_torch_port_lstm import _images_apart
 from test_torch_port_lstm import tiny_config as lstm_tiny_config
 from test_torch_port_model import _images, _normalized, _random_variables
 from test_torch_port_model import tiny_config as tfm_tiny_config
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 FULL = ("encoder", "decoder_mem")
 KV = ("encoder", "decoder_mem", "decoder_kv")
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """Tiny shapes: torch's thread pool costs more than it saves, and the
-    other workers' tests want the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(a) -> np.ndarray:

@@ -50,19 +50,10 @@ sys.path.insert(0, HERE)
 sys.path.insert(0, os.path.dirname(HERE))
 from test_torch_port_slice import (  # noqa: E402
     _short_crops, crop_spec, golden_crop_seeds, load_golden, make_crop, sha256)
+from torch_port_threads import one_torch_thread  # noqa: E402,F401
 
 VERSIONS = ("version1", "version2", "synthetic", "synthetic_tfm", "synthetic_tfm_big",
             "synthetic_tfm_big_pad", "synthetic_long")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One torch thread for this file: its tensors are small, and the
-    suite's xdist workers otherwise oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _jax():

@@ -338,12 +338,26 @@ def _pil_bytes(pil: Image.Image) -> bytes:
 
 
 def test_png_decoder_refuses_what_it_does_not_cover():
+    """Every PNG decodes as PIL's ``convert("L")`` (16-bit gray too, since
+    the decoder covers every bit depth; tests/test_torch_port_lmdb.py holds
+    all of them); what is not a PNG, a bit depth PNG does not allow and
+    truncated image data raise ValueError."""
     gray = (np.arange(48).reshape(6, 8) * 5).astype(np.uint8)
     assert np.array_equal(decode_png(encode_png(gray)), gray)
     sixteen = io.BytesIO()
     Image.fromarray(gray.astype(np.uint16) * 200).save(sixteen, "PNG")
-    with pytest.raises(ValueError, match="bit depth 16"):
-        decode_png(sixteen.getvalue())
+    with Image.open(io.BytesIO(sixteen.getvalue())) as im:
+        assert np.array_equal(decode_png(sixteen.getvalue()), np.asarray(im.convert("L")))
+    bad_depth = bytearray(encode_png(gray))
+    bad_depth[24] = 3                       # IHDR's bit depth byte
+    with pytest.raises(ValueError, match="bit depth 3"):
+        decode_png(bytes(bad_depth))
+    short = encode_png(np.zeros((6, 8), np.uint8))
+    idat = short.index(b"IDAT")
+    body = zlib.compress(zlib.decompress(short[idat + 4:short.index(b"IEND") - 8])[:-9])
+    with pytest.raises(ValueError, match="shorter"):
+        decode_png(short[:idat - 4] + struct.pack(">I", len(body)) + b"IDAT" + body
+                   + struct.pack(">I", zlib.crc32(b"IDAT" + body)) + short[-12:])
     jpeg = io.BytesIO()
     Image.fromarray(gray).save(jpeg, "JPEG")
     with pytest.raises(ValueError, match="not a PNG"):

@@ -37,6 +37,7 @@ from doc2tex_tpu_torch import _msgpack
 from doc2tex_tpu_torch.data.synthetic import seeded_crops, synth_hard_sample, synth_long_sample
 from doc2tex_tpu_torch.recognition import MathRecognition, load_recog_config
 from doc2tex_tpu_torch.weights import convert_variables, load_variables
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "torch_port_golden.json")

@@ -3,8 +3,8 @@
 - the port and ``chip_smoke.py`` import with jax, flax, yaml, msgpack, PIL,
   cv2, lmdb, scipy and the JAX package blocked (none is on the GPU
   machine), the int8, serving, release-eval, detection, page-app,
-  page-eval, training, eval-CLI, detector-training, stitch and int8-eval
-  modules among them;
+  page-eval, training, eval-CLI, detector-training, stitch, int8-eval and
+  data-chain modules among them;
 - ``chip_smoke.py`` exits non-zero, and never prints ``"ok": true``, on a
   machine without a card and from a directory without the repository;
 - chip_smoke's slice phase runs end to end on the CPU at a tiny size, for
@@ -21,14 +21,18 @@ import sys
 import textwrap
 
 import numpy as np
+import pytest
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = ("jax", "jaxlib", "flax", "yaml", "msgpack", "PIL", "cv2", "lmdb", "scipy",
            "doc2tex_tpu")
 # the modules of the int8 encoder, the server, the release eval, detection,
 # the page app, the page eval, training, the eval CLI, the device pools, the
-# soak twins, the detector's losses and data, the voting stitch and the int8
-# accuracy twin, which the walk below must reach
+# soak twins, the detector's losses and data, the voting stitch, the int8
+# accuracy twin and the data chain (LMDB stores, the native scorer and
+# tokenizer, the LaTeX pipeline, the dataset tools and the realdata twin),
+# which the walk below must reach
 REQUIRED = ("ops.quant", "serving", "api.serve", "utils.png", "data.loader", "eval.metrics",
             "engine.inferencing", "tools.release_eval", "tools.bench_int8", "detection",
             "detection.priors", "detection.windows", "detection.ssd", "detection.boxes",
@@ -37,7 +41,11 @@ REQUIRED = ("ops.quant", "serving", "api.serve", "utils.png", "data.loader", "ev
             "train.trainer", "train.checkpoint", "engine.training", "api.train",
             "utils.common", "utils.profiling", "transforms.geometry", "api.infer",
             "data.device_pool", "tools.structured_soak", "detection.loss", "detection.data",
-            "detection.stitch", "tools.detection_soak", "tools.int8_accuracy_eval")
+            "detection.stitch", "tools.detection_soak", "tools.int8_accuracy_eval",
+            "data.pylmdb", "data.lmdb_reader", "native", "latex.pytok", "latex._katex_tables",
+            "latex.validate", "latex.normalize", "latex.demacro", "latex.extract",
+            "tools.vocab_tools", "tools.label_tools", "tools.lmdb_builder", "tools.arxiv",
+            "tools.realdata")
 
 GUARD = textwrap.dedent(f"""
     import importlib, pkgutil, sys

@@ -33,6 +33,7 @@ import pytest
 
 from doc2tex_tpu_torch.detection import stitch as tstitch
 from doc2tex_tpu_torch.detection.flow import SHIPPED_WEIGHTS
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)

@@ -87,6 +87,7 @@ from doc2tex_tpu_torch.transforms.augment import augment, draw_augment, normaliz
 from doc2tex_tpu_torch.weights import (convert_variables, load_variables, to_variables,
                                        tree_to_flax)
 from tests.test_torch_port_model import _random_variables, tiny_config
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 V = 24
 B, BUCKET, MAX_LEN = 4, (32, 64), 12
@@ -96,17 +97,6 @@ SPREAD_FACTOR = 4.0          # the 3-step distance against JAX's perturbed runs
 BF16_LOSS_RTOL = 1e-2
 WEIGHT_NOISE = 1e-7          # JAX's own spread: weights scaled by (1 + 1e-7 N(0, 1))
 RESNET = "seqmodeler/HybridEmbed_0/ResNetFeatureExtractor_0/"
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One torch thread for this file: its tensors are tiny, and the
-    suite's xdist workers (each with a thread pool as large as the
-    machine) otherwise oversubscribe the cores many times over."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def train_config(**overrides) -> dict:

@@ -78,6 +78,7 @@ from doc2tex_tpu_torch.train.trainer import (create_train_state, criterion_from_
 from doc2tex_tpu_torch.transforms.augment import normalize
 from doc2tex_tpu_torch.weights import load_variables, to_variables, tree_to_flax
 from tests.test_torch_port_model import _random_variables
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 V = 20                                  # Attn family: [GO]=0, [s]=1, [UNK]=2, 17 tokens
@@ -91,16 +92,6 @@ B_SCORE_LOGITS_TOL = 1e-6
 RESNET = "seqmodeler/HybridEmbed_0/ResNetFeatureExtractor_0/"
 HARD_ARMS = ({}, {"attn": "loc_aware"}, {"big": True}, {"family": "tfm"},
              {"family": "tfm", "big": True}, {"family": "tfm", "big": True, "long": True})
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One torch thread for this file: its tensors are tiny, and the
-    suite's xdist workers otherwise oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def tiny_config(attn="coverage", dtype="float32", **overrides) -> dict:
