@@ -208,11 +208,40 @@ Needs one CUDA card; exits non-zero without one.  Phases, one line each:
    shape they launched held against the plain versions; (c) ``api.infer``
    with ``eval_data`` an LMDB store of the 16 long golden crops: >= 15 of
    16 rows equal to the JAX CLI's, B1 launching, and the scoring time
-   (``score_s``) with the native edit distance beside the plain one.
+   (``score_s``) with the native edit distance beside the plain one;
+20. zoo — the rest of the model zoo at full width (``zoo_phase``), the
+   blocks of ``tests/torch_port_zoo.yaml`` (version2's 224x960 contract,
+   no weights: every leaf drawn from numpy's seed 0, ``zoo_variables``;
+   CLAHE on): ``zoo_cnn_tfm`` (ResNet 512
+   -> 2D table -> TFM d 512 nh 8: B1 at hd 64, cross M = 13 x 241),
+   ``zoo_cnn_bilstm_attn`` (ResNet 512 -> BiLSTM with the GatedSum blend ->
+   coverage head: B2 at D = H = 256 on 241 columns), ``zoo_vgg_bahdanau``
+   (VGG 512 -> bahdanau: B2's content form, D 512, H 256, no location
+   term) and ``zoo_vit_gcb_learned`` (ViT 256x6 on the GCB ResNet with the
+   interpolated learned table -> luong concat: plain PyTorch, no kernel).
+   For each: (a) float32, 40 steps, beam 10, on the first 8 crops of
+   ``tests/torch_port_golden_synthetic.json``: >= 7 of 8 strings equal to
+   the JAX package's (``tests/torch_port_golden_zoo.json``, written by
+   ``tests/torch_port_zoo_golden.py``), the first crop's teacher-forced
+   logits (4 tokens) within 1e-4 of the largest |logit| of JAX's (random
+   weights decode flat: few distinct strings), and the card's tokens equal
+   the CPU's on one crop; (b) the block's bfloat16 at the full 200 steps on
+   the same crops, counts set to 0 just before: the head's kernel
+   launching (none for luong), seconds, launches and peak memory printed;
+   every launched shape held against the plain version and timed beside
+   its bound (and SDPA for B1).  Then the importer
+   (``tools/torch_import.py``): a random reference state_dict of
+   ``synthetic_tfm_big``'s architecture imported on the card and on the
+   CPU, 8 crops decoded in float32 (40 steps, beam 10): strings equal on
+   >= 7 of 8, the first crop's logits within 1e-4 of the CPU's largest,
+   B1 launching; then the same in the int8 mode the block ships, printed
+   and not gated (int8 codes round from sums the two add in other orders).
+   Each content-form timing also times the coverage form with a zero
+   location conv at the same shape (the same function).
 
-Then a JSON line with the five kernels' numbers (B2's backward: its
-launches in (c), timed at the recipe's largest launch; the int8 forms:
-8b's), and last
+Then a JSON line with the kernels' numbers (B2's backward: its launches
+in (c), timed at the recipe's largest launch; the int8 forms: 8b's; B1 at
+hd 64 and B2's content form: phase 20's), and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the traceback
 is printed and the exit code is 1.  A hang is cut by faulthandler.
 """
@@ -255,6 +284,23 @@ REALDATA_N, REALDATA_VALID_N, REALDATA_STEPS = 512, 64, 6
 # decodes one crop for this many steps
 VERSION_BLOCKS = ("version1", "version2")
 VERSION_CUT_STEPS = 40
+# the zoo phase (20): its blocks, their JAX golden, the crops decoded; the
+# teacher-forced logits of the first crop over ZOO_LOGIT_STEPS tokens, held
+# to JAX's within ZOO_LOGIT_TOL of the largest |logit| (random weights decode
+# flat, so the strings alone would not tell a wrong model path); the
+# importer's architecture
+ZOO_CONFIG = os.path.join(ROOT, "tests", "torch_port_zoo.yaml")
+GOLDEN_ZOO = os.path.join(ROOT, "tests", "torch_port_golden_zoo.json")
+ZOO_BLOCKS = ("zoo_cnn_tfm", "zoo_cnn_bilstm_attn", "zoo_vgg_bahdanau", "zoo_vit_gcb_learned")
+ZOO_N_CROPS = 8
+MIN_ZOO_MATCH = 7       # of 8: one beam tie may flip where the card sums in another order
+ZOO_LOGIT_STEPS = 4
+ZOO_LOGIT_TOL = 1e-4
+# the block's bfloat16 logits against JAX's float32 ones: bf16 rounding
+# moves them by under 1 % of the largest, another crop's logits lie 5 % or
+# more away (tests/test_torch_port_smoke.py::test_zoo_golden_logits_match_port_cpu)
+ZOO_BF16_LOGIT_TOL = 2.5e-2
+ZOO_IMPORT_VERSION = "synthetic_tfm_big"
 # B2 timed at the reference architecture's widths (D, H, Kl) and the S of a
 # 448x960 and an 800x800 bucket, 8 samples x beam 10
 B2_WIDE = (256, 256, 128)
@@ -852,7 +898,8 @@ def recorded_launches():
     block runs: B1's (B, K, M, kind) under ``"b1"`` (its int8 K/V form's
     under ``"b1_int8"``) and its (heads, head dim, type) under
     ``"b1_types"``, B2's (samples, K, S, D, H, Kl) under ``"b2"`` (its int8
-    form's under ``"b2_int8"``), and B2's backward's (B, S, D, H, Kl, type) under ``"b2_bwd"``
+    form's under ``"b2_int8"``), its content form's (samples, K, S, D, H)
+    under ``"b2_content"`` (``"b2_content_int8"``), and B2's backward's (B, S, D, H, Kl, type) under ``"b2_bwd"``
     with the inputs of a call at each under ``"b2_bwd_inputs"``.  The
     wrappers run as they are, counting their launches."""
     from doc2tex_tpu_torch.models import decoder_lstm, decoder_tfm
@@ -902,12 +949,23 @@ def recorded_launches():
         def launches(self, n):
             backward.launches = n
 
+    content = decoder_lstm.content_attention_step
+
+    def b2_content(enc, enc_proj, q, w_score, **kwargs):
+        seen["b2_content" if kwargs.get("enc_scale") is None else "b2_content_int8"].add(
+            (enc.shape[0], q.shape[0] // enc.shape[0], enc.shape[1], enc.shape[2],
+             enc_proj.shape[2]))
+        return content(enc, enc_proj, q, w_score, **kwargs)
+
+    seen.update(b2_content=set(), b2_content_int8=set())
     decoder_tfm.decode_attention, decoder_lstm.coverage_attention_step = b1, b2
+    decoder_lstm.content_attention_step = b2_content
     attention_step.coverage_attention_step_backward = B2Backward()
     try:
         yield seen
     finally:
         decoder_tfm.decode_attention, decoder_lstm.coverage_attention_step = attend, step
+        decoder_lstm.content_attention_step = content
         attention_step.coverage_attention_step_backward = backward
 
 
@@ -1015,23 +1073,27 @@ def golden_crops(version: str = "synthetic_tfm_big", quantize=None):
 def reset_launches() -> None:
     """Every kernel wrapper's launch counts (each form's) to 0."""
     from doc2tex_tpu_torch.ops.attention_step import (
-        coverage_attention_step, fused_attention_step)
+        content_attention_step, coverage_attention_step, fused_attention_step)
     from doc2tex_tpu_torch.ops.decode_attention import decode_attention
 
     decode_attention.launches = decode_attention.int8_launches = 0
     fused_attention_step.launches = 0
     coverage_attention_step.launches = coverage_attention_step.int8_launches = 0
+    content_attention_step.launches = content_attention_step.int8_launches = 0
 
 
 def launch_counts() -> dict:
     """The forward kernels' launch counts, by form, as they stand."""
-    from doc2tex_tpu_torch.ops.attention_step import coverage_attention_step
+    from doc2tex_tpu_torch.ops.attention_step import (
+        content_attention_step, coverage_attention_step)
     from doc2tex_tpu_torch.ops.decode_attention import decode_attention
 
     return {"decode_attention": decode_attention.launches,
             "decode_attention_int8": decode_attention.int8_launches,
             "attention_step": coverage_attention_step.launches,
-            "attention_step_int8": coverage_attention_step.int8_launches}
+            "attention_step_int8": coverage_attention_step.int8_launches,
+            "attention_step_content": content_attention_step.launches,
+            "attention_step_content_int8": content_attention_step.int8_launches}
 
 
 def run_slice(config, weights_path, crops, beam_size: int, device: str, parts=None):
@@ -1223,18 +1285,9 @@ def version_phase(t0, version, crops, device="cuda"):
         for shape in sorted(seen["b2"]):
             log(version, t0, f"attention_step (path) {coverage_step_timing(*shape)['text']}")
 
-    cut = dict(copy.deepcopy(cfg), batch_max_length=VERSION_CUT_STEPS, dtype="float32")
-    tokens = {}
-    for dev in dict.fromkeys((device, "cpu")):
-        r = MathRecognition(copy.deepcopy(cut), None, beam_size=10, device=dev)
-        prepped = [r._preprocess(crops[0])]
-        (bucket, _), = r.group(prepped).items()
-        tokens[dev] = r._decode(r.make_batch(prepped, bucket))[0].cpu()
-    if not torch.equal(tokens[device], tokens["cpu"]):
-        raise AssertionError(f"{version}: the card's tokens differ from the CPU's at "
-                             f"{VERSION_CUT_STEPS} steps")
-    log(version, t0, f"float32, {VERSION_CUT_STEPS} steps, crop {crops[0].shape} in bucket "
-        f"{bucket}: the card's beam-10 tokens equal the CPU's ({tuple(tokens['cpu'].shape)})")
+    cut = cut_config(cfg)
+    card_equals_cpu(version, t0, lambda dev: MathRecognition(
+        copy.deepcopy(cut), None, beam_size=10, device=dev), crops[0], device)
     return launches, seen["b2"]
 
 
@@ -2579,6 +2632,8 @@ def build_kernels(t0):
 
     builds = ((decode_attention.SOURCE, decode_attention.build),
               (attention_step.SOURCE, attention_step.build),
+              (f"{attention_step.SOURCE} -D{attention_step.WIDE_DEFINE}",
+               attention_step.build_wide),
               (attention_step.BACKWARD_SOURCE, attention_step.build_backward))
     with ThreadPoolExecutor(max_workers=len(builds)) as pool:
         infos = list(pool.map(lambda b: (b[0], b[1]()), builds))
@@ -3107,6 +3162,367 @@ def realdata_phase(t0, device="cuda", n=REALDATA_N, valid_n=REALDATA_VALID_N,
                              f"(need {MIN_INFER_MATCH}), or the scorers disagree: {scored}")
 
 
+# ---- the rest of the model zoo (phase 20) --------------------------------------
+
+def content_step_timing(Bs, K, S, D, H):
+    """B2's content form (no location term) and its plain version timed at
+    one shape with bf16 memory, as ``coverage_step_timing``, and the bound
+    of the fused function: the memory read once per sample, q and w_score
+    read and the outputs written once; per position the add, tanh and
+    w_score over H, the softmax, and alpha.enc over D.  Beside it, the
+    coverage form with a zero location conv (1 tap, Kl 4, the least
+    location work it takes), which computes the same function: what the
+    content form's own instances save."""
+    import torch
+
+    from doc2tex_tpu_torch.ops.attention_step import (
+        CONTENT, content_attention_step, content_attention_step_reference,
+        coverage_attention_step, launch_plan)
+    from doc2tex_tpu_torch.tools.bench_decode_attention import graph_ms
+
+    full = coverage_step_inputs(Bs, K, S, D, H, 4, torch.bfloat16, 1, seed=7, taps=1)
+    kw = {k: full[k] for k in ("enc", "enc_proj", "q", "w_score")}
+    zero = dict(full, **{k: torch.zeros_like(full[k])
+                         for k in ("loc_conv_w", "loc_conv_b", "w_loc", "b_loc")})
+    before = content_attention_step.launches, coverage_attention_step.launches
+    ms = graph_ms(lambda: content_attention_step(**kw))
+    zero_ms = graph_ms(lambda: coverage_attention_step(**zero))
+    plain_ms = graph_ms(lambda: content_attention_step_reference(**kw))
+    got, ref = content_attention_step(**kw), content_attention_step_reference(**kw)
+    same = coverage_attention_step(**zero)
+    zero_diff = max((a - b).abs().max().item() for a, b in zip(same, got))
+    # timing launches are not main-path launches
+    content_attention_step.launches, coverage_attention_step.launches = before
+    nbytes = sum(t.numel() * t.element_size() for t in kw.values())
+    nbytes += (got[0].numel() + got[1].numel()) * 4
+    flops = Bs * K * S * (5 * H + 3 + 2 * D)
+    plan = launch_plan(Bs, K, S, D, H, 0, torch.bfloat16, CONTENT)
+    out = _b2_result(ms, plain_ms, got, ref, nbytes, flops,
+                     f"content form, {Bs} samples x K {K} S {S} D{D} H{H} bf16 "
+                     f"(cluster {plan.cluster}, chunk {plan.chunk}, zsplit {plan.zsplit}, "
+                     f"{plan.smem_bytes} B smem)")
+    out["text"] += (f"; the coverage form with a zero location conv {zero_ms:.4f} ms "
+                    f"(outputs {zero_diff:.1e} from the content form's)")
+    return out
+
+
+def check_content_shapes(shapes):
+    """B2's content form against its plain version at each (samples, K, S,
+    D, H) of ``shapes``, float32 and bfloat16 memory, valid_len None and S
+    - 17.  Returns (checks made, the worst errors as text)."""
+    import torch
+
+    from doc2tex_tpu_torch.ops.attention_step import (
+        content_attention_step, content_attention_step_reference)
+
+    worst = {"float32": (0.0, 0.0), "bfloat16": (0.0, 0.0)}
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for Bs, K, S, D, H in shapes:
+            full = coverage_step_inputs(Bs, K, S, D, H, 64, dtype, 1, seed=n)
+            kw = {k: full[k] for k in ("enc", "enc_proj", "q", "w_score")}
+            for valid in (None, S - 17):
+                n += 1
+                got = content_attention_step(**kw, valid_len=valid)
+                ref = content_attention_step_reference(**kw, valid_len=valid)
+                torch.cuda.synchronize()
+                worst[name] = tuple(map(max, worst[name], _check_b2(
+                    "attention step (content form)", got, ref,
+                    f"{Bs} samples K {K} S {S} D{D} H{H} valid {valid} {name}")))
+    return n, ("max abs err " + ", ".join(
+        f"{k} {e:.3e} (at most {r:.2f} of its tolerance)" for k, (e, r) in worst.items())
+        + f"; tol {B2_TOL[0]:g} abs + {B2_TOL[1]:g} rel")
+
+
+def zoo_variables(model, seed: int = 0) -> dict:
+    """Flax variables for ``model`` with every leaf drawn from numpy's
+    generator of ``seed`` (``weights.random_variables`` over
+    ``to_variables``' tree).  numpy gives the same draws with every torch;
+    torch's seeded init does not (torch 2.11 and 2.13 draw other weights
+    from one seed), and a golden written with one torch would not hold a
+    model another torch built."""
+    import numpy as np
+
+    from doc2tex_tpu_torch.weights import random_variables, to_variables
+
+    return random_variables(to_variables(model), np.random.default_rng(seed))
+
+
+def zoo_recognizer(config, device, seed: int = 0):
+    """MathRecognition of a zoo block (no weights) with ``zoo_variables``."""
+    from doc2tex_tpu_torch.recognition import MathRecognition
+    from doc2tex_tpu_torch.weights import load_variables
+
+    rec = MathRecognition(config, None, beam_size=10, device=device)
+    load_variables(rec.model, zoo_variables(rec.model, seed))
+    rec.model.to(device)
+    return rec
+
+
+def zoo_logit_inputs(rec, crop, steps=ZOO_LOGIT_STEPS):
+    """The image batch of ``crop`` as ``rec`` decodes it (preprocessed,
+    bucketed, normalized: float32 (1, H, W, 1)) and ``steps`` tokens drawn
+    from numpy's seed 0 ((1, steps) int64), as numpy arrays."""
+    import numpy as np
+    import torch
+
+    from doc2tex_tpu_torch.transforms.augment import normalize
+
+    prepped = [rec._preprocess(crop)]
+    (bucket, _), = rec.group(prepped).items()
+    batch = torch.from_numpy(rec.make_batch(prepped, bucket))
+    x = normalize(batch, mean=rec.config.get("mean", 0.5), std=rec.config.get("std", 0.5))
+    text = np.random.default_rng(0).integers(1, rec.converter.num_classes, (1, steps))
+    return x.float().numpy(), text.astype(np.int64)
+
+
+def zoo_logits(rec, crop, steps=ZOO_LOGIT_STEPS):
+    """Teacher-forced float32 logits (steps, classes) of ``rec``'s model on
+    its device for ``zoo_logit_inputs``."""
+    import torch
+
+    x, text = zoo_logit_inputs(rec, crop, steps)
+    device = next(rec.model.parameters()).device
+    with torch.no_grad():
+        logits = rec.model(torch.from_numpy(x).to(device), torch.from_numpy(text).to(device))
+    return logits[0].float().cpu().numpy()
+
+
+def logit_check(got, ref, rel=ZOO_LOGIT_TOL):
+    """(max abs error, the tolerance ``rel`` of the largest |ref|, the
+    logits' std over the classes, the median top-1/top-2 gap) as floats."""
+    import numpy as np
+
+    top2 = np.sort(ref, axis=-1)[:, -2:]
+    return (float(np.abs(got - ref).max()), rel * float(np.abs(ref).max()),
+            float(ref.std(axis=-1).mean()), float(np.median(top2[:, 1] - top2[:, 0])))
+
+
+def zoo_golden(path=GOLDEN_ZOO) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def cut_config(cfg) -> dict:
+    """A block's config as the phases' card-against-CPU and golden checks
+    decode it: float32, ``batch_max_length`` VERSION_CUT_STEPS."""
+    import copy
+
+    return dict(copy.deepcopy(cfg), batch_max_length=VERSION_CUT_STEPS, dtype="float32")
+
+
+def card_equals_cpu(phase, t0, make, crop, device):
+    """One crop decoded by ``make(device)``'s recognizer on the card and on
+    the CPU: equal tokens."""
+    import torch
+
+    tokens = {}
+    for dev in dict.fromkeys((device, "cpu")):
+        r = make(dev)
+        prepped = [r._preprocess(crop)]
+        (bucket, _), = r.group(prepped).items()
+        tokens[dev] = r._decode(r.make_batch(prepped, bucket))[0].cpu()
+    if not torch.equal(tokens[device], tokens["cpu"]):
+        raise AssertionError(f"{phase}: the card's tokens differ from the CPU's at "
+                             f"{VERSION_CUT_STEPS} steps")
+    log(phase, t0, f"float32, {VERSION_CUT_STEPS} steps, crop {crop.shape} in bucket {bucket}: "
+        f"the card's beam-10 tokens equal the CPU's ({tuple(tokens['cpu'].shape)})")
+
+
+def zoo_block(t0, block, crops, want, device="cuda"):
+    """One zoo block (see the module docstring, phase 20): (a) float32 at
+    the cut against ``want`` (the block's golden: the JAX package's strings
+    under ``"jax"``, its teacher-forced logits of the first crop under
+    ``"jax_logits"``) and card == CPU on one crop; (b) the block's own type
+    at its full length, a warm-up call,
+    then the counted and timed call; its launched shapes checked and timed.
+    Returns the timings of the largest launches by record name, and the
+    head kernel's launches under ``"launches"``."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from doc2tex_tpu_torch.recognition import load_recog_config
+
+    cfg, weights = load_recog_config(ZOO_CONFIG, version=block)
+    if weights is not None:
+        raise AssertionError(f"{block} names weights {weights}; the phase expects none")
+    cuda = device != "cpu"
+    cut = cut_config(cfg)
+    rec = zoo_recognizer(copy.deepcopy(cut), device)
+    out = rec(crops)
+    same = sum(a == b for a, b in zip(out, want["jax"]))
+    log(block, t0, f"float32, {VERSION_CUT_STEPS} steps, beam 10, numpy draws (seed 0): "
+        f"{same}/{len(crops)} strings equal the JAX package's ({len(set(out))} distinct)")
+    if same < min(MIN_ZOO_MATCH, len(crops)):
+        raise AssertionError(f"{block}: {same}/{len(crops)} float32 strings equal JAX's "
+                             f"(need {MIN_ZOO_MATCH})")
+    err, tol, spread, gap = logit_check(zoo_logits(rec, crops[0]), np.asarray(
+        want["jax_logits"], dtype=np.float32))
+    log(block, t0, f"float32 teacher-forced logits of crop 0 ({ZOO_LOGIT_STEPS} tokens x "
+        f"{rec.converter.num_classes} classes): max abs err against JAX's {err:.3e}, tol "
+        f"{tol:.3e} ({ZOO_LOGIT_TOL:g} of the largest |logit|); JAX's logits' std over the "
+        f"classes {spread:.3e}, median top-1/top-2 gap {gap:.3e}")
+    if not err <= tol:
+        raise AssertionError(f"{block}: logits {err:.3e} from JAX's (tol {tol:.3e})")
+    card_equals_cpu(block, t0, lambda dev: zoo_recognizer(copy.deepcopy(cut), dev),
+                     crops[0], device)
+
+    rec = zoo_recognizer(copy.deepcopy(cfg), device)
+    head = rec.model.predicter
+    attn = getattr(head, "attn_type", None)
+    rec(crops)   # warm-up: cuDNN's algorithm choice for each bucket's shapes
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    with recorded_launches() as seen:
+        reset_launches()
+        t = time.perf_counter()
+        out = rec(crops)
+        if cuda:
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0
+    err, tol, _, _ = logit_check(zoo_logits(rec, crops[0]), np.asarray(
+        want["jax_logits"], dtype=np.float32), ZOO_BF16_LOGIT_TOL)
+    kernel = ("decode_attention" if rec.model.head == "TFM" else
+              "attention_step_content" if attn == "bahdanau" else
+              None if attn == "luong" else "attention_step")
+    launched = {k: v for k, v in counts.items() if v}
+    if not all(isinstance(x, str) for x in out) or (cuda and kernel and not launched.get(kernel)):
+        raise AssertionError(f"{block}: launches {counts}, {out!r:.200}")
+    if kernel is None and launched:
+        raise AssertionError(f"{block}: the luong head launched {launched}")
+    no_kernel = ("none: the luong head's scores are plain PyTorch, as the JAX package "
+                 "computes them in XLA")
+    log(block, t0, f"{cfg['dtype']}, {cfg['batch_max_length']} steps, beam 10: "
+        f"{len(crops)} crops decoded in {seconds:.3f} s, peak memory {peak:.2f} GiB, "
+        f"launches {launched or no_kernel}; "
+        f"B1 {sorted(seen['b1'])} {sorted(seen['b1_types'])}, B2 coverage "
+        f"{sorted(seen['b2'])}, B2 content {sorted(seen['b2_content'])}; strings "
+        f"{[len(x.split()) for x in out]} tokens long; its teacher-forced logits of crop 0 "
+        f"{err:.3e} from JAX's float32 ones (tol {tol:.3e}, {ZOO_BF16_LOGIT_TOL:g} of the "
+        f"largest |logit|)")
+    if not err <= tol:
+        raise AssertionError(f"{block}: {cfg['dtype']} logits {err:.3e} from JAX's float32 "
+                             f"(tol {tol:.3e})")
+    records = {}
+    if not cuda or kernel is None:
+        return records
+    if kernel == "decode_attention":
+        (nh, hd, _), = {(a, b, c) for a, b, c in seen["b1_types"]}
+        check_b1_shapes(t0, block, sorted(seen["b1"]), nh, hd)
+        for B, K, M, kind in sorted(seen["b1"]):   # the largest of each kind last
+            timing = attention_timing(B, K, M, kind == "self",
+                                      M // K - 1 if kind == "self" else None, nh=nh, hd=hd)
+            log(block, t0, f"decode_attention ({kind}, path) {timing['text']}")
+            records[f"decode_attention_hd{hd}_{kind}"] = timing
+        records["launches"] = counts[kernel]
+    elif kernel == "attention_step":
+        n, text = check_coverage_shapes(sorted(seen["b2"]))
+        log(block, t0, f"attention_step coverage form matches plain version at {n} checks of "
+            f"the phase's shapes: {text}")
+        for shape in sorted(seen["b2"]):
+            log(block, t0, f"attention_step (path) {coverage_step_timing(*shape)['text']}")
+    else:
+        n, text = check_content_shapes(sorted(seen["b2_content"]))
+        log(block, t0, f"attention_step content form matches plain version at {n} checks of "
+            f"the phase's shapes: {text}")
+        for shape in sorted(seen["b2_content"]):
+            timing = content_step_timing(*shape)
+            log(block, t0, f"attention_step content form (path) {timing['text']}")
+            records["content"] = max(records.get("content", timing), timing,
+                                     key=lambda r: r["bound_ms"])
+        records["launches"] = counts[kernel]
+    return records
+
+
+def zoo_import(t0, crops, device="cuda", version=ZOO_IMPORT_VERSION):
+    """The importer: a random reference state_dict (seed 0) of
+    ``version``'s architecture through ``tools.torch_import`` on the card
+    and on the CPU; the crops decoded in float32 (cut, beam 10) on both:
+    strings equal on >= MIN_ZOO_MATCH, the first crop's teacher-forced
+    logits within ZOO_LOGIT_TOL of the CPU's, B1 launching on the card.
+    Then, not gated, the same in the mode ``version`` ships (int8): there
+    the encoder's int8 codes round from float32 sums that the card and the
+    CPU add in other orders, so the logits part by more than float32's and
+    beam ties under random weights may flip."""
+    import copy
+
+    import numpy as np
+
+    from doc2tex_tpu_torch.recognition import MathRecognition, load_recog_config
+    from doc2tex_tpu_torch.tools.torch_import import (import_torch_state_dict,
+                                                      reference_state_dict)
+
+    cfg, _ = load_recog_config(version=version)
+    sd = None
+    for mode in dict.fromkeys((None, cfg.get("quantize"))):
+        cut = dict(cut_config(cfg), quantize=mode)
+        outs, logits = {}, {}
+        for dev in dict.fromkeys(("cpu", device)):
+            rec = MathRecognition(copy.deepcopy(cut), None, beam_size=10, device=dev)
+            if sd is None:
+                sd = reference_state_dict(rec.model, cut, np.random.default_rng(0))
+            missing = import_torch_state_dict(sd, cut, rec.model)
+            if missing:
+                raise AssertionError(f"import left {missing[:8]} unfilled")
+            reset_launches()
+            outs[dev] = rec(crops)
+            launches = launch_counts()["decode_attention"]
+            logits[dev] = zoo_logits(rec, crops[0])
+        same = sum(a == b for a, b in zip(outs[device], outs["cpu"]))
+        err, tol, spread, gap = logit_check(logits[device], logits["cpu"])
+        log("zoo", t0, f"torch_import: a random reference state_dict of {version}'s "
+            f"architecture ({len(sd)} tensors) imported; {mode or 'float32'}"
+            f"{'' if mode else ' (gated)'}, {VERSION_CUT_STEPS} steps, beam 10: the card's "
+            f"strings equal the CPU's on {same}/{len(crops)} ({len(set(outs['cpu']))} "
+            f"distinct), {launches} decode_attention launches; teacher-forced logits of crop 0 "
+            f"card - CPU max {err:.3e} (tol {tol:.3e}), the CPU's std over the classes "
+            f"{spread:.3e}, median top-1/top-2 gap {gap:.3e}")
+        if mode is None and (same < min(MIN_ZOO_MATCH, len(crops)) or not err <= tol
+                             or (device != "cpu" and launches <= 0)):
+            raise AssertionError(f"torch_import: {same}/{len(crops)} strings equal, logits "
+                                 f"{err:.3e} apart (tol {tol:.3e}), {launches} B1 launches")
+
+
+def zoo_phase(t0, device="cuda", blocks=ZOO_BLOCKS, golden=None, crops=None):
+    """Phase 20 (see the module docstring).  Returns the kernels' JSON
+    records of the new instances: B1 at hd 64 (``zoo_cnn_tfm``'s
+    self-attention launches) and B2's content form (``zoo_vgg_bahdanau``'s).
+    A test passes ``device="cpu"`` with a tiny block, its golden and crops
+    to rehearse the phase: the kernel checks and timings need the card and
+    are left out."""
+    golden = golden or zoo_golden()
+    if crops is None:
+        _, crops = golden_crops("synthetic")
+        crops = crops[:ZOO_N_CROPS]
+    records = []
+    for block in blocks:
+        got = zoo_block(t0, block, crops, golden["blocks"][block], device)
+        if "decode_attention_hd64_self" in got:
+            rel = got["decode_attention_hd64_self"]
+            records.append({
+                "name": "decode_attention_hd64", "route": "cuda", "source": KERNEL_SOURCE,
+                "replaces": KERNEL_REPLACES, "launches": got["launches"],
+                "max_abs_err": rel["max_abs_err"], "ms": rel["ms"], "plain_ms": rel["plain_ms"],
+                "bound_ms": rel["bound_ms"], "bound_by": rel["bound_by"],
+                "library_ms": rel["library_ms"]})
+        if "content" in got:
+            rel = got["content"]
+            records.append({
+                "name": "attention_step_content", "route": "cuda", "source": B2_SOURCE,
+                "replaces": B2_REPLACES, "launches": got["launches"],
+                "max_abs_err": rel["max_abs_err"], "ms": rel["ms"], "plain_ms": rel["plain_ms"],
+                "bound_ms": rel["bound_ms"], "bound_by": rel["bound_by"], "library_ms": None})
+    if device != "cpu":
+        zoo_import(t0, crops, device)
+    return records
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(TIME_LIMIT_S, exit=True)
     t0 = time.perf_counter()
@@ -3156,6 +3572,7 @@ def main() -> int:
             + coverage_step_timing(8, 10, S, *B2_WIDE)["text"])
     infer_phase(t0)
     realdata_phase(t0)
+    records += zoo_phase(t0)
     print(json.dumps({"kernels": records}), flush=True)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -18,9 +18,10 @@ CLI (``data.loader.BucketLoader``, every batch decoded as it is), so
 memory in int8, through the int8 forms of B1 and B2 on the card.
 
 Images are PNGs, read by ``utils.png.decode_png`` (PIL's ``convert("L")``
-bytes; the card's machine has no PIL).  What is not ported raises, naming
-its ROADMAP item: ``--resizer`` (A6), JPEG images (A11) and ``--platform``
-(a JAX switch; the port takes ``--device``).
+bytes; the card's machine has no PIL).  ``--resizer`` runs each manifest
+image through the learned width resizer first (``make_resizer_hook``).  What
+is not ported raises, naming its ROADMAP item: JPEG images (A11) and
+``--platform`` (a JAX switch; the port takes ``--device``).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import os
 import resource
 import time
 
+import numpy as np
 import torch
 
 from ..config import load_config
@@ -39,19 +41,55 @@ from ..data.loader import ArrayDataset, BucketLoader, LmdbDataset
 from ..decode.runner import make_decode_fn
 from ..engine.inferencing import validation
 from ..models import build_model
+from ..models.extras import LearnedResizer
 from ..ops.quant import parts_for_mode
 from ..tokenizer.converters import create_converter
 from ..train.checkpoint import load_pretrained_variables
 from ..train.trainer import param_count
-from ..transforms.preprocess import resize_for_inference
+from ..transforms.preprocess import _resize_area, learned_resize, resize_for_inference
 from ..utils.png import decode_png
+from ..weights import load_variables, random_variables, to_variables
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+SHIPPED_RESIZER = os.path.join(_ROOT, "saved_models", "resizer", "best_weights.msgpack")
 
 
-def load_csv_dataset(csv_dir: str, data_dir: str, config) -> ArrayDataset:
+def make_resizer_hook(config, device="cuda"):
+    """The learned width-bucket resizer as a hook ``img_u8 -> img_u8``
+    (``learned_resize`` driven by a ``LearnedResizer`` of
+    ``resizer_buckets`` classes, default 21, over the crop resized to 64x64,
+    its raw 0-255 values).  Its weights (parameters and BatchNorm
+    statistics) come from the config's ``resizer_weights``, else from
+    ``saved_models/resizer/best_weights.msgpack`` where that exists, else a
+    seeded init: ``weights.random_variables`` of numpy's seed 0, the same
+    weights with every torch.  The model runs on ``device``; the hook
+    carries it as ``hook.model``."""
+    model = LearnedResizer(num_buckets=config.get("resizer_buckets", 21))
+    weights = config.get("resizer_weights") or (
+        SHIPPED_RESIZER if os.path.exists(SHIPPED_RESIZER) else None)
+    if weights:
+        load_pretrained_variables(weights, model)
+    else:
+        load_variables(model, random_variables(to_variables(model), np.random.default_rng(0)))
+    model.to(device).eval()
+
+    @torch.inference_mode()
+    def predict(img):
+        x = torch.from_numpy(_resize_area(img, 64, 64).astype("float32"))[None, ..., None]
+        return int(model(x.to(device)).argmax(-1)[0])
+
+    def hook(img):
+        return learned_resize(img, predict)
+
+    hook.model = model
+    return hook
+
+
+def load_csv_dataset(csv_dir: str, data_dir: str, config, resize_hook=None) -> ArrayDataset:
     """TSV manifest (name<TAB>label) + image folder -> ArrayDataset of
-    images resized for inference.  Rows whose image is missing are
-    skipped; a first row whose name is ``id``, ``image`` or ``name`` is a
-    header."""
+    images resized for inference (after ``resize_hook``, the learned
+    resizer, where given).  Rows whose image is missing are skipped; a
+    first row whose name is ``id``, ``image`` or ``name`` is a header."""
     images, labels, names = [], [], []
     with open(csv_dir, newline="") as f:
         # QUOTE_NONE: LaTeX labels contain `"`, which csv quoting would
@@ -66,6 +104,8 @@ def load_csv_dataset(csv_dir: str, data_dir: str, config) -> ArrayDataset:
             continue
         with open(path, "rb") as f:
             img = decode_png(f.read())
+        if resize_hook is not None:
+            img = resize_hook(img)
         images.append(resize_for_inference(img, config))
         labels.append(label)
         names.append(name)
@@ -135,9 +175,6 @@ def main(argv=None) -> None:
     if args.platform:
         raise NotImplementedError("--platform picks a JAX platform and is not ported; "
                                   "the port takes --device cuda|cpu")
-    if args.resizer:
-        raise NotImplementedError("--resizer (the learned width-bucket resizer) is not "
-                                  "ported yet (ROADMAP A6)")
     config = load_config(args.config)
     config["batch_size"] = args.batch_size
     if args.beam_size is not None:
@@ -152,7 +189,8 @@ def main(argv=None) -> None:
         config["prefetch"] = args.num_workers
 
     if args.csv_dir and args.data_dir:
-        dataset = load_csv_dataset(args.csv_dir, args.data_dir, config)
+        hook = make_resizer_hook(config, device=args.device) if args.resizer else None
+        dataset = load_csv_dataset(args.csv_dir, args.data_dir, config, hook)
     elif config.get("eval_data") and os.path.isdir(config["eval_data"]):
         dataset = LmdbDataset(config["eval_data"], rgb=config.get("rgb", False))
     elif config.get("synthetic_data"):

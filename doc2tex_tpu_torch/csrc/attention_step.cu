@@ -10,7 +10,7 @@
 //   alpha[s] = softmax_s(e)                               (f32, written normalised)
 //   ctx[d]   = sum_s alpha[s] * enc[b,s,d]                (f32)
 //
-// in one of two forms of the location term, a template parameter:
+// in one of three forms of the location term, a template parameter:
 //   - feature form, the TPU kernel's input for input:
 //       locH[r,s,h] = sum_j loc_feat[r,s,j] * w_loc[j,h] + b_loc[h]     (j < Kl)
 //   - coverage form, the location conv of the decoder folded in.  Conv then
@@ -20,10 +20,22 @@
 //     locH[r,s,h] = sum_t mem[r, s+t-ks] * W'[t,h] + b'[h], mem zero outside
 //     [0, S) (the conv's zero padding) and read at every position, those at
 //     or past valid included.  Each block computes W' and b' in its prologue.
-// Both forms take the memory at sample rows: enc (Bs,S,D) and enc_proj
+//   - content form, no location term (locH = 0): the bahdanau head, whose
+//     reference step adds a location of 0.0.
+// Every form takes the memory at sample rows: enc (Bs,S,D) and enc_proj
 // (Bs,S,H) in float or bfloat16; q (Bs*K,H) and everything else float; ctx
 // (Bs*K,D), alpha (Bs*K,S).  With K = 1 each form is the TPU kernel's
-// contract.  D = H; contiguous, 16-byte aligned.
+// contract, whose D and H are independent: H in {128, 256} (a template
+// parameter), D in {128, 256, 512} (enc's rows stream through the same ring
+// at D, and the context's threads split D).  Contiguous, 16-byte aligned.
+//
+// Two builds of this file.  The plain one holds the feature and coverage
+// forms at D = H, with D a compile-time constant (the template parameter
+// DT = H), and refuses D != H and the content form.  Built with
+// -DD2T_ATTENTION_STEP_WIDE it holds the three forms with D a run-time
+// width (DT = 0).  ops/attention_step.py loads the plain build for D = H
+// and the wide one for D != H and for the content form; the two are
+// compiled at once, each by its own nvcc.
 //
 // What bounds it.  At the release shape (64 samples x beam 10, S 623, D = H
 // = 128, bf16) the coverage form must move ~24 MB (enc and enc_proj once
@@ -68,8 +80,7 @@
 //     through distributed shared memory, each rank adding its share of the
 //     outputs in rank order.  One launch, no workspace in device memory.
 //
-// The int8 memory form (coverage form only; d2t_attention_step_coverage with
-// mem_dtype int8).
+// The int8 memory form (coverage and content forms; mem_dtype int8).
 // The reference computes the LSTM step on int8 memory in XLA, not in its
 // Pallas kernel (decoder_lstm.step under the decoder_mem part); this form
 // replaces that step on this card.  enc and enc_proj are int8 with one f32
@@ -114,7 +125,13 @@ constexpr float kNegInf = -1e30f;  // the score of a position past valid
 constexpr float kTwoOverLn2 = 2.8853900817779268f;  // e^(2x) = 2^(x * 2/ln2)
 constexpr float kMaxExp = 60.f;    // 2^x' is clamped here: tanh(60 ln2 / 2) = 1 - 1e-18
 
-enum Form { kFeature = 0, kCoverage = 1 };
+enum Form { kFeature = 0, kCoverage = 1, kContent = 2 };
+
+#ifdef D2T_ATTENTION_STEP_WIDE
+constexpr bool kWide = true;   // D a run-time width; the content form
+#else
+constexpr bool kWide = false;  // D = H, a compile-time constant
+#endif
 
 // Byte offsets of the dynamic shared memory.  ops/attention_step.py's
 // smem_bytes() is the same arithmetic; the launcher refuses a plan whose
@@ -124,23 +141,26 @@ struct Layout {
 };
 
 __host__ __device__ inline int up16(int x) { return (x + 15) & ~15; }
+__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
 
 __host__ __device__ inline Layout make_layout(int form, int Kz, int chunk, int tile, int stages,
-                                              int H, int Kl, int elem) {
+                                              int D, int H, int Kl, int elem) {
   Layout L;
   int off = 0;
-  L.w = off;      off += up16((form == kCoverage ? kTaps : Kl) * H * 4);  // W' or w_loc, scaled
+  const int depth = form == kCoverage ? kTaps : form == kFeature ? Kl : 0;
+  L.w = off;      off += up16(depth * H * 4);                             // W' or w_loc, scaled
   L.cw = off;     off += up16(form == kCoverage ? (kTaps + 1) * Kl * 4 : 0);  // conv_w, conv_b
   L.qb = off;     off += up16(Kz * H * 4);                                // (q + b') scaled
   L.ws = off;     off += up16(H * 4);                                     // -2 w_score
   L.win = off;    off += up16(form == kCoverage ? Kz * (chunk + 2 * kHalo) * 4 : 0);
   L.scores = off; off += up16(Kz * chunk * 4);
-  L.oblk = off;   off += up16(Kz * H * 4);                                // block's context
+  L.oblk = off;   off += up16(imax(Kz * D, H) * 4);                       // b_loc, then context
   L.red = off;    off += kRedFloats * 4;
   L.misc = off;   off += up16((4 * kMaxQ + 4) * 4);
   // a ring stage: tile enc_proj or enc rows, padded by 16 bytes, and in the
   // feature form the tile's loc_feat rows of every beam
-  L.stage = up16(tile * (H * elem + 16)) + (form == kFeature ? Kz * tile * (Kl * 4 + 16) : 0);
+  L.stage = up16(tile * (imax(D, H) * elem + 16)) +
+            (form == kFeature ? Kz * tile * (Kl * 4 + 16) : 0);
   L.ring = off;   off += stages * L.stage;
   L.total = off;
   return L;
@@ -247,12 +267,13 @@ __device__ __forceinline__ float warp_sum(float x) {
 // features (feature form; a_j from the tile's loc_feat rows): one loop.
 // int8 memory (T int8_t): P = round_RT(enc_proj8 * ps), ps the sample's
 // proj_scale already rounded to RT.
-template <typename T, typename RT, int H, int G, bool kCov>
+template <typename T, typename RT, int H, int G, int FORM>
 __device__ __forceinline__ void score_tile(const unsigned char* buf, const float* loc_tile,
                                            const float* w_s, const float* qb_s, const float* ws_s,
                                            const float* win_s, float* sc_s, float sum_ws,
                                            float ps, int chunk, int p0, int np, int tile, int Kz,
                                            int Kl, int HS, int tid) {
+  constexpr bool kCov = FORM == kCoverage;
   constexpr int RS = H * (int)sizeof(T) + 16;
   constexpr int NC = H / 4;  // float4 columns
   const int WL = chunk + 2 * kHalo;
@@ -260,7 +281,7 @@ __device__ __forceinline__ void score_tile(const unsigned char* buf, const float
   const int items = tile * (Kz / G);
   const int slots = kThreads / HS;
   const int sub = tid % HS;
-  const int depth = kCov ? kTaps : Kl;
+  const int depth = kCov ? kTaps : FORM == kFeature ? Kl : 0;
   for (int base = 0; base < items; base += slots) {
     const int it = base + tid / HS;
     const int pl = it % tile;
@@ -348,7 +369,7 @@ __device__ __forceinline__ void score_tile(const unsigned char* buf, const float
   }
 }
 
-template <typename T, typename RT, int H, int G, int FORM>
+template <typename T, typename RT, int H, int DT, int G, int FORM>
 __global__ void __launch_bounds__(kThreads)
 attention_step_kernel(const T* __restrict__ enc, const T* __restrict__ enc_proj,
                       const float* __restrict__ q, const float* __restrict__ loc,
@@ -356,17 +377,22 @@ attention_step_kernel(const T* __restrict__ enc, const T* __restrict__ enc_proj,
                       const float* __restrict__ w_loc, const float* __restrict__ b_loc,
                       const float* __restrict__ w_score, const float* __restrict__ enc_scale,
                       const float* __restrict__ proj_scale, float* __restrict__ ctx,
-                      float* __restrict__ alpha, int K, int Kz, int S, int Kl, int taps,
-                      int valid, int chunk, int tile, int stages) {
+                      float* __restrict__ alpha, int K, int Kz, int S, int d_width, int Kl,
+                      int taps, int valid, int chunk, int tile, int stages) {
   constexpr bool kCov = FORM == kCoverage;
   constexpr bool kQ8 = sizeof(T) == 1;  // int8 memory with per-sample scales
-  constexpr int D = H;
   constexpr int ELEM = sizeof(T);
-  constexpr int RS = H * ELEM + 16;   // bytes of a padded row in the ring
-  constexpr int CPR = H * ELEM / 16;  // 16-byte pieces of a row
+  constexpr int RS = H * ELEM + 16;   // bytes of a padded enc_proj row in the ring
+  constexpr int CPR = H * ELEM / 16;  // 16-byte pieces of an enc_proj row
   constexpr int VEC = 16 / ELEM;      // elements of a piece
-  constexpr int NC = H / 4;           // float4 columns of H (and D)
+  constexpr int NC = H / 4;           // float4 columns of H
   static_assert(H == 128 || H == 256, "widths");
+  static_assert(DT == 0 || DT == H, "D is H or a run-time width");
+  // enc's width: DT where the instance fixes it, so that every width below
+  // and the loops over it are compile-time constants there
+  const int D = DT > 0 ? DT : d_width;
+  const int RSD = D * ELEM + 16;      // RS and CPR of an enc row
+  const int CPRD = D * ELEM / 16;
 
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -386,7 +412,7 @@ attention_step_kernel(const T* __restrict__ enc, const T* __restrict__ enc_proj,
   const int warp = tid / 32;
   const int lane = tid % 32;
 
-  const Layout L = make_layout(FORM, Kz, chunk, tile, stages, H, Kl, ELEM);
+  const Layout L = make_layout(FORM, Kz, chunk, tile, stages, D, H, Kl, ELEM);
   float* w_s = reinterpret_cast<float*>(smem + L.w);
   float* qb_s = reinterpret_cast<float*>(smem + L.qb);
   float* ws_s = reinterpret_cast<float*>(smem + L.ws);
@@ -420,12 +446,13 @@ attention_step_kernel(const T* __restrict__ enc, const T* __restrict__ enc_proj,
       const int p0 = (proj ? i : i - nt_p) * tile;
       const int np = min(tile, (proj ? n_sc : n_cx) - p0);
       unsigned char* dst = ring + (i % stages) * L.stage;
-      const T* src = (proj ? proj_b : enc_b) + (long)p0 * H;
-      for (int piece = tid; piece < np * CPR; piece += kThreads) {
-        const int r = piece / CPR, c = piece % CPR;
-        cp_async16(dst + r * RS + c * 16, src + (long)r * H + c * VEC);
+      const int w = proj ? H : D, cpr = proj ? CPR : CPRD, rs = proj ? RS : RSD;
+      const T* src = (proj ? proj_b : enc_b) + (long)p0 * w;
+      for (int piece = tid; piece < np * cpr; piece += kThreads) {
+        const int r = piece / cpr, c = piece % cpr;
+        cp_async16(dst + r * rs + c * 16, src + (long)r * w + c * VEC);
       }
-      if constexpr (!kCov) {
+      if constexpr (FORM == kFeature) {
         if (proj) {
           unsigned char* ldst = dst + up16(tile * RS);
           const int lpr = Kl / 4;  // 16-byte pieces of a loc_feat row
@@ -463,7 +490,7 @@ attention_step_kernel(const T* __restrict__ enc, const T* __restrict__ enc_proj,
   for (int i = tid; i < Kz * NC; i += kThreads) cp_async16(qb_s + 4 * i, q + row0 * H + 4 * i);
   for (int i = tid; i < NC; i += kThreads) {
     cp_async16(ws_s + 4 * i, w_score + 4 * i);
-    cp_async16(o_blk + 4 * i, b_loc + 4 * i);
+    if constexpr (FORM != kContent) cp_async16(o_blk + 4 * i, b_loc + 4 * i);
   }
   const int WL = chunk + 2 * kHalo;
   if constexpr (kCov) {
@@ -551,7 +578,9 @@ attention_step_kernel(const T* __restrict__ enc, const T* __restrict__ enc_proj,
     }
   }
   __syncthreads();
-  for (int i = tid; i < Kz * H; i += kThreads) qb_s[i] = (qb_s[i] + o_blk[i % H]) * kTwoOverLn2;
+  for (int i = tid; i < Kz * H; i += kThreads) {
+    qb_s[i] = (FORM == kContent ? qb_s[i] : qb_s[i] + o_blk[i % H]) * kTwoOverLn2;
+  }
   for (int h = tid; h < H; h += kThreads) ws_s[h] *= -2.f;
   __syncthreads();
   const float sum_ws = *sum_ws_s;
@@ -568,7 +597,7 @@ attention_step_kernel(const T* __restrict__ enc, const T* __restrict__ enc_proj,
       issue(i + stages - 1);
       const unsigned char* buf = ring + (i % stages) * L.stage;
       const float* loc_tile = reinterpret_cast<const float*>(buf + up16(tile * RS));
-      score_tile<T, RT, H, G, kCov>(buf, loc_tile, w_s, qb_s, ws_s, win_s, sc_s, sum_ws, ps,
+      score_tile<T, RT, H, G, FORM>(buf, loc_tile, w_s, qb_s, ws_s, win_s, sc_s, sum_ws, ps,
                                     chunk, i * tile, min(tile, n_sc - i * tile), tile, Kz, Kl,
                                     HS, tid);
     }
@@ -638,8 +667,9 @@ attention_step_kernel(const T* __restrict__ enc, const T* __restrict__ enc_proj,
 
   // ---- context: thread (pg, d4) takes a float4 of D over positions pg,
   // pg + NPG, ... of each enc tile, for every beam
-  constexpr int NPG = kThreads / NC;
-  const int d4 = tid % NC, pg = tid / NC;
+  const int NCD = D / 4;
+  const int NPG = kThreads / NCD;
+  const int d4 = tid % NCD, pg = tid / NCD;
   float acc[kMaxQ][4];
 #pragma unroll
   for (int k = 0; k < kMaxQ; ++k) acc[k][0] = acc[k][1] = acc[k][2] = acc[k][3] = 0.f;
@@ -651,7 +681,7 @@ attention_step_kernel(const T* __restrict__ enc, const T* __restrict__ enc_proj,
     const int p0 = (i - nt_p) * tile;
     const int np = min(tile, n_cx - p0);
     for (int r = pg; r < np; r += NPG) {
-      const float4 v = load4<T>(buf + r * RS + d4 * 4 * ELEM);
+      const float4 v = load4<T>(buf + r * RSD + d4 * 4 * ELEM);
       const float* a = sc_s + p0 + r;
       // beams in groups of G (Kz is a multiple of G): one test a group
 #pragma unroll
@@ -670,8 +700,9 @@ attention_step_kernel(const T* __restrict__ enc, const T* __restrict__ enc_proj,
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
-  // the position groups' sums meet in red, KB beams at a time
-  constexpr int KB = kRedFloats / (NPG * D);
+  // the position groups' sums meet in red, KB beams at a time (NPG * D =
+  // 4 * kThreads whatever D)
+  constexpr int KB = kRedFloats / (4 * kThreads);
   for (int k0 = 0; k0 < Kz; k0 += KB) {
 #pragma unroll
     for (int k = 0; k < kMaxQ; ++k) {
@@ -684,8 +715,12 @@ attention_step_kernel(const T* __restrict__ enc, const T* __restrict__ enc_proj,
     for (int j = tid; j < min(KB, Kz - k0) * D; j += kThreads) {
       const int kk = j / D, d = j % D;
       float x = 0.f;
+      if constexpr (DT > 0) {
 #pragma unroll
-      for (int p = 0; p < NPG; ++p) x += red[(p * KB + kk) * D + d];
+        for (int p = 0; p < NPG; ++p) x += red[(p * KB + kk) * D + d];
+      } else {
+        for (int p = 0; p < NPG; ++p) x += red[(p * KB + kk) * D + d];
+      }
       o_blk[(k0 + kk) * D + d] = x;
     }
     __syncthreads();
@@ -709,13 +744,14 @@ attention_step_kernel(const T* __restrict__ enc, const T* __restrict__ enc_proj,
   cluster_sync();  // no block leaves while another reads its shared memory
 }
 
-template <typename T, typename RT, int H, int G, int FORM>
+template <typename T, typename RT, int H, int DT, int G, int FORM>
 int launch_g(const void* enc, const void* enc_proj, const void* q, const void* loc,
              const void* conv_w, const void* conv_b, const void* w_loc, const void* b_loc,
              const void* w_score, const void* enc_scale, const void* proj_scale, void* ctx,
-             void* alpha, int Bs, int K, int Kz, int S, int Kl, int taps, int valid, int cluster,
-             int chunk, int zsplit, int tile, int stages, int smem_bytes, cudaStream_t stream) {
-  auto kernel = attention_step_kernel<T, RT, H, G, FORM>;
+             void* alpha, int Bs, int K, int Kz, int S, int D, int Kl, int taps, int valid,
+             int cluster, int chunk, int zsplit, int tile, int stages, int smem_bytes,
+             cudaStream_t stream) {
+  auto kernel = attention_step_kernel<T, RT, H, DT, G, FORM>;
   // once per instance, at its first launch (so outside any graph capture
   // that follows a warm-up call)
   static const cudaError_t attr =
@@ -740,27 +776,29 @@ int launch_g(const void* enc, const void* enc_proj, const void* q, const void* l
       static_cast<const float*>(w_loc), static_cast<const float*>(b_loc),
       static_cast<const float*>(w_score), static_cast<const float*>(enc_scale),
       static_cast<const float*>(proj_scale), static_cast<float*>(ctx), static_cast<float*>(alpha),
-      K, Kz, S, Kl, taps, valid, chunk, tile, stages);
+      K, Kz, S, D, Kl, taps, valid, chunk, tile, stages);
 }
 
 // G = beams an item holds: 5 where the block's beams come in fives (beam 5
-// and 10), else 1
+// and 10), else 1.  DT: D = H fixed in the plain build, run-time in the wide
 template <typename T, typename RT, int H, int FORM>
 int launch_h(const void* enc, const void* enc_proj, const void* q, const void* loc,
              const void* conv_w, const void* conv_b, const void* w_loc, const void* b_loc,
              const void* w_score, const void* enc_scale, const void* proj_scale, void* ctx,
-             void* alpha, int Bs, int K, int Kz, int S, int Kl, int taps, int valid, int cluster,
-             int chunk, int zsplit, int tile, int stages, int smem_bytes, cudaStream_t s) {
+             void* alpha, int Bs, int K, int Kz, int S, int D, int Kl, int taps, int valid,
+             int cluster, int chunk, int zsplit, int tile, int stages, int smem_bytes,
+             cudaStream_t s) {
 #define D2T_ARGS enc, enc_proj, q, loc, conv_w, conv_b, w_loc, b_loc, w_score, enc_scale, \
-                 proj_scale, ctx, alpha, Bs, K, Kz, S, Kl, taps, valid, cluster, chunk, zsplit, \
-                 tile, stages, smem_bytes, s
-  if (Kz % 5 == 0) return launch_g<T, RT, H, 5, FORM>(D2T_ARGS);
-  return launch_g<T, RT, H, 1, FORM>(D2T_ARGS);
+                 proj_scale, ctx, alpha, Bs, K, Kz, S, D, Kl, taps, valid, cluster, chunk, \
+                 zsplit, tile, stages, smem_bytes, s
+  constexpr int DT = kWide ? 0 : H;
+  if (Kz % 5 == 0) return launch_g<T, RT, H, DT, 5, FORM>(D2T_ARGS);
+  return launch_g<T, RT, H, DT, 1, FORM>(D2T_ARGS);
 #undef D2T_ARGS
 }
 
 // mem: the memory's type, 0 = float32, 2 = bfloat16, 3 = int8 (coverage
-// form only, with enc_scale and proj_scale); compute: the compute type,
+// and content forms, with enc_scale and proj_scale); compute: the compute type,
 // 0 = float32, 2 = bfloat16, the memory's own unless the memory is int8
 template <int FORM>
 int launch(const void* enc, const void* enc_proj, const void* q, const void* loc,
@@ -772,33 +810,35 @@ int launch(const void* enc, const void* enc_proj, const void* q, const void* loc
   const bool q8 = mem == 3;
   const int elem = mem == 0 ? 4 : q8 ? 1 : 2;
   const int Kz = zsplit > 0 ? K / zsplit : 0;
-  if (Bs <= 0 || Bs > 65535 || K <= 0 || S <= 0 || Kl <= 0 || D != H ||
+  if (Bs <= 0 || Bs > 65535 || K <= 0 || S <= 0 || (FORM == kContent ? Kl != 0 : Kl <= 0) ||
+      (D != 128 && D != 256 && D != 512) || (!kWide && (D != H || FORM == kContent)) ||
       (H != 128 && H != 256) || (mem != 0 && mem != 2 && !q8) ||
       (compute != 0 && compute != 2) || (!q8 && compute != mem) ||
-      (q8 && (FORM != kCoverage || enc_scale == nullptr || proj_scale == nullptr)) ||
+      (q8 && (FORM == kFeature || enc_scale == nullptr || proj_scale == nullptr)) ||
       zsplit <= 0 ||
       zsplit > 65535 || K % zsplit != 0 || Kz > kMaxQ || cluster <= 0 ||
       cluster > kMaxCluster || chunk <= 0 || (long)cluster * chunk < S ||
       (long)(cluster - 1) * chunk >= S || (tile != 16 && tile != 32) || stages < 2 ||
       stages > kMaxStages || smem_bytes > kMaxSmem ||
-      smem_bytes < make_layout(FORM, Kz, chunk, tile, stages, H, Kl, elem).total) {
+      smem_bytes < make_layout(FORM, Kz, chunk, tile, stages, D, H, Kl, elem).total) {
     return (int)cudaErrorInvalidValue;
   }
-  if (FORM == kCoverage ? (taps < 1 || taps > kTaps || taps % 2 == 0) : Kl % 4 != 0) {
+  if (FORM == kCoverage ? (taps < 1 || taps > kTaps || taps % 2 == 0)
+                        : FORM == kFeature && Kl % 4 != 0) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc = (int)cudaErrorInvalidValue;
 #define D2T_ARGS enc, enc_proj, q, loc, conv_w, conv_b, w_loc, b_loc, w_score, enc_scale, \
-                 proj_scale, ctx, alpha, Bs, K, Kz, S, Kl, taps, valid, cluster, chunk, zsplit, \
-                 tile, stages, smem_bytes, s
+                 proj_scale, ctx, alpha, Bs, K, Kz, S, D, Kl, taps, valid, cluster, chunk, \
+                 zsplit, tile, stages, smem_bytes, s
   if (mem == 0) {
     rc = H == 128 ? launch_h<float, float, 128, FORM>(D2T_ARGS)
                   : launch_h<float, float, 256, FORM>(D2T_ARGS);
   } else if (mem == 2) {
     rc = H == 128 ? launch_h<__nv_bfloat16, __nv_bfloat16, 128, FORM>(D2T_ARGS)
                   : launch_h<__nv_bfloat16, __nv_bfloat16, 256, FORM>(D2T_ARGS);
-  } else if constexpr (FORM == kCoverage) {
+  } else if constexpr (FORM != kFeature) {
     if (compute == 0) {
       rc = H == 128 ? launch_h<int8_t, float, 128, FORM>(D2T_ARGS)
                     : launch_h<int8_t, float, 256, FORM>(D2T_ARGS);
@@ -853,3 +893,20 @@ extern "C" int d2t_attention_step_coverage(
                            mem_dtype, compute_dtype, cluster, chunk, zsplit, tile, stages,
                            smem_bytes, stream);
 }
+
+#ifdef D2T_ATTENTION_STEP_WIDE
+// content form (no location term; the bahdanau head): enc (Bs,S,D),
+// enc_proj (Bs,S,H), q (Bs*K,H), w_score (H); mem_dtype and compute_dtype
+// and the int8 scales as in the coverage form.
+extern "C" int d2t_attention_step_content(const void* enc, const void* enc_proj, const void* q,
+                                          const void* w_score, const void* enc_scale,
+                                          const void* proj_scale, void* ctx, void* alpha, int Bs,
+                                          int K, int S, int D, int H, int valid, int mem_dtype,
+                                          int compute_dtype, int cluster, int chunk, int zsplit,
+                                          int tile, int stages, int smem_bytes, void* stream) {
+  return launch<kContent>(enc, enc_proj, q, nullptr, nullptr, nullptr, nullptr, nullptr, w_score,
+                          enc_scale, proj_scale, ctx, alpha, Bs, K, S, D, H, 0, 0, valid,
+                          mem_dtype, compute_dtype, cluster, chunk, zsplit, tile, stages,
+                          smem_bytes, stream);
+}
+#endif

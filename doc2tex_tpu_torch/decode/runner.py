@@ -56,7 +56,7 @@ def make_decode_fn(model, config, beam_size: int = 1, device="cuda") -> Callable
     ids = token_ids_for(pred_name)
     mean, std = config.get("mean", 0.5), config.get("std", 0.5)
     max_steps = config["batch_max_length"] + 1
-    is_tfm_head = pred_name == "TFM"
+    is_tfm_head = pred_name in ("TFM", "MS_TFM")
     gather = tfm_gather if is_tfm_head else lstm_gather
     ends = _chunk_ends(max_steps, DECODE_CHUNKS) if is_tfm_head else [max_steps]
     k = max(beam_size, 1)

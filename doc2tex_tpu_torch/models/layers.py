@@ -35,12 +35,14 @@ class Dense(nn.Module):
 
     With ``int8`` set (the ViT blocks' Denses under ``quantize: int8``) and
     the shape gates of ``ops/quant.py`` passed, the product runs through
-    the int8 op instead."""
+    the int8 op instead; ``quantizable=False`` marks a Dense the JAX package
+    never routes there."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, quantizable: bool = True):
         super().__init__()
         self.dtype = dtype
+        self.quantizable = quantizable
         self.int8 = False
         self._int8_kernel = None
         self.kernel = nn.Parameter(torch.empty(in_features, out_features))
@@ -48,7 +50,7 @@ class Dense(nn.Module):
         nn.init.trunc_normal_(self.kernel, std=0.02)
 
     def takes_int8(self) -> bool:
-        return self.int8 and quant.gated(*self.kernel.shape)
+        return self.int8 and self.quantizable and quant.gated(*self.kernel.shape)
 
     def forward(self, x):
         if self.takes_int8():
@@ -56,6 +58,30 @@ class Dense(nn.Module):
             return quant.int8_linear(x, w_q, w_scale, self.bias, self.dtype)
         y = x.to(self.dtype) @ self.kernel.to(self.dtype)
         return y if self.bias is None else y + self.bias.to(self.dtype)
+
+
+def quantizable_layers(module: nn.Module, rename: dict | None = None):
+    """(name, layer) of every Conv and Dense under ``module`` that the JAX
+    package routes through its int8 hook (``quantizable``), named by their
+    path with the prefixes of ``rename`` replaced."""
+    from .resnet import Conv
+
+    for name, layer in module.named_modules():
+        if isinstance(layer, (Conv, Dense)) and layer.quantizable:
+            for old, new in (rename or {}).items():
+                name = name.replace(old, new)
+            yield name, layer
+
+
+def set_int8(layers, on: bool) -> list[str]:
+    """Set the int8 flag of each (name, layer); returns the names of the
+    layers that pass the shape gates and so take the int8 op."""
+    names = []
+    for name, layer in layers:
+        layer.int8 = on
+        if layer.takes_int8():
+            names.append(name)
+    return names
 
 
 class LayerNorm(nn.Module):
@@ -103,6 +129,84 @@ def word_posenc(max_len: int, d_model: int) -> torch.Tensor:
     dim = torch.arange(0, d_model, 2, dtype=torch.float32)
     ang = pos * torch.exp(-math.log(10000.0) * dim / d_model)
     return torch.stack([torch.sin(ang), torch.cos(ang)], dim=-1).reshape(max_len, d_model)
+
+
+def posenc_1d(max_len: int, d_model: int) -> torch.Tensor:
+    """1D sin-cos table over sequence positions (the BiLSTM stage's)."""
+    return word_posenc(max_len, d_model)
+
+
+def posenc_2d_hw(h: int, w: int, d_model: int) -> torch.Tensor:
+    """h/w-split 2D sin-cos table (h, w, d_model) float32: the first half
+    of the channels encodes the row, the second half the column."""
+    if d_model % 2:
+        raise ValueError("d_model must be even")
+    half = d_model // 2
+    pe_h = word_posenc(h, half)[:, None, :].expand(h, w, half)
+    pe_w = word_posenc(w, half)[None, :, :].expand(h, w, half)
+    return torch.cat([pe_h, pe_w], dim=-1)
+
+
+class GatedSum(nn.Module):
+    """Sigmoid-gated blend ``g * a + (1 - g) * b``, g from a float32 Dense
+    of the two inputs side by side."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.Dense_0 = Dense(2 * dim, 1, quantizable=False)
+
+    def forward(self, a, b):
+        t = torch.promote_types(a.dtype, b.dtype)
+        g = torch.sigmoid(self.Dense_0(torch.cat([a.to(t), b.to(t)], dim=-1)))
+        return g * a + (1.0 - g) * b
+
+
+class Adaptive2DPositionalEncoding(nn.Module):
+    """SATRN's adaptive 2D table: the h and w sin-cos tables, each scaled
+    per sample and channel by a sigmoid of a 2-layer MLP over the map's
+    mean.  NCHW in, NCHW out."""
+
+    def __init__(self, d_model: int, max_h: int = 256, max_w: int = 256,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.register_buffer("pe_h", word_posenc(max_h, d_model), persistent=False)
+        self.register_buffer("pe_w", word_posenc(max_w, d_model), persistent=False)
+        for axis in ("h", "w"):
+            self.add_module(f"{axis}_fc1", Dense(d_model, d_model // 2, dtype=dtype,
+                                                 quantizable=False))
+            self.add_module(f"{axis}_fc2", Dense(d_model // 2, d_model, dtype=dtype,
+                                                 quantizable=False))
+
+    def forward(self, x):
+        B, C, H, W = x.shape
+        pooled = x.mean(dim=(2, 3))
+        alpha = {axis: torch.sigmoid(getattr(self, f"{axis}_fc2")(
+            F.relu(getattr(self, f"{axis}_fc1")(pooled)))) for axis in ("h", "w")}
+        pe_h = self.pe_h[:H].to(x.dtype).T[None, :, :, None]     # (1, C, H, 1)
+        pe_w = self.pe_w[:W].to(x.dtype).T[None, :, None, :]     # (1, C, 1, W)
+        return (x + alpha["h"][:, :, None, None] * pe_h
+                + alpha["w"][:, :, None, None] * pe_w)
+
+
+class PosConv(nn.Module):
+    """PEG positional encoding: a depthwise 3x3 conv (SAME) over the token
+    grid, added back at stride 1.  Tokens (B, N, C) without the cls token."""
+
+    def __init__(self, dim: int, stride: int = 1, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        from .resnet import Conv
+
+        self.stride = stride
+        self.Conv_0 = Conv(dim, dim, (3, 3), (stride, stride), "SAME", bias=True,
+                           dtype=dtype, groups=dim, quantizable=False)
+
+    def forward(self, x, grid_hw):
+        B, N, C = x.shape
+        feat = x.reshape(B, *grid_hw, C).permute(0, 3, 1, 2)
+        out = self.Conv_0(feat)
+        if self.stride == 1:
+            out = out + feat
+        return out.flatten(2).transpose(1, 2)
 
 
 def scalar(value: float, dtype: torch.dtype) -> float:

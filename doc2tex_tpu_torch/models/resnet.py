@@ -13,6 +13,9 @@ Inside, the port runs NCHW convolutions (PyTorch's layout); kernels are
 stored OIHW (``weights.py`` converts flax's HWIO).  BatchNorm computes in
 float32 and returns the compute type, as flax's BatchNorm does: with its
 running statistics, or with ``train`` by flax's training rules (below).
+
+``gcb`` appends a global-context block (``GCB``) to each of the four
+stages, as the JAX module does.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import quant
+from .layers import Dense, LayerNorm
 
 
 def feature_hw(h: int, w: int) -> tuple[int, int]:
@@ -36,45 +40,80 @@ def feature_hw(h: int, w: int) -> tuple[int, int]:
     return h4 - 1, w4 - 1            # conv4_2: k2 s1 p0
 
 
+def same_padding(size: int, kernel: int, stride: int, dilation: int = 1) -> tuple[int, int]:
+    """flax's ``padding="SAME"`` on one axis: (low, high), the extra one
+    at the high end."""
+    span = dilation * (kernel - 1) + 1
+    total = max((-(-size // stride) - 1) * stride + span - size, 0)
+    return total // 2, total - total // 2
+
+
 class Conv(nn.Module):
-    """flax ``nn.Conv`` on NCHW input; ``kernel`` is OIHW.
+    """flax ``nn.Conv`` on NCHW input; ``kernel`` is OIHW.  ``padding`` is
+    (ph, pw) on both sides, or ``"SAME"`` (flax's, from the input's size);
+    ``groups`` is flax's ``feature_group_count``, ``dilation`` its
+    ``kernel_dilation``.
 
     With ``int8`` set (the encoder under ``quantize: int8``) and the shape
     gates of ``ops/quant.py`` passed, the convolution runs through the int8
-    op instead."""
+    op instead.  ``quantizable=False`` marks a layer that the JAX package
+    never routes there (its ``nn.Conv`` has no ``maybe_conv_general``)."""
 
     def __init__(self, cin: int, cout: int, kernel=(3, 3), stride=(1, 1),
-                 padding=(1, 1), bias: bool = False, dtype: torch.dtype = torch.float32):
+                 padding=(1, 1), bias: bool = False, dtype: torch.dtype = torch.float32,
+                 groups: int = 1, dilation=(1, 1), quantizable: bool = True):
         super().__init__()
-        self.stride, self.padding, self.dtype = tuple(stride), tuple(padding), dtype
+        self.stride, self.dtype = tuple(stride), dtype
+        self.padding = padding if padding == "SAME" else tuple(padding)
+        self.groups, self.dilation, self.quantizable = groups, tuple(dilation), quantizable
         self.int8 = False
         self._int8_kernel = None
-        self.kernel = nn.Parameter(torch.empty(cout, cin, *kernel))
+        self.kernel = nn.Parameter(torch.empty(cout, cin // groups, *kernel))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
         nn.init.kaiming_normal_(self.kernel, mode="fan_out")
 
     def takes_int8(self) -> bool:
         cout, cin, kh, kw = self.kernel.shape
-        return self.int8 and quant.gated(cin * kh * kw, cout)
+        return self.int8 and self.quantizable and quant.gated(cin * kh * kw, cout)
 
     def forward(self, x):
+        padding = self.padding
+        if padding == "SAME":
+            (kh, kw), (sh, sw), (dh, dw) = self.kernel.shape[2:], self.stride, self.dilation
+            (t, b), (l, r) = (same_padding(x.shape[2], kh, sh, dh),
+                              same_padding(x.shape[3], kw, sw, dw))
+            x, padding = F.pad(x, (l, r, t, b)), (0, 0)
         if self.takes_int8():
             w_q, w_scale = quant.layer_weight(self, quant.quantize_conv_weight)
             return quant.int8_conv2d(x, w_q, w_scale, self.bias, tuple(self.kernel.shape[2:]),
-                                     self.stride, self.padding, self.dtype)
+                                     self.stride, padding, self.dtype, self.dilation)
         kernel = self.kernel.to(self.dtype)
+        args = (self.stride, padding, self.dilation, self.groups)
         if self.dtype == torch.float32 or self.bias is None:
-            return F.conv2d(x.to(self.dtype), kernel, self.bias, self.stride, self.padding)
+            return F.conv2d(x.to(self.dtype), kernel, self.bias, *args)
         # in a narrower type the bias is added after the convolution's output
         # is rounded to it, as flax does (a bias fused into the convolution
         # would round once, and give other values)
-        y = F.conv2d(x.to(self.dtype), kernel, None, self.stride, self.padding)
+        y = F.conv2d(x.to(self.dtype), kernel, None, *args)
         return y + self.bias.to(self.dtype).view(1, -1, 1, 1)
+
+
+def max_pool(x, kernel, stride, padding="VALID"):
+    """flax ``nn.max_pool`` on NCHW input: ``padding`` "VALID", "SAME" or
+    ((top, bottom), (left, right)); the padding is -inf, as flax's."""
+    if padding == "VALID":
+        return F.max_pool2d(x, kernel, stride)
+    if padding == "SAME":
+        padding = (same_padding(x.shape[2], kernel[0], stride[0]),
+                   same_padding(x.shape[3], kernel[1], stride[1]))
+    (t, b), (l, r) = padding
+    x = F.pad(x, (l, r, t, b), value=float("-inf"))
+    return F.max_pool2d(x, kernel, stride)
 
 
 class BatchNorm(nn.Module):
     """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over the channel
-    axis of NCHW input.
+    axis of NCHW input (``momentum`` may be given: flax's default is 0.99).
 
     ``train=False`` normalizes with the running statistics.  ``train=True``
     follows flax, not ``F.batch_norm(training=True)``: the batch statistics
@@ -85,9 +124,9 @@ class BatchNorm(nn.Module):
     at momentum 0.1 of the other side).  One rounding to the input's type
     at the end, as in eval."""
 
-    def __init__(self, channels: int, eps: float = 1e-5):
+    def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
-        self.eps = eps
+        self.eps, self.momentum = eps, momentum
         self.scale = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("mean", torch.zeros(channels))
@@ -105,8 +144,9 @@ class BatchNorm(nn.Module):
         mean = x32.mean(dim=(0, 2, 3))
         var = torch.clamp((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
         with torch.no_grad():
-            self.mean.copy_(0.9 * self.mean + (1 - 0.9) * mean)
-            self.var.copy_(0.9 * self.var + (1 - 0.9) * var)
+            m = self.momentum
+            self.mean.copy_(m * self.mean + (1 - m) * mean)
+            self.var.copy_(m * self.var + (1 - m) * var)
         mul = torch.rsqrt(var + self.eps) * self.scale
         y = (x32 - mean[None, :, None, None]) * mul[None, :, None, None]
         return (y + self.bias[None, :, None, None]).to(x.dtype)
@@ -143,9 +183,33 @@ class BasicBlock(nn.Module):
         return F.relu(out + residual)
 
 
+class GCB(nn.Module):
+    """GCNet-style global context (``doc2tex_tpu.models.resnet.GCB``): a
+    1x1 conv's softmax (float32, over H*W) pools the map into one context
+    vector, a Dense -> LayerNorm -> relu -> Dense bottleneck transforms it,
+    and it is added at every position.  The bottleneck's hidden width is C,
+    not C / 8: the reference's ConvMLP ignores its ratio, and the weights
+    follow it.  None of its layers takes the int8 op."""
+
+    def __init__(self, channels: int, dtype: torch.dtype):
+        super().__init__()
+        self.Conv_0 = Conv(channels, 1, (1, 1), padding=(0, 0), bias=True, dtype=dtype,
+                           quantizable=False)
+        self.Dense_0 = Dense(channels, channels, dtype=dtype, quantizable=False)
+        self.LayerNorm_0 = LayerNorm(channels, 1e-5)
+        self.Dense_1 = Dense(channels, channels, dtype=dtype, quantizable=False)
+
+    def forward(self, x, train: bool = False):
+        B, C, H, W = x.shape
+        mask = torch.softmax(self.Conv_0(x).reshape(B, H * W).float(), dim=1).to(x.dtype)
+        context = torch.einsum("bcn,bn->bc", x.reshape(B, C, H * W), mask)
+        t = self.Dense_1(F.relu(self.LayerNorm_0(self.Dense_0(context))))
+        return x + t.to(x.dtype).reshape(B, C, 1, 1)
+
+
 class FANResNet(nn.Module):
     def __init__(self, input_channel: int = 1, output_channel: int = 512,
-                 layers=(1, 2, 5, 3), dtype: torch.dtype = torch.float32):
+                 layers=(1, 2, 5, 3), dtype: torch.dtype = torch.float32, gcb: bool = False):
         super().__init__()
         oc = [output_channel // 4, output_channel // 2, output_channel, output_channel]
         inplanes = output_channel // 8
@@ -168,6 +232,9 @@ class FANResNet(nn.Module):
                 self.add_module(f"BasicBlock_{n}", BasicBlock(cin, planes, dtype))
                 names.append(f"BasicBlock_{n}")
                 n, cin = n + 1, planes
+            if gcb:
+                names.append(f"GCB_{len(self.stages)}")
+                self.add_module(names[-1], GCB(planes, dtype))
             self.stages.append(names)
 
     def _stage(self, x, i, train):
@@ -193,9 +260,9 @@ class ResNetFeatureExtractor(nn.Module):
     """Wrapper kept so module paths match the flax variables."""
 
     def __init__(self, input_channel: int = 1, output_channel: int = 512,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, gcb: bool = False):
         super().__init__()
-        self.FANResNet_0 = FANResNet(input_channel, output_channel, dtype=dtype)
+        self.FANResNet_0 = FANResNet(input_channel, output_channel, dtype=dtype, gcb=gcb)
 
     def forward(self, x, train: bool = False):
         return self.FANResNet_0(x, train)

@@ -8,7 +8,7 @@ as the JAX package's ``doc2tex_tpu.ops.attention_step``:
     alpha[r,s] = softmax_s(e[r])
     context[r] = sum_s alpha[r,s] * enc[b,s]
 
-in two forms of the location term ``locH``:
+in three forms of the location term ``locH``:
 
 - ``fused_attention_step``, the TPU kernel's contract: ``locH = loc_feat @
   w_loc + b_loc`` from the location features (B, S, Kl), with the memory at
@@ -17,9 +17,14 @@ in two forms of the location term ``locH``:
   over the coverage ``mem`` (B*K, S) folded in, with the memory at sample
   rows (Bs, S, ·) and q at Bs*K rows.  Its plain version is the decoder's
   former step: ``location_features``, the memory repeated K times, then
-  ``attention_step_reference``.
+  ``attention_step_reference``;
+- ``content_attention_step``, the bahdanau head's step: no location term
+  (``locH = 0``), the memory at sample rows as in the coverage form.
 
-The coverage form also takes int8 memory (the ``decoder_mem`` quantized
+D (enc's width) and H (enc_proj's) are independent, as in the TPU
+kernel's contract: H in {128, 256}, D in {128, 256, 512}.
+
+The coverage and content forms also take int8 memory (the ``decoder_mem`` quantized
 part): ``enc`` and ``enc_proj`` int8 with one float32 scale per sample,
 ``enc_scale`` and ``proj_scale`` (Bs, 1, 1), and the model's compute type,
 as the JAX package's LSTM step reads them:
@@ -27,13 +32,15 @@ as the JAX package's LSTM step reads them:
     enc_proj = round_to(compute type, enc_proj_int8 * round_to(compute type, proj_scale))
     context  = (sum_s alpha * enc_int8) * enc_scale                     (f32)
 
-Both run one hand-written CUDA kernel (``csrc/attention_step.cu``, the form a
+All run one hand-written CUDA kernel (``csrc/attention_step.cu``, the form a
 template parameter, and the memory's type: its int8 form) on CUDA tensors,
 with the grid ``launch_plan`` chooses, and their plain PyTorch versions on
-CPU tensors.  Neither falls back from one to the other: on a CUDA tensor
-each launches the kernel or raises.  ``coverage_attention_step.launches``
-counts the coverage form's float launches, ``.int8_launches`` its int8
-ones.
+CPU tensors.  The kernel is built twice: at D = H with D a compile-time
+constant (the feature and coverage forms), and with ``WIDE_DEFINE`` at a
+run-time D (D != H, and the content form).  None falls back from one to the other: on a CUDA tensor each
+launches the kernel or raises.  ``coverage_attention_step.launches`` counts
+the coverage form's float launches, ``.int8_launches`` its int8 ones;
+``content_attention_step`` counts its own the same way.
 
 Training: on a CUDA tensor that needs a gradient, ``coverage_attention_step``
 runs through ``CoverageAttentionStepFn``, whose forward is the kernel above
@@ -41,7 +48,10 @@ runs through ``CoverageAttentionStepFn``, whose forward is the kernel above
 second hand-written kernel (``csrc/attention_step_backward.cu``, at K = 1),
 ``coverage_attention_step_backward``; its plain version
 ``coverage_attention_step_backward_reference`` writes the gradient out.  On
-the CPU the step stays the plain version under autograd.
+the CPU the step stays the plain version under autograd.  The backward
+kernel takes the coverage form at D = H only: a gradient through the content
+form, or through the coverage form at D != H, raises on the card (ROADMAP
+A9.5, the training of those heads).
 """
 
 from __future__ import annotations
@@ -56,14 +66,17 @@ import torch.nn.functional as F
 from .._build import load_library
 
 SOURCE = "attention_step.cu"
+WIDE_DEFINE = "D2T_ATTENTION_STEP_WIDE"   # the build of SOURCE for D != H and the content form
 BACKWARD_SOURCE = "attention_step_backward.cu"
 BWD_CHUNK = 64            # positions per block in the backward's passes over S
 BWD_VECS = 7              # per-block partial vectors of H: d q, d w_score, 5 taps
 NEG_INF = -1e30
-WIDTHS = (128, 256)            # D = H the kernel is built for
+WIDTHS = (128, 256)            # H the kernel is built for (and D = H of the backward)
+D_WIDTHS = (128, 256, 512)     # D, enc's width, the forward takes
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 2}   # the memory's type, or the compute type
 _MEM_CODE = {**_DTYPE_CODE, torch.int8: 3}            # the memory's type (int8: coverage form)
-FEATURE, COVERAGE = "feature", "coverage"
+FEATURE, COVERAGE, CONTENT = "feature", "coverage", "content"
+_FORMS = (FEATURE, COVERAGE, CONTENT)
 
 # The kernel's grid (csrc/attention_step.cu): per sample, `zsplit` groups of
 # K / zsplit beams, each a cluster of up to MAX_CLUSTER blocks splitting S
@@ -111,17 +124,20 @@ def _up16(x: int) -> int:
 
 
 def smem_bytes(form: str, Kz: int, chunk: int, tile: int, stages: int, H: int, Kl: int,
-               elem: int) -> int:
-    """Dynamic shared memory of one block: ``make_layout`` of the kernel."""
+               elem: int, D: int | None = None) -> int:
+    """Dynamic shared memory of one block: ``make_layout`` of the kernel
+    (D defaults to H)."""
+    D = H if D is None else D
     cov = form == COVERAGE
-    stage = _up16(tile * (H * elem + 16)) + (0 if cov else Kz * tile * (Kl * 4 + 16))
-    return (_up16((MAX_TAPS if cov else Kl) * H * 4)             # W' or w_loc
+    feat = form == FEATURE
+    stage = _up16(tile * (max(D, H) * elem + 16)) + (Kz * tile * (Kl * 4 + 16) if feat else 0)
+    return (_up16((MAX_TAPS if cov else Kl if feat else 0) * H * 4)  # W' or w_loc
             + _up16((MAX_TAPS + 1) * Kl * 4 if cov else 0)       # conv_w, conv_b
             + _up16(Kz * H * 4)                                  # q + b'
             + _up16(H * 4)                                       # w_score
             + _up16(Kz * (chunk + MAX_TAPS - 1) * 4 if cov else 0)  # coverage and halo
             + _up16(Kz * chunk * 4)                              # f32 scores
-            + _up16(Kz * H * 4)                                  # the block's context
+            + _up16(max(Kz * D, H) * 4)                          # b_loc, the block's context
             + RED_FLOATS * 4                                     # partial sums
             + _up16((4 * 16 + 4) * 4)                            # row max and sum
             + stages * stage)                                    # the ring
@@ -135,21 +151,23 @@ def launch_plan(Bs: int, K: int, S: int, D: int, H: int, Kl: int, dtype: torch.d
     blocks, with a ring of STAGES tiles of the first size in TILES that fits
     shared memory, the plan of least modelled time (see FIXED_US); ties go
     to the smaller cluster, then the fewer groups.  Raises on what the
-    kernel does not take: D != H, widths outside WIDTHS, taps (2 *
+    kernel does not take: H outside WIDTHS, D outside D_WIDTHS, taps (2 *
     kernel_size + 1) above MAX_TAPS, Kl not a multiple of 4 in the feature
-    form, and an S that MAX_CLUSTER blocks cannot hold."""
-    if dtype not in _DTYPE_CODE and not (dtype == torch.int8 and form == COVERAGE):
+    form (and not 0 in the content form, which has no location term), and
+    an S that MAX_CLUSTER blocks cannot hold."""
+    if dtype not in _DTYPE_CODE and not (dtype == torch.int8 and form != FEATURE):
         raise TypeError(f"kernel takes float32/bfloat16 memory (or int8 in the coverage "
-                        f"form); got {dtype}")
-    if form not in (FEATURE, COVERAGE):
-        raise ValueError(f"form must be {FEATURE!r} or {COVERAGE!r}; got {form!r}")
-    if D != H or D not in WIDTHS:
-        raise ValueError(f"kernel takes D = H in {WIDTHS}; got D={D}, H={H}")
+                        f"and content forms); got {dtype}")
+    if form not in _FORMS:
+        raise ValueError(f"form must be one of {_FORMS}; got {form!r}")
+    if H not in WIDTHS or D not in D_WIDTHS:
+        raise ValueError(f"kernel takes D in {D_WIDTHS} and H in {WIDTHS}; got D={D}, H={H}")
     if form == COVERAGE and not (0 < taps <= MAX_TAPS and taps % 2 == 1):
         raise ValueError(f"kernel takes a location conv of at most {MAX_TAPS} taps "
                          f"(kernel_size <= {(MAX_TAPS - 1) // 2}); got {taps}")
-    if Kl <= 0 or (form == FEATURE and Kl % 4):
-        raise ValueError(f"kernel takes Kl > 0 (a multiple of 4 in the feature form); got {Kl}")
+    if (Kl != 0) if form == CONTENT else (Kl <= 0 or (form == FEATURE and Kl % 4)):
+        raise ValueError(f"kernel takes Kl > 0 (a multiple of 4 in the feature form; 0 in the "
+                         f"content form); got {Kl}")
     if Bs <= 0 or K <= 0 or S <= 0:
         raise ValueError(f"kernel takes samples, beams and S > 0; got {Bs}, {K}, {S}")
     elem = dtype.itemsize
@@ -161,7 +179,7 @@ def launch_plan(Bs: int, K: int, S: int, D: int, H: int, Kl: int, dtype: torch.d
             if -(-S // chunk) != cluster:
                 continue  # the same chunks as a smaller cluster
             fit = next(((tile, smem) for tile in TILES
-                        if (smem := smem_bytes(form, Kz, chunk, tile, STAGES, H, Kl, elem))
+                        if (smem := smem_bytes(form, Kz, chunk, tile, STAGES, H, Kl, elem, D))
                         <= SMEM_LIMIT), None)
             if fit is None:
                 continue
@@ -190,12 +208,15 @@ def attention_step_reference(enc, enc_proj, q, loc_feat, w_loc, b_loc, w_score,
                              valid_len=None):
     """Plain PyTorch version: enc (B,S,D), enc_proj (B,S,H) in the compute
     type, q (B,H), loc_feat (B,S,Kl) float32, w_loc (Kl,H), b_loc (H,),
-    w_score (H,) or (H,1) -> (context (B,D) f32, alpha (B,S) f32).  With a
-    float64 q everything is float64 (the backward's tests)."""
+    w_score (H,) or (H,1) -> (context (B,D) f32, alpha (B,S) f32).  A
+    ``loc_feat`` of None means no location term (the content form).  With
+    a float64 q everything is float64 (the backward's tests)."""
     H = enc_proj.shape[-1]
     ft = torch.promote_types(q.dtype, torch.float32)
-    loc_h = loc_feat.to(ft) @ w_loc.to(ft) + b_loc.to(ft)
-    x = torch.tanh(enc_proj.to(ft) + q.to(ft)[:, None, :] + loc_h)
+    x = enc_proj.to(ft) + q.to(ft)[:, None, :]
+    if loc_feat is not None:
+        x = x + (loc_feat.to(ft) @ w_loc.to(ft) + b_loc.to(ft))
+    x = torch.tanh(x)
     e = (x @ w_score.to(ft).reshape(H, 1))[..., 0]
     if valid_len is not None:
         pos = torch.arange(e.shape[-1], device=e.device)
@@ -219,6 +240,32 @@ def coverage_attention_step_int8_reference(enc, enc_proj, q, mem, loc_conv_w, lo
     return context * enc_scale.reshape(-1, 1).repeat_interleave(K, dim=0), alpha
 
 
+def _repeat_memory(enc, enc_proj, q):
+    """The memory (Bs, S, .) repeated to the Bs*K rows of q."""
+    K = q.shape[0] // enc.shape[0]
+    if K > 1:
+        enc, enc_proj = enc.repeat_interleave(K, dim=0), enc_proj.repeat_interleave(K, dim=0)
+    return enc, enc_proj
+
+
+def content_attention_step_reference(enc, enc_proj, q, w_score, valid_len=None):
+    """Plain PyTorch version of the content form: enc (Bs,S,D) and enc_proj
+    (Bs,S,H) at sample rows, q (Bs*K,H) -> (context (Bs*K,D) f32, alpha
+    (Bs*K,S) f32); the JAX package's bahdanau step (a location of 0.0)."""
+    enc, enc_proj = _repeat_memory(enc, enc_proj, q)
+    return attention_step_reference(enc, enc_proj, q, None, None, None, w_score, valid_len)
+
+
+def content_attention_step_int8_reference(enc, enc_proj, q, w_score, valid_len, enc_scale,
+                                          proj_scale, compute_dtype):
+    """The content form on int8 memory, as
+    ``coverage_attention_step_int8_reference``."""
+    proj = enc_proj.to(compute_dtype) * proj_scale.to(compute_dtype)
+    context, alpha = content_attention_step_reference(enc, proj, q, w_score, valid_len)
+    K = q.shape[0] // enc.shape[0]
+    return context * enc_scale.reshape(-1, 1).repeat_interleave(K, dim=0), alpha
+
+
 def location_features(mem, loc_conv_w, loc_conv_b):
     """Location features (B, S, Kl) f32: the cross-correlation of the
     attention memory (B, S) with ``loc_conv_w`` (k, 1, Kl), zero-padded by
@@ -235,9 +282,7 @@ def coverage_attention_step_reference(enc, enc_proj, q, mem, loc_conv_w, loc_con
     """Plain PyTorch version of the coverage form: enc (Bs,S,D) and
     enc_proj (Bs,S,H) at sample rows, q (Bs*K,H), mem (Bs*K,S) float32 ->
     (context (Bs*K,D) f32, alpha (Bs*K,S) f32)."""
-    K = q.shape[0] // enc.shape[0]
-    if K > 1:
-        enc, enc_proj = enc.repeat_interleave(K, dim=0), enc_proj.repeat_interleave(K, dim=0)
+    enc, enc_proj = _repeat_memory(enc, enc_proj, q)
     loc_feat = location_features(mem, loc_conv_w, loc_conv_b)
     return attention_step_reference(enc, enc_proj, q, loc_feat, w_loc, b_loc, w_score,
                                     valid_len)
@@ -301,8 +346,10 @@ def coverage_attention_step_backward_reference(enc, enc_proj, q, mem, loc_conv_w
 
 # ---- the kernel ----------------------------------------------------------------
 
-def _kernels():
-    lib, info = load_library(SOURCE)
+def _kernels(wide: bool = False):
+    """The plain build (D = H, feature and coverage forms) or, with
+    ``wide``, the wide one (D a run-time width; every form)."""
+    lib, info = load_library(SOURCE, (WIDE_DEFINE,) if wide else ())
     tail = [ctypes.c_int] * 6 + [ctypes.c_void_p]  # cluster .. smem_bytes, stream
     feat = lib.d2t_attention_step_features
     feat.restype = ctypes.c_int
@@ -310,12 +357,23 @@ def _kernels():
     cov = lib.d2t_attention_step_coverage
     cov.restype = ctypes.c_int
     cov.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 10 + tail
-    return {FEATURE: feat, COVERAGE: cov}, info
+    fns = {FEATURE: feat, COVERAGE: cov}
+    if wide:
+        content = lib.d2t_attention_step_content
+        content.restype = ctypes.c_int
+        content.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + tail
+        fns[CONTENT] = content
+    return fns, info
 
 
 def build() -> dict:
-    """Build (if needed) and load the kernel; returns ``load_library``'s info."""
+    """Build (if needed) and load the plain build; returns ``load_library``'s info."""
     return _kernels()[1]
+
+
+def build_wide() -> dict:
+    """Build (if needed) and load the wide build (D != H, the content form)."""
+    return _kernels(wide=True)[1]
 
 
 def _same_device(tensors):
@@ -426,36 +484,75 @@ def coverage_attention_step(enc, enc_proj, q, mem, loc_conv_w, loc_conv_b, w_loc
     backward is a kernel too.  Int8 memory comes with ``enc_scale`` and
     ``proj_scale`` (Bs, 1, 1) float32 and ``compute_dtype`` (float32 or
     bfloat16); it takes no gradient."""
-    K = _check_coverage(enc, enc_proj, q, mem, loc_conv_w, loc_conv_b, w_loc, b_loc, w_score)
-    Bs, D, H, taps = enc.shape[0], enc.shape[2], enc_proj.shape[-1], loc_conv_w.shape[0]
-    tensors = (enc, enc_proj, q, mem, loc_conv_w, loc_conv_b, w_loc, b_loc, w_score)
-    scales = _check_int8(enc, enc_proj, enc_scale, proj_scale, compute_dtype)
-    _same_device(tensors + scales)
-    if enc.device.type == "cpu":
-        if scales:
-            return coverage_attention_step_int8_reference(*tensors, valid_len, *scales,
-                                                          compute_dtype)
-        return coverage_attention_step_reference(*tensors, valid_len=valid_len)
-    if enc.device.type != "cuda":
-        raise ValueError(f"unsupported device {enc.device}")
-    grad = torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
-    if scales:
-        if grad:
-            raise NotImplementedError("int8 memory is an inference mode: B2's int8 form takes "
-                                      "no gradient")
-        scales = tuple(t.reshape(Bs).contiguous() for t in scales)
-    _check_kernel_inputs(enc, enc_proj, tensors[2:] + scales, int8=bool(scales))
-    if grad:
-        if K != 1:
-            raise NotImplementedError(f"B2's backward takes K = 1 (the teacher-forced pass); "
-                                      f"got K = {K} with a gradient")
-        _check_backward_shape(D, H, taps, enc.dtype)
-        return CoverageAttentionStepFn.apply(*tensors, valid_len)
-    return _coverage_forward(tensors, valid_len, scales, compute_dtype)
+    _check_coverage(enc, enc_proj, q, mem, loc_conv_w, loc_conv_b, w_loc, b_loc, w_score)
+    return _memory_step(COVERAGE, (enc, enc_proj, q, mem, loc_conv_w, loc_conv_b, w_loc, b_loc,
+                                   w_score), valid_len, enc_scale, proj_scale, compute_dtype)
 
 
 coverage_attention_step.launches = 0
 coverage_attention_step.int8_launches = 0
+
+
+def content_attention_step(enc, enc_proj, q, w_score, valid_len=None, enc_scale=None,
+                           proj_scale=None, compute_dtype=None):
+    """One attention step with no location term (the bahdanau head); see
+    the module docstring.  enc (Bs,S,D) and enc_proj (Bs,S,H) at sample
+    rows, q (Bs*K,H), w_score (H,) or (H,1); int8 memory as in
+    ``coverage_attention_step``.  Returns (context (Bs*K, D) float32, alpha
+    (Bs*K, S) float32).  It has no backward kernel: on CUDA tensors that
+    need a gradient it raises (ROADMAP A9.5)."""
+    _check_memory(enc, enc_proj, q)
+    if w_score.numel() != enc_proj.shape[-1]:
+        raise ValueError(f"w_score must have H = {enc_proj.shape[-1]} entries; got "
+                         f"{tuple(w_score.shape)}")
+    return _memory_step(CONTENT, (enc, enc_proj, q, w_score), valid_len, enc_scale, proj_scale,
+                        compute_dtype)
+
+
+content_attention_step.launches = 0
+content_attention_step.int8_launches = 0
+
+_STEPS = {COVERAGE: (coverage_attention_step, coverage_attention_step_reference,
+                     coverage_attention_step_int8_reference),
+          CONTENT: (content_attention_step, content_attention_step_reference,
+                    content_attention_step_int8_reference)}
+
+
+def _memory_step(form, tensors, valid_len, enc_scale, proj_scale, compute_dtype):
+    """The body the coverage and content forms share, on shape-checked
+    ``tensors`` (the form's arguments up to w_score): the plain version on
+    the CPU; on the card the gradient's path (the coverage form at K = 1
+    and D = H), or the kernel, counted."""
+    enc, enc_proj, q = tensors[:3]
+    _, reference, int8_reference = _STEPS[form]
+    scales = _check_int8(enc, enc_proj, enc_scale, proj_scale, compute_dtype)
+    _same_device(tensors + scales)
+    if enc.device.type == "cpu":
+        if scales:
+            return int8_reference(*tensors, valid_len, *scales, compute_dtype)
+        return reference(*tensors, valid_len=valid_len)
+    if enc.device.type != "cuda":
+        raise ValueError(f"unsupported device {enc.device}")
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+    if grad and scales:
+        raise NotImplementedError("int8 memory is an inference mode: B2's int8 form takes "
+                                  "no gradient")
+    if grad and form == CONTENT:
+        raise NotImplementedError("B2's content form (the bahdanau head) has no backward "
+                                  "kernel: training that head is ROADMAP A9.5")
+    scales = tuple(t.reshape(enc.shape[0]).contiguous() for t in scales)
+    _check_kernel_inputs(enc, enc_proj, tensors[2:] + scales, int8=bool(scales))
+    if grad:
+        D, H, K = enc.shape[2], enc_proj.shape[-1], q.shape[0] // enc.shape[0]
+        if D != H:
+            raise NotImplementedError(f"B2's backward takes D = H; training a coverage head "
+                                      f"at D = {D}, H = {H} is ROADMAP A9.5")
+        if K != 1:
+            raise NotImplementedError(f"B2's backward takes K = 1 (the teacher-forced pass); "
+                                      f"got K = {K} with a gradient")
+        _check_backward_shape(D, H, tensors[4].shape[0], enc.dtype)
+        return CoverageAttentionStepFn.apply(*tensors, valid_len)
+    return _forward(form, tensors, valid_len, scales, compute_dtype)
 
 
 def _check_int8(enc, enc_proj, enc_scale, proj_scale, compute_dtype):
@@ -476,19 +573,22 @@ def _check_int8(enc, enc_proj, enc_scale, proj_scale, compute_dtype):
     return enc_scale, proj_scale
 
 
-def _coverage_forward(tensors, valid_len, scales=(), compute_dtype=None):
-    """The coverage form's kernel on checked CUDA tensors, counted; with
-    ``scales`` (enc_scale, proj_scale) (Bs,) its int8 memory form."""
-    enc, enc_proj, q, _, loc_conv_w = tensors[:5]
+def _forward(form, tensors, valid_len, scales=(), compute_dtype=None):
+    """The coverage or content form's kernel on checked CUDA tensors,
+    counted; with ``scales`` (enc_scale, proj_scale) (Bs,) its int8 memory
+    form."""
+    enc, enc_proj, q = tensors[:3]
     Bs, S, D = enc.shape
-    plan = launch_plan(Bs, q.shape[0] // Bs, S, D, enc_proj.shape[-1], loc_conv_w.shape[2],
-                       enc.dtype, COVERAGE, loc_conv_w.shape[0])
-    out = launch(COVERAGE, plan, *tensors, valid_len=valid_len, scales=scales,
+    conv = tensors[4].shape if form == COVERAGE else (MAX_TAPS, 1, 0)   # (taps, 1, Kl)
+    plan = launch_plan(Bs, q.shape[0] // Bs, S, D, enc_proj.shape[-1], conv[2], enc.dtype, form,
+                       conv[0])
+    out = launch(form, plan, *tensors, valid_len=valid_len, scales=scales,
                  compute_dtype=compute_dtype)
+    step = _STEPS[form][0]
     if scales:
-        coverage_attention_step.int8_launches += 1
+        step.int8_launches += 1
     else:
-        coverage_attention_step.launches += 1
+        step.launches += 1
     return out
 
 
@@ -504,7 +604,7 @@ class CoverageAttentionStepFn(torch.autograd.Function):
     def forward(ctx, enc, enc_proj, q, mem, loc_conv_w, loc_conv_b, w_loc, b_loc, w_score,
                 valid_len=None):
         tensors = (enc, enc_proj, q, mem, loc_conv_w, loc_conv_b, w_loc, b_loc, w_score)
-        context, alpha = _coverage_forward(tensors, valid_len)
+        context, alpha = _forward(COVERAGE, tensors, valid_len)
         ctx.save_for_backward(*tensors, alpha)
         return context, alpha
 
@@ -612,23 +712,26 @@ def launch(form: str, plan: LaunchPlan, enc, enc_proj, q, *loc_and_weights, vali
            kernel=None, scales=(), compute_dtype=None):
     """Launch the kernel's ``form`` (or ``kernel``, a library function of
     the same C signature) with ``plan`` on checked CUDA tensors: after q,
-    ``loc_feat, w_loc, b_loc, w_score`` (feature form) or ``mem,
-    loc_conv_w, loc_conv_b, w_loc, b_loc, w_score`` (coverage form; on int8
-    memory with ``scales`` = (enc_scale, proj_scale) (Bs,) float32 and
-    ``compute_dtype``).  Returns (context, alpha).  The callers count
-    their launches."""
+    ``loc_feat, w_loc, b_loc, w_score`` (feature form), ``mem, loc_conv_w,
+    loc_conv_b, w_loc, b_loc, w_score`` (coverage form) or ``w_score``
+    (content form); the coverage and content forms on int8 memory with
+    ``scales`` = (enc_scale, proj_scale) (Bs,) float32 and
+    ``compute_dtype``.  The plain build at D = H, else the wide one.
+    Returns (context, alpha).  The callers count their launches."""
     Bs, S, D = enc.shape
     H = enc_proj.shape[-1]
     K = q.shape[0] // Bs
-    w_loc = loc_and_weights[-3]
-    kernel = kernel or _kernels()[0][form]
+    kernel = kernel or _kernels(wide=form == CONTENT or D != H)[0][form]
     ctx = torch.empty((Bs * K, D), dtype=torch.float32, device=enc.device)
     alpha = torch.empty((Bs * K, S), dtype=torch.float32, device=enc.device)
-    shape = [Bs, K, S, D, H, w_loc.shape[0]]
+    shape = [Bs, K, S, D, H]
     codes = [_MEM_CODE[enc.dtype]]
     pointers = [t.data_ptr() for t in loc_and_weights]
+    if form != CONTENT:
+        shape.append(loc_and_weights[-3].shape[0])  # Kl, the rows of w_loc
     if form == COVERAGE:
-        shape.append(loc_and_weights[1].shape[0])  # taps
+        shape.append(loc_and_weights[1].shape[0])   # taps
+    if form != FEATURE:
         pointers += [t.data_ptr() for t in scales] if scales else [None, None]
         codes.append(_DTYPE_CODE[compute_dtype or enc.dtype])
     with torch.cuda.device(enc.device):
@@ -639,5 +742,5 @@ def launch(form: str, plan: LaunchPlan, enc, enc_proj, q, *loc_and_weights, vali
         )
     if rc != 0:
         raise RuntimeError(f"attention_step kernel ({form} form) launch failed at Bs={Bs} "
-                           f"K={K} S={S} D={D}: CUDA error {rc}")
+                           f"K={K} S={S} D={D} H={H}: CUDA error {rc}")
     return ctx, alpha

@@ -93,6 +93,6 @@ def create_converter(config) -> _BaseConverter:
     pred = config["Prediction"]["name"]
     if pred.startswith("Attn"):
         return AttnLabelConverter(config["character"])
-    if pred == "TFM":
+    if pred in ("TFM", "MS_TFM"):
         return TFMLabelConverter(config["character"])
-    raise NotImplementedError(f"Prediction head {pred!r} is not ported yet")
+    raise ValueError(f"Unknown Prediction head: {pred!r}")

@@ -18,12 +18,11 @@ between launches is counted.  ``--sweep`` also times the coverage form at
 every plan that fits and prints the fastest beside ``launch_plan``'s.
 ``--phases`` builds a copy of the kernel with a device timestamp at each
 phase boundary and prints each phase's mean over the blocks.
-``--against`` times another checkout's B2 path on the same inputs: the
-decoder's location conv (``LSTMAttentionDecoder._location``) and its
-``fused_attention_step`` on memory repeated to B*K rows, as that checkout's
-decoder step runs them, in the order other, this, this, other, each in its
-own process.  Prints one line per shape with the card's name and power
-limit first.  Needs a card; fails without one.
+``--against`` times another checkout's coverage form on the same inputs, at
+these shapes and at the zoo's D = H = 256 (8 samples x beam 10, S 241, Kl
+128), in the order other, this, this, other, each in its own process.
+Prints one line per shape with the card's name and power limit first.
+Needs a card; fails without one.
 """
 
 from __future__ import annotations
@@ -47,6 +46,8 @@ SHAPES = (  # (samples, K, S): the synthetic slice's launches, then the release 
     (1, 10, 623), (8, 10, 135), (8, 10, 225), (8, 10, 267), (8, 10, 445), (64, 10, 623),
 )
 D, KL, STEP = 128, 64, 150
+# --against: (samples, K, S, D = H, Kl)
+AGAINST_SHAPES = tuple((Bs, K, S, D, KL) for Bs, K, S in SHAPES) + ((8, 10, 241, 256, 128),)
 PHASES = ("prologue", "scores", "softmax and exchanges", "context", "context sums and output")
 # phase boundaries in csrc/attention_step.cu: (text, stamp after it)
 HOOKS = (("  extern __shared__ __align__(16) unsigned char smem[];\n", True),
@@ -76,45 +77,24 @@ def inputs(Bs, K, S, D=128, Kl=64, step=150, seed=7):
     return {k: v.cuda() for k, v in kw.items()}
 
 
-def time_parent(shapes) -> dict:
-    """µs per call of the B2 path of a checkout whose decoder ran the
-    location conv and then ``fused_attention_step`` on memory at B*K rows,
-    keyed by the shape's repr."""
-    from types import SimpleNamespace
-
-    from doc2tex_tpu_torch.models.decoder_lstm import LSTMAttentionDecoder
-    from doc2tex_tpu_torch.ops.attention_step import fused_attention_step
+def time_coverage(shapes) -> dict:
+    """µs per call of the checkout's coverage form at ``shapes`` ((samples,
+    K, S, D = H, Kl)), keyed by the shape's repr."""
+    from doc2tex_tpu_torch.ops.attention_step import coverage_attention_step
 
     out = {}
-    for Bs, K, S in shapes:
-        kw = inputs(Bs, K, S)
-        enc, proj = (kw[n].repeat_interleave(K, dim=0) for n in ("enc", "enc_proj"))
-        conv = SimpleNamespace(kernel_size=2, loc_conv_w=kw["loc_conv_w"],
-                               loc_conv_b=kw["loc_conv_b"])
-
-        def step():
-            loc_feat = LSTMAttentionDecoder._location(conv, kw["mem"])
-            return fused_attention_step(enc, proj, kw["q"], loc_feat, kw["w_loc"], kw["b_loc"],
-                                        kw["w_score"])
-
-        out[repr((Bs, K, S))] = graph_ms(step) * 1e3
-    return out
-
-
-def time_this(shapes) -> dict:
-    """µs per call of this checkout's coverage form at ``shapes``."""
-    out = {}
-    for Bs, K, S in shapes:
-        kw = inputs(Bs, K, S)
-        out[repr((Bs, K, S))] = graph_ms(lambda: b2.coverage_attention_step(**kw)) * 1e3
+    for Bs, K, S, D, Kl in shapes:
+        kw = inputs(Bs, K, S, D, Kl)
+        out[repr((Bs, K, S, D, Kl))] = graph_ms(lambda: coverage_attention_step(**kw)) * 1e3
     return out
 
 
 def time_other(checkout: str) -> dict:
-    """time_parent in a process of its own that imports only ``checkout``."""
+    """time_coverage in a process of its own that imports only ``checkout``."""
     code = "\n".join([
         "import json, torch", inspect.getsource(inputs), inspect.getsource(graph_ms),
-        inspect.getsource(time_parent), f"print(json.dumps(time_parent({SHAPES!r})))",
+        inspect.getsource(time_coverage),
+        f"print(json.dumps(time_coverage({AGAINST_SHAPES!r})))",
     ])
     env = dict(os.environ, PYTHONPATH=os.path.abspath(checkout))
     proc = subprocess.run([sys.executable, "-c", code], cwd=checkout, env=env,
@@ -239,11 +219,12 @@ def main() -> None:
         if lib is not None:
             print(phase_line(lib, kw, plan), flush=True)
     if args.against:
-        runs = [time_other(args.against), time_this(SHAPES), time_this(SHAPES),
-                time_other(args.against)]
+        runs = [time_other(args.against), time_coverage(AGAINST_SHAPES),
+                time_coverage(AGAINST_SHAPES), time_other(args.against)]
         for shape in runs[0]:
-            print(f"{shape}: µs per call (other's conv + B2 at B*K rows, this, this, other): "
-                  + ", ".join(f"{r[shape]:.1f}" for r in runs), flush=True)
+            print(f"{shape} (samples, K, S, D = H, Kl): µs per call of the coverage form "
+                  "(other, this, this, other): " + ", ".join(f"{r[shape]:.2f}" for r in runs),
+                  flush=True)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 """Device time of the beam decode attention kernel (B1) on a CUDA card.
 
     python -m doc2tex_tpu_torch.tools.bench_decode_attention [--sweep] [--phases]
-        [--against OTHER_CHECKOUT] [--long]
+        [--against OTHER_CHECKOUT] [--long | --zoo]
 
 Times the kernel in bf16 at the shapes of the ``synthetic_tfm_big`` main
 path (batch 64, beam 10, nh 8, hd 32: self-attention at M 310, 620, 930 and
@@ -11,7 +11,11 @@ cross-attention at M 623) and where ``launch_plan`` splits M (batch 1 and
 instead (batch 16, the release eval's, and 64, a 16-crop call's snapped
 batch: self-attention at the end of each of the 5 cache chunks of a
 501-step decode, M up to 5010, and cross-attention over a 448x960
-bucket, M 1695).  Each time is one launch's share of a CUDA graph of 20
+bucket, M 1695); with ``--zoo`` at head dim 64, the ``zoo_cnn_tfm`` block's
+(d_model 512, nh 8 over a 2D ResNet map; ``tests/torch_port_zoo.yaml``):
+batch 1 and 8, self-attention at the end of each cache chunk of a 201-step
+decode (M up to 2010) and cross-attention over the 13 x 177 and 13 x 241
+maps of the 224x704 and 224x960 buckets.  Each time is one launch's share of a CUDA graph of 20
 launches, so no host time between launches is counted.  ``--sweep`` also
 times every plan that fits (cluster 1..8 x ring of 2 to 6 tiles) and prints
 the fastest beside ``launch_plan``'s.  ``--phases`` builds a copy of the
@@ -48,6 +52,9 @@ SHAPES = (  # (B, K, M, step; None = no mask)
 LONG_SHAPES = tuple((B, 10, end * 10, end - 1) for B in (16, 64)
                     for end in (101, 202, 303, 404, 501)) + ((16, 10, 1695, None),
                                                              (64, 10, 1695, None))
+ZOO_SHAPES = tuple((B, 10, end * 10, end - 1) for B in (1, 8)
+                   for end in (41, 82, 123, 164, 201)) + tuple(
+    (B, 10, 13 * w, None) for B in (1, 8) for w in (177, 241))
 PHASES = ("mask and queries", "pass 1 (Q.K)", "row max", "exp and row sum", "normalise",
           "pass 2 (P.V)", "output")
 # phase boundaries in csrc/decode_attention.cu: (text, stamp after it)
@@ -212,8 +219,11 @@ def main() -> None:
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--phases", action="store_true")
     ap.add_argument("--against", default=None, metavar="OTHER_CHECKOUT")
-    ap.add_argument("--long", action="store_true",
-                    help="the synthetic_long decode's shapes in place of the main path's")
+    group = ap.add_mutually_exclusive_group()
+    group.add_argument("--long", action="store_true",
+                       help="the synthetic_long decode's shapes in place of the main path's")
+    group.add_argument("--zoo", action="store_true",
+                       help="the zoo_cnn_tfm decode's shapes (head dim 64)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("bench_decode_attention needs a CUDA card")
@@ -222,15 +232,16 @@ def main() -> None:
     print(f"{torch.cuda.get_device_name(0)}; nvidia-smi: {smi}", flush=True)
     print(ptxas_summary(b1.build()), flush=True)
     lib = timed_library() if args.phases else None
-    for B, K, M, step in (LONG_SHAPES if args.long else SHAPES):
-        q, k, v, mask = inputs(B, K, M, step)
-        plan = b1.launch_plan(B, K, M, 8, 32, torch.bfloat16)
+    hd = 64 if args.zoo else 32
+    for B, K, M, step in (LONG_SHAPES if args.long else ZOO_SHAPES if args.zoo else SHAPES):
+        q, k, v, mask = inputs(B, K, M, step, hd=hd)
+        plan = b1.launch_plan(B, K, M, 8, hd, torch.bfloat16)
         ms = graph_ms(lambda: b1.launch(q, k, v, mask, plan))
-        line = (f"B{B} K{K} M{M} {'step ' + str(step) if step is not None else 'no mask'}: "
+        line = (f"B{B} K{K} M{M} hd{hd} {'step ' + str(step) if step is not None else 'no mask'}: "
                 f"{ms * 1e3:.1f} µs with {plan}")
         if args.sweep:
             times = {p: graph_ms(lambda p=p: b1.launch(q, k, v, mask, p))
-                     for p in plans(B, K, M, 8, 32, 2)}
+                     for p in plans(B, K, M, 8, hd, 2)}
             fast = min(times, key=times.get)
             line += f"; fastest {times[fast] * 1e3:.1f} µs with {fast}"
         print(line, flush=True)

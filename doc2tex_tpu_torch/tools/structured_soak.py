@@ -28,9 +28,6 @@ line, appends it to ``<tag>_curve.jsonl`` in the checkpoint directory
 continues from ``last.msgpack``.  ``--init_from`` loads the parameters and
 the BatchNorm statistics of a weights file (the optimizer starts fresh);
 ``--eval_first`` validates once before the first step.
-
-Not ported: ``--gcb`` (the GlobalContext backbone) raises naming ROADMAP
-A6.
 """
 
 from __future__ import annotations
@@ -111,7 +108,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="the hard benchmark: the hard vocabulary, 3 fonts, render noise, "
                     "len <= 150, 224x704 canvases (the shipped synthetic recipe)")
     ap.add_argument("--attn", default="coverage", choices=["coverage", "loc_aware"])
-    ap.add_argument("--gcb", action="store_true", help="not ported (ROADMAP A6)")
+    ap.add_argument("--gcb", action="store_true",
+                    help="GlobalContext blocks in the ResNet stages")
     ap.add_argument("--family", default="attn", choices=["attn", "tfm"])
     ap.add_argument("--big", action="store_true",
                     help="256x6 encoder and a 6-layer TFM head (or width-256 LSTM head)")
@@ -135,14 +133,13 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def run_tag(args) -> str:
-    if args.gcb:
-        raise NotImplementedError("--gcb: the GlobalContext backbone is not ported yet "
-                                  "(ROADMAP A6)")
     if not args.hard:     # the structured arm: one tag whatever its family or size
         return "structured" + args.tag_suffix
     tag = "hard" + ("" if args.attn == "coverage" else "_" + args.attn)
     if args.family == "tfm":
         tag = "hard_tfm"
+    if args.gcb:
+        tag += "_gcb"
     if args.big:
         tag += "_big"
     if args.long:

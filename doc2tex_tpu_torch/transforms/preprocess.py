@@ -167,6 +167,23 @@ def resize_for_inference(img: np.ndarray, config) -> np.ndarray:
     return img
 
 
+def learned_resize(img: np.ndarray, predict_width_bucket, bucket_px: int = 32,
+                   max_iters: int = 10, tol_px: int = 16) -> np.ndarray:
+    """The learned resizer's loop (``doc2tex_tpu.transforms.preprocess.
+    learned_resize``): a width-bucket classifier
+    (``models.extras.LearnedResizer``) names the best target width, (idx +
+    1) * ``bucket_px``; resize to it (the height in proportion) and ask
+    again, until the width is within ``tol_px`` or ``max_iters`` rounds.
+    ``predict_width_bucket(img_u8) -> int``."""
+    for _ in range(max_iters):
+        target_w = (int(predict_width_bucket(img)) + 1) * bucket_px
+        h, w = img.shape[:2]
+        if abs(target_w - w) <= tol_px:
+            break
+        img = _resize_area(img, max(int(round(h * target_w / w)), 1), target_w)
+    return img
+
+
 def clahe(img: np.ndarray, clip_limit: float = 2.0, grid: tuple[int, int] = (2, 2)) -> np.ndarray:
     """Contrast-limited adaptive histogram equalization (OpenCV-compatible),
     as the demo recognizer applies it before normalization (``clip_limit``

@@ -28,9 +28,14 @@ as flax nested dicts of float32 numpy arrays, conv kernels back in HWIO;
 ``tree_to_flax``/``tree_from_flax`` do the same for any ``{state-dict key:
 tensor}`` dict (an optimizer's moments).  ``convert_variables(to_variables(m))``
 equals ``m.state_dict()`` bit for bit.
+
+``random_variables`` draws a variable tree from numpy's generator, the
+same with every torch: a seeded model where no weights exist.
 """
 
 from __future__ import annotations
+
+from collections.abc import Mapping
 
 import numpy as np
 import torch
@@ -137,3 +142,28 @@ def load_weights(module: torch.nn.Module, path: str) -> int:
     variables = _msgpack.load(path)
     variables.pop("opt_state", None)
     return load_variables(module, variables)
+
+
+def random_variables(tree: dict, rng: np.random.Generator) -> dict:
+    """Flax variables shaped as ``tree`` (a nested dict whose leaves have a
+    ``shape``: ``to_variables``' arrays, or the JAX package's shape structs)
+    with every leaf drawn from ``rng`` in the tree's order: kernels normal
+    at fan-in scale (flax layout, inputs first), BatchNorm variances uniform
+    in [0.5, 1.5] and scales about 1, other leaves normal of std 0.1.
+    Unlike torch's seeded init, whose draws differ between torch versions,
+    one seed gives the same weights everywhere."""
+    out = {}
+    for name, leaf in tree.items():
+        shape = tuple(getattr(leaf, "shape", ()))
+        if isinstance(leaf, Mapping):
+            out[name] = random_variables(leaf, rng)
+        elif name == "var":
+            out[name] = rng.uniform(0.5, 1.5, shape).astype(np.float32)
+        elif name == "scale":
+            out[name] = (1.0 + rng.normal(0.0, 0.1, shape)).astype(np.float32)
+        elif len(shape) >= 2 and name not in ("cls_token", "pos_embed"):
+            fan_in = int(np.prod(shape[:-1]))
+            out[name] = rng.normal(0.0, fan_in ** -0.5, shape).astype(np.float32)
+        else:
+            out[name] = rng.normal(0.0, 0.1, shape).astype(np.float32)
+    return out

@@ -28,7 +28,7 @@ import torch
 
 from doc2tex_tpu.ops.attention_step import attention_step_reference as jax_step_reference
 from doc2tex_tpu_torch.ops.attention_step import (
-    COVERAGE, FEATURE, MAX_BEAM, MAX_CLUSTER, SMEM_LIMIT, TILES, coverage_attention_step,
+    CONTENT, COVERAGE, FEATURE, MAX_BEAM, MAX_CLUSTER, SMEM_LIMIT, TILES, coverage_attention_step,
     coverage_attention_step_reference, launch_plan, smem_bytes)
 from doc2tex_tpu_torch.tools.bench_attention_step import SHAPES as BENCH_SHAPES
 from torch_port_threads import one_torch_thread  # noqa: F401
@@ -176,10 +176,15 @@ def test_launch_plan_spreads_the_slice_over_the_card(Bs, K, S):
 
 def test_launch_plan_raises_on_what_the_kernel_does_not_take():
     plan = launch_plan  # every argument but the one named is a shipped shape
-    with pytest.raises(ValueError, match="D = H"):
+    with pytest.raises(ValueError, match="kernel takes D in"):
         plan(8, 10, 445, 64, 64, 16, torch.bfloat16)
-    with pytest.raises(ValueError, match="D = H"):
-        plan(8, 10, 445, 128, 256, 64, torch.bfloat16)
+    with pytest.raises(ValueError, match="kernel takes D in"):
+        plan(8, 10, 445, 1024, 256, 64, torch.bfloat16)
+    with pytest.raises(ValueError, match="0 in the content form"):
+        plan(8, 10, 239, 512, 256, 64, torch.bfloat16, CONTENT)
+    # D != H within the TPU kernel's contract (D 512 on a CNN map, H 256)
+    assert plan(8, 10, 445, 128, 256, 64, torch.bfloat16).smem_bytes <= SMEM_LIMIT
+    assert plan(8, 10, 239, 512, 256, 0, torch.bfloat16, CONTENT).smem_bytes <= SMEM_LIMIT
     with pytest.raises(ValueError, match="taps"):
         plan(8, 10, 445, 128, 128, 64, torch.bfloat16, COVERAGE, 7)
     with pytest.raises(ValueError, match="multiple of 4"):

@@ -24,8 +24,10 @@ from doc2tex_tpu_torch.config import make_config
 from doc2tex_tpu_torch.decode.runner import make_decode_fn
 from doc2tex_tpu_torch.models import build_model
 from doc2tex_tpu_torch.ops.attention_step import (
-    COVERAGE, attention_step_reference, coverage_attention_step,
-    coverage_attention_step_reference, fused_attention_step, launch_plan as b2_launch_plan)
+    CONTENT, COVERAGE, attention_step_reference, content_attention_step,
+    content_attention_step_int8_reference, content_attention_step_reference,
+    coverage_attention_step, coverage_attention_step_reference, fused_attention_step,
+    launch_plan as b2_launch_plan)
 from doc2tex_tpu_torch.ops.decode_attention import (
     decode_attention, decode_attention_reference, launch_plan)
 
@@ -270,10 +272,76 @@ def test_coverage_step_kernel_matches_plain_version(dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_d_not_h_and_content_kernels_match_plain_version(dtype):
+    """The coverage form at D != H and the content form (no location term,
+    the bahdanau head) against their plain versions on the card, within
+    B2_TOL: the zoo's shapes (D 512 H 256 on a VGG map's 239 columns, D = H
+    = 256 on 241), D < H, greedy, a masked tail, and the content form on
+    int8 memory in both compute types; the feature form at D 512, H 128."""
+    _need_card()
+    atol, rtol = chip_smoke.B2_TOL
+
+    def check(got, ref, *where):
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref):
+            err = (a - b).abs()
+            assert (err <= atol + rtol * b.abs()).all(), (where, err.max().item())
+
+    for n, (Bs, K, S, D, H, valid) in enumerate((
+            (8, 10, 239, 512, 256, None), (8, 10, 241, 256, 256, None), (3, 5, 90, 128, 256, 77),
+            (2, 1, 600, 512, 128, None), (64, 10, 239, 512, 256, 200))):
+        kw = chip_smoke.coverage_step_inputs(Bs, K, S, D, H, 64, dtype, 20, seed=n)
+        before = coverage_attention_step.launches
+        got = coverage_attention_step(**kw, valid_len=valid)
+        assert coverage_attention_step.launches == before + 1
+        check(got, coverage_attention_step_reference(**kw, valid_len=valid), "coverage", n)
+        content = {k: kw[k] for k in ("enc", "enc_proj", "q", "w_score")}
+        plan = b2_launch_plan(Bs, K, S, D, H, 0, dtype, CONTENT)
+        before = content_attention_step.launches
+        got = content_attention_step(**content, valid_len=valid)
+        assert content_attention_step.launches == before + 1
+        check(got, content_attention_step_reference(**content, valid_len=valid), "content",
+              n, plan)
+        for compute in (torch.float32, torch.bfloat16):
+            q8 = dict(content, enc=torch.randint(-127, 128, (Bs, S, D), device="cuda",
+                                                 dtype=torch.int8),
+                      enc_proj=torch.randint(-127, 128, (Bs, S, H), device="cuda",
+                                             dtype=torch.int8),
+                      enc_scale=torch.rand(Bs, 1, 1, device="cuda") / 64,
+                      proj_scale=torch.rand(Bs, 1, 1, device="cuda") / 64, compute_dtype=compute)
+            before = content_attention_step.int8_launches
+            got = content_attention_step(**q8, valid_len=valid)
+            assert content_attention_step.int8_launches == before + 1
+            ref = content_attention_step_int8_reference(*(q8[k] for k in (
+                "enc", "enc_proj", "q", "w_score")), valid, q8["enc_scale"], q8["proj_scale"],
+                compute)
+            check(got, ref, "content int8", n, compute)
+    # the feature form (the TPU kernel's own contract) at D != H
+    kw = chip_smoke.attention_step_inputs(40, 300, 512, 128, 16, dtype, seed=9)
+    check(fused_attention_step(**kw, valid_len=250),
+          attention_step_reference(**kw, valid_len=250), "feature", 512)
+
+
+@pytest.mark.cuda
+def test_zoo_heads_refuse_a_gradient_on_the_card():
+    """A gradient through the content form, or through the coverage form at
+    D != H, raises naming ROADMAP A9.5 (no backward kernel takes them), and
+    never falls back to autograd of the plain version."""
+    _need_card()
+    kw = chip_smoke.coverage_step_inputs(2, 1, 50, 512, 256, 64, torch.float32, 1, seed=0)
+    kw["q"].requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="A9.5"):
+        coverage_attention_step(**kw)
+    with pytest.raises(NotImplementedError, match="A9.5"):
+        content_attention_step(kw["enc"], kw["enc_proj"], kw["q"], kw["w_score"])
+
+
+@pytest.mark.cuda
 def test_coverage_step_kernel_raises_on_what_it_does_not_take():
     """On the card the coverage form raises, before any launch, on a width
-    the kernel is not built for, a conv wider than 5 taps, D != H and an S
-    no plan holds; a CUDA error is not left behind."""
+    the kernel is not built for (H 64, D 1024), a conv wider than 5 taps
+    and an S no plan holds; a CUDA error is not left behind."""
     _need_card()
 
     def inputs(Bs, K, S, D, H, Kl, taps):
@@ -283,7 +351,7 @@ def test_coverage_step_kernel_raises_on_what_it_does_not_take():
                     w_score=z(H))
 
     for args in ((1, 5, 10, 64, 64, 16, 5), (1, 5, 10, 128, 128, 16, 7),
-                 (1, 5, 10, 128, 256, 16, 5), (1, 16, 2_000_000, 128, 128, 64, 5)):
+                 (1, 5, 10, 1024, 256, 16, 5), (1, 16, 2_000_000, 128, 128, 64, 5)):
         before = coverage_attention_step.launches
         with pytest.raises(ValueError):
             coverage_attention_step(**inputs(*args))

@@ -7,7 +7,7 @@ package's ``api/infer.py``.
   one checkpoint of numpy draws for every leaf: the same images from
   ``load_csv_dataset``, the same ``predictions.csv`` rows and the same
   metric lines.
-- Each refusal raises by name: ``--resizer`` (A6), ``--platform``; an
+- Each refusal raises by name: ``--platform``; ``--resizer`` (A6) runs; an
   ``eval_data`` folder without a store, a missing ``saved_model`` or
   vocabulary raise as JAX's CLI does.  ``--int8-full`` and ``quantize: int8_full``
   run: the CLI's predictions equal the JAX CLI's with ``--int8-full``.
@@ -178,12 +178,20 @@ def test_main_equals_jax_cli(manifest, small, tmp_path, capsys):
 @pytest.mark.parametrize("flag,item", [("--resizer", "A6"), ("--int8-full", None),
                                        ("--platform", "platform")])
 def test_refusals_raise_by_name(manifest, small, flag, item, tmp_path, capsys):
-    """The refusals raise by name; ``--int8-full`` (int8 encoder and decode
-    memory) runs, and its predictions.csv equals the JAX CLI's with the
-    same flag."""
+    """The refusals raise by name (``--platform``); ``--int8-full`` (int8
+    encoder and decode memory) runs, and its predictions.csv equals the JAX
+    CLI's with the same flag.  ``--resizer``, ported with ROADMAP A6, runs
+    its seeded learned resizer and writes every row (its parity with the
+    JAX CLI is ``test_torch_port_extras.py``'s, where both read one
+    resizer's weights)."""
     csv_path, img_dir, _ = manifest
     argv = ["--config", small[0], "--csv_dir", csv_path, "--data_dir", img_dir,
             "--device", "cpu", flag] + (["cpu"] if flag == "--platform" else [])
+    if flag == "--resizer":
+        infer.main(argv + ["--log_path", str(tmp_path / "port")])
+        with open(tmp_path / "port" / "predictions.csv", newline="") as f:
+            assert len(list(csv.reader(f))) == 11
+        return
     if item is not None:
         with pytest.raises(NotImplementedError, match=item):
             infer.main(argv)

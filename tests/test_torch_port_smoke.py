@@ -9,7 +9,10 @@
   machine without a card and from a directory without the repository;
 - chip_smoke's slice phase runs end to end on the CPU at a tiny size, for
   the TFM head and for the coverage-LSTM head, and its B2 kernel phase
-  checks the shapes the ``synthetic`` slice launches.
+  checks the shapes the ``synthetic`` slice launches;
+- its zoo phase (phase 20) runs on the CPU with a tiny bahdanau block, and
+  ``tests/torch_port_golden_zoo.json`` holds JAX's strings for every block of
+  ``tests/torch_port_zoo.yaml``.
 """
 
 from __future__ import annotations
@@ -30,8 +33,9 @@ BLOCKED = ("jax", "jaxlib", "flax", "yaml", "msgpack", "PIL", "cv2", "lmdb", "sc
 # the modules of the int8 encoder, the server, the release eval, detection,
 # the page app, the page eval, training, the eval CLI, the device pools, the
 # soak twins, the detector's losses and data, the voting stitch, the int8
-# accuracy twin and the data chain (LMDB stores, the native scorer and
-# tokenizer, the LaTeX pipeline, the dataset tools and the realdata twin),
+# accuracy twin, the data chain (LMDB stores, the native scorer and
+# tokenizer, the LaTeX pipeline, the dataset tools and the realdata twin)
+# and the model zoo (VGG, BiLSTM, the extras, the reference importer),
 # which the walk below must reach
 REQUIRED = ("ops.quant", "serving", "api.serve", "utils.png", "data.loader", "eval.metrics",
             "engine.inferencing", "tools.release_eval", "tools.bench_int8", "detection",
@@ -45,7 +49,8 @@ REQUIRED = ("ops.quant", "serving", "api.serve", "utils.png", "data.loader", "ev
             "data.pylmdb", "data.lmdb_reader", "native", "latex.pytok", "latex._katex_tables",
             "latex.validate", "latex.normalize", "latex.demacro", "latex.extract",
             "tools.vocab_tools", "tools.label_tools", "tools.lmdb_builder", "tools.arxiv",
-            "tools.realdata")
+            "tools.realdata", "models.vgg", "models.bilstm", "models.extras",
+            "tools.torch_import")
 
 GUARD = textwrap.dedent(f"""
     import importlib, pkgutil, sys
@@ -289,3 +294,90 @@ def test_chip_smoke_version_phase_runs_on_cpu(monkeypatch):
     assert launches == 0     # the CPU runs the plain version
     grids = [grid_size_for(b, (2, 2)) for b in ((64, 64), (64, 192))]
     assert sorted(shapes) == [(1, 10, gh * gw, 64, 64, 32) for gh, gw in grids]
+
+
+def test_chip_smoke_zoo_phase_runs_on_cpu(monkeypatch):
+    """chip_smoke.zoo_phase on the CPU with a tiny VGG + bahdanau block (no
+    weights, CLAHE left on, random init): the float32 cut decode against
+    its golden strings and first-crop logits (here the CPU's own), card ==
+    CPU (the CPU against itself), and the block's full-length decode with
+    the content form's launch shapes recorded."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    import doc2tex_tpu_torch.recognition as recognition
+    from doc2tex_tpu_torch.config import make_config
+    from doc2tex_tpu_torch.data.synthetic import HARD_VOCAB_PATH, synth_hard_sample
+
+    cfg = make_config(dict(
+        max_dimension=[64, 256], min_dimension=[32, 32], batch_max_length=6,
+        vocab=HARD_VOCAB_PATH, beam_size=10, dtype="bfloat16",
+        FeatureExtraction={"name": "VGG", "params": {"input_channel": 1,
+                                                     "output_channel": 64}},
+        SequenceModeling={"name": "None"},
+        Prediction={"name": "Attn", "params": {
+            "seqmodel": "None", "input_size": 64, "hidden_size": 32, "enc_init": True,
+            "attn_type": "bahdanau"}},
+    ))
+    monkeypatch.setattr(recognition, "load_recog_config",
+                        lambda path=None, version=None: (dict(cfg), None))
+    monkeypatch.setattr(chip_smoke, "VERSION_CUT_STEPS", 4)
+    crops = [synth_hard_sample(np.random.default_rng(s), min_len=3, max_len=12, max_h=64,
+                               max_w=256)[0] for s in (0, 1)]
+    rec = chip_smoke.zoo_recognizer(chip_smoke.cut_config(cfg), "cpu")
+    want = {"jax": rec(crops), "jax_logits": chip_smoke.zoo_logits(rec, crops[0]).tolist()}
+    records = chip_smoke.zoo_phase(0.0, device="cpu", blocks=("tiny",),
+                                   golden={"blocks": {"tiny": want}}, crops=crops)
+    assert records == []     # the kernel records need the card
+
+
+def test_zoo_golden_names_the_yaml_blocks():
+    """``tests/torch_port_golden_zoo.json`` holds JAX's float32 strings (8
+    crops) and first-crop logits (ZOO_LOGIT_STEPS x the classes) for every
+    block of ``tests/torch_port_zoo.yaml``, which loads through
+    ``load_recog_config`` without weights."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    from doc2tex_tpu_torch.config import load_yaml
+    from doc2tex_tpu_torch.recognition import load_recog_config
+
+    blocks = [k for k in load_yaml(chip_smoke.ZOO_CONFIG) if k != "common"]
+    assert tuple(blocks) == chip_smoke.ZOO_BLOCKS
+    golden = chip_smoke.zoo_golden()
+    assert set(golden["blocks"]) == set(blocks)
+    assert golden["batch_max_length"] == chip_smoke.VERSION_CUT_STEPS
+    assert len(golden["crops"]["seeds"]) == chip_smoke.ZOO_N_CROPS
+    for block in blocks:
+        assert len(golden["blocks"][block]["jax"]) == chip_smoke.ZOO_N_CROPS
+        logits = np.asarray(golden["blocks"][block]["jax_logits"])
+        assert logits.shape[0] == chip_smoke.ZOO_LOGIT_STEPS and np.isfinite(logits).all()
+        cfg, weights = load_recog_config(chip_smoke.ZOO_CONFIG, version=block)
+        assert weights is None and cfg["max_dimension"] == [224, 960]
+
+
+@pytest.mark.parametrize("block", ["zoo_cnn_tfm", "zoo_cnn_bilstm_attn", "zoo_vgg_bahdanau",
+                                   "zoo_vit_gcb_learned"])
+def test_zoo_golden_logits_match_port_cpu(block):
+    """The port's CPU logits for the zoo phase's logit checks (the block at
+    full width, numpy-drawn weights, the first golden crop, teacher-forced)
+    lie within the phase's tolerances of JAX's golden logits: float32 within
+    ZOO_LOGIT_TOL, far below the logits' spread, and the block's bfloat16
+    within ZOO_BF16_LOGIT_TOL, which another crop's float32 logits exceed,
+    so both checks on the card tell a wrong model path from a right one."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    from doc2tex_tpu_torch.recognition import load_recog_config
+
+    cfg, _ = load_recog_config(chip_smoke.ZOO_CONFIG, version=block)
+    rec = chip_smoke.zoo_recognizer(chip_smoke.cut_config(cfg), "cpu")
+    _, crops = chip_smoke.golden_crops("synthetic")
+    ref = np.asarray(chip_smoke.zoo_golden()["blocks"][block]["jax_logits"], dtype=np.float32)
+    got = chip_smoke.zoo_logits(rec, crops[0])
+    assert got.shape == ref.shape == (chip_smoke.ZOO_LOGIT_STEPS, rec.converter.num_classes)
+    err, tol, spread, _ = chip_smoke.logit_check(got, ref)
+    assert err <= tol < spread / 100, (err, tol, spread)
+    other, bf16_tol, _, _ = chip_smoke.logit_check(chip_smoke.zoo_logits(rec, crops[3]), ref,
+                                                   chip_smoke.ZOO_BF16_LOGIT_TOL)
+    assert cfg["dtype"] == "bfloat16" and other > bf16_tol, (other, bf16_tol)
+    bf16 = chip_smoke.zoo_recognizer(dict(chip_smoke.cut_config(cfg), dtype="bfloat16"), "cpu")
+    err, _, _, _ = chip_smoke.logit_check(chip_smoke.zoo_logits(bf16, crops[0]), ref)
+    assert err <= bf16_tol / 2, (err, bf16_tol)

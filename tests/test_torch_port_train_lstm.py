@@ -449,10 +449,10 @@ def test_soak_configs_match_jax(arm, monkeypatch):
     tag = structured_soak.run_tag(args)
     assert tag.startswith("hard") and (("tfm" in tag) == (arm.get("family") == "tfm"))
     # the default arm trains on the structured generator (its own tag);
-    # --gcb still raises
+    # --gcb (the GlobalContext backbone) gets JAX's tag suffix
     assert structured_soak.run_tag(structured_soak.parse_args(["--steps", "10"])) == "structured"
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        structured_soak.run_tag(structured_soak.parse_args(["--hard", "--gcb"]))
+    assert structured_soak.run_tag(structured_soak.parse_args(
+        ["--hard", "--gcb", "--family", "tfm", "--big"])) == "hard_tfm_gcb_big"
 
 
 # ---- the CLI and chip_smoke's phase on the CPU --------------------------------
