@@ -164,10 +164,11 @@ Needs one CUDA card; exits non-zero without one.  Phases, one line each:
    decoding as the in-memory model, the resume bit for bit; (e) B2's
    backward kernel against its plain version, and against itself (equal
    bits), at every (B, S, D, H, Kl, type) that (a)-(d) launched it with, on
-   the inputs of a launch there, and at the reference widths (D = H = 256,
-   Kl 128, S 623 and 2525), coverage and loc_aware, float32 and bf16
-   (``B2_BWD_TOL``); then timed (CUDA graphs) beside its plain version,
-   autograd of the plain forward (a yardstick) and its bound;
+   the inputs of a launch there, and over a grid (the reference widths D =
+   H = 256, Kl 128, S 623 and 2525; small and ragged S; D 512 with H 256
+   and 128, ``B2_BWD_WIDE``), coverage, loc_aware and the content form,
+   float32 and bf16 (``B2_BWD_TOL``); then timed (CUDA graphs) beside its
+   plain version, autograd of the plain forward (a yardstick) and its bound;
 14. synthetic_tfm — the small TFM release (ViT 128x3, 3-layer head, hd
    32) as phases 3 and 8 run the big one: float32 against its JAX golden
    (>= 15 of 16), bfloat16 printed, int8 as shipped gated by
@@ -237,11 +238,24 @@ Needs one CUDA card; exits non-zero without one.  Phases, one line each:
    B1 launching; then the same in the int8 mode the block ships, printed
    and not gated (int8 codes round from sums the two add in other orders).
    Each content-form timing also times the coverage form with a zero
-   location conv at the same shape (the same function).
+   location conv at the same shape (the same function);
+20b. zoo training — the zoo's heads train through B2's backward
+   (``zoo_train_phase``): ``zoo_vgg_bahdanau`` (its content form, D 512, H
+   256) and the same block with the coverage head (D 512 != H 256), every
+   leaf drawn from numpy's seed 0, the reference's training recipe
+   (``config/train.yaml``'s criterion, optimizer and clip, warmup off), one
+   fixed batch of ``ZOO_TRAIN_N`` hard crops at ``ZOO_TRAIN_BUCKET``: (a) a
+   float32 step on the card against the CPU's (``TRAIN_TOL``, the VGG's
+   leaves within the larger of it and 4 times the CPU's own spread); (b)
+   ``ZOO_TRAIN_STEPS`` bf16 steps, the loss falling; (c) B2's forward and
+   backward launching once per decode step each (T = the decoder length)
+   in those steps; (d) the backward against its plain version and itself at
+   every shape (a) and (b) launched, timed at (b)'s.
 
 Then a JSON line with the kernels' numbers (B2's backward: its launches
 in (c), timed at the recipe's largest launch; the int8 forms: 8b's; B1 at
-hd 64 and B2's content form: phase 20's), and last
+hd 64 and B2's content form: phase 20's; the backward's content form and
+its coverage form at D != H: phase 20b's), and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the traceback
 is printed and the exit code is 1.  A hang is cut by faulthandler.
 """
@@ -394,6 +408,20 @@ B2_BWD_SOURCE = "doc2tex_tpu_torch/csrc/attention_step_backward.cu"
 B2_BWD_REPLACES = "doc2tex_tpu/models/decoder_lstm.py:279"
 B2_BWD_NAMES = ("d_enc", "d_enc_proj", "d_q", "d_mem", "d_loc_conv_w", "d_loc_conv_b",
                 "d_w_loc", "d_b_loc", "d_w_score")
+B2_BWD_CONTENT_NAMES = ("d_enc", "d_enc_proj", "d_q", "d_w_score")
+# (e)'s grid at D 512 (the zoo's VGG map) with H 256 and 128: (B, S, D, H, Kl)
+B2_BWD_WIDE = [(16, 239, 512, 256, 128), (4, 300, 512, 128, 16)]
+# phase 20b: the zoo's heads train through B2's backward: zoo_vgg_bahdanau
+# (the content form, D 512, H 256) and the same block with the coverage head
+# (D 512 != H 256, 5 taps), every leaf drawn from numpy's seed 0, in the
+# reference's training recipe (config/train.yaml's criterion, optimizer and
+# clip; warmup off) on one fixed batch of hard crops: (a) a float32 step on
+# the card against the CPU's, (b) ZOO_TRAIN_STEPS bf16 steps, (c) the
+# kernels' launches per step
+ZOO_TRAIN_BLOCKS = (("zoo_vgg_bahdanau", "bahdanau"), ("zoo_vgg_bahdanau", "coverage"))
+ZOO_TRAIN_RECIPE = ("criterion", "optimizer", "filter_bias_and_bn", "min_lr", "scheduler",
+                    "grad_clip")
+ZOO_TRAIN_N, ZOO_TRAIN_BUCKET, ZOO_TRAIN_STEPS = 8, (128, 832), 6
 # the detect_train phase: the goldens the JAX package wrote on the CPU, the
 # soak twin's fine-tune (its pool and eval as the JAX tool's), the stitch's
 # gate (a coordinate may move by 1 px where a vote boundary sits on a window
@@ -900,16 +928,18 @@ def recorded_launches():
     ``"b1_types"``, B2's (samples, K, S, D, H, Kl) under ``"b2"`` (its int8
     form's under ``"b2_int8"``), its content form's (samples, K, S, D, H)
     under ``"b2_content"`` (``"b2_content_int8"``), and B2's backward's (B, S, D, H, Kl, type) under ``"b2_bwd"``
-    with the inputs of a call at each under ``"b2_bwd_inputs"``.  The
-    wrappers run as they are, counting their launches."""
+    with the inputs of a call at each under ``"b2_bwd_inputs"`` (its content
+    form's, Kl 0, under ``"b2_bwd_content"`` and ``"b2_bwd_content_inputs"``).
+    The wrappers run as they are, counting their launches."""
     from doc2tex_tpu_torch.models import decoder_lstm, decoder_tfm
     from doc2tex_tpu_torch.ops import attention_step
 
     seen = {"b1": set(), "b1_int8": set(), "b1_types": set(), "b2": set(), "b2_int8": set(),
-            "b2_bwd": set(), "b2_bwd_inputs": {}}
+            "b2_bwd": set(), "b2_bwd_inputs": {}, "b2_bwd_content": set(),
+            "b2_bwd_content_inputs": {}}
     attend, step = decoder_tfm.decode_attention, decoder_lstm.coverage_attention_step
     backward = attention_step.coverage_attention_step_backward
-    live = set()
+    content_backward = attention_step.content_attention_step_backward
 
     def b1(q, k, v, mask=None, k_scale=None, v_scale=None):
         seen["b1" if k_scale is None else "b1_int8"].add(
@@ -924,30 +954,36 @@ def recorded_launches():
         return step(enc, enc_proj, q, mem, loc_conv_w, *args, **kwargs)
 
     class B2Backward:
-        """The backward wrapper, recording; its launch count is the
-        wrapper's own (the wrapper counts through its module's name)."""
+        """A backward wrapper (``fn``, the coverage or the content form's),
+        recording under ``key``; its launch count is the wrapper's own (the
+        wrapper counts through its module's name)."""
+
+        def __init__(self, fn, key):
+            self.fn, self.key, self.live = fn, key, set()
 
         def __call__(self, *args):
-            enc, enc_proj, loc_conv_w = args[0], args[1], args[4]
-            shape = (*enc.shape, enc_proj.shape[2], loc_conv_w.shape[2], str(enc.dtype)[6:])
+            enc, enc_proj = args[0], args[1]
+            Kl = args[4].shape[2] if len(args) == 12 else 0
+            shape = (*enc.shape, enc_proj.shape[2], Kl, str(enc.dtype)[6:])
             # the first call at a shape with a cotangent that is not zero (the
             # last decode steps' targets are mostly padding), which in the
             # reverse order of a backward is the one with the most coverage
-            if shape not in live and (args[10].any() or args[11].any()):
-                live.add(shape)
-                seen["b2_bwd_inputs"][shape] = [a.detach().clone() for a in args]
-            elif shape not in seen["b2_bwd"]:
-                seen["b2_bwd_inputs"][shape] = [a.detach().clone() for a in args]
-            seen["b2_bwd"].add(shape)
-            return backward(*args)
+            inputs = seen[self.key + "_inputs"]
+            if shape not in self.live and (args[-2].any() or args[-1].any()):
+                self.live.add(shape)
+                inputs[shape] = [a.detach().clone() for a in args]
+            elif shape not in seen[self.key]:
+                inputs[shape] = [a.detach().clone() for a in args]
+            seen[self.key].add(shape)
+            return self.fn(*args)
 
         @property
         def launches(self):
-            return backward.launches
+            return self.fn.launches
 
         @launches.setter
         def launches(self, n):
-            backward.launches = n
+            self.fn.launches = n
 
     content = decoder_lstm.content_attention_step
 
@@ -960,13 +996,16 @@ def recorded_launches():
     seen.update(b2_content=set(), b2_content_int8=set())
     decoder_tfm.decode_attention, decoder_lstm.coverage_attention_step = b1, b2
     decoder_lstm.content_attention_step = b2_content
-    attention_step.coverage_attention_step_backward = B2Backward()
+    attention_step.coverage_attention_step_backward = B2Backward(backward, "b2_bwd")
+    attention_step.content_attention_step_backward = B2Backward(content_backward,
+                                                                "b2_bwd_content")
     try:
         yield seen
     finally:
         decoder_tfm.decode_attention, decoder_lstm.coverage_attention_step = attend, step
         decoder_lstm.content_attention_step = content
         attention_step.coverage_attention_step_backward = backward
+        attention_step.content_attention_step_backward = content_backward
 
 
 def attention_step_phase(t0):
@@ -2035,7 +2074,9 @@ def stitch_check(t0, device="cuda", n_pages=None):
 
 
 def _resnet_leaf(name: str) -> bool:
-    return "ResNetFeatureExtractor_0" in name
+    """A leaf of a CNN (the ViT's ResNet, or a CNN feature stage: ResNet or
+    VGG), whose float32 gradient flips ReLU choices."""
+    return "ResNetFeatureExtractor_0" in name or name.startswith("featextractor.")
 
 
 def train_config(**overrides):
@@ -2077,9 +2118,11 @@ def _worst_leaves(got, want, norm):
     return worst
 
 
-def _train_step_parity(t0, cfg, weights, batch, text, device, phase="train", spread=False):
+def _train_step_parity(t0, cfg, weights, batch, text, device, phase="train", spread=False,
+                       init=None):
     """(a): one float32 step of the same state on ``device`` and on the CPU,
-    dropout and the augmentation off.  With ``spread``, the CPU's gradient again with the weights scaled by
+    dropout and the augmentation off, from ``weights`` (a file) or
+    ``init(model)`` (which fills the model's leaves).  With ``spread``, the CPU's gradient again with the weights scaled by
     (1 + WEIGHT_NOISE N(0, 1)): the ResNet's leaves are then held within
     the larger of ``grad_rtol`` and SPREAD_FACTOR times the CPU's own
     spread (its float32 gradient is not smooth: ReLU choices flip)."""
@@ -2100,6 +2143,8 @@ def _train_step_parity(t0, cfg, weights, batch, text, device, phase="train", spr
     runs, own = {}, (0.0, "")
     for dev in ("cpu", device):
         b = init_training(copy.deepcopy(cfg), device=dev)
+        if init is not None:
+            init(b.model)
         x = normalize(torch.from_numpy(batch).to(dev))
         tokens = torch.from_numpy(text).to(dev).long()
         _, _, grads = loss_and_grads(copy.deepcopy(b.model), b.criterion, x, tokens)
@@ -2140,11 +2185,12 @@ def _train_step_parity(t0, cfg, weights, batch, text, device, phase="train", spr
         raise AssertionError("(a) the card's float32 train step disagrees with the CPU's")
 
 
-def _bf16_steps(t0, phase, cfg, n, bucket, device, batch=None):
-    """(b): TRAIN_BF16_STEPS steps of the config's type on one fixed batch
+def _bf16_steps(t0, phase, cfg, n, bucket, device, batch=None, steps=TRAIN_BF16_STEPS,
+                init=None):
+    """(b): ``steps`` steps of the config's type on one fixed batch
     (``fixed_batch``'s, or ``batch``: (images, text)) from a seeded random
-    init: every loss finite and the last below the first; steps/s and the
-    peak memory printed.  Returns the batch."""
+    init (or ``init(model)``'s): every loss finite and the last below the
+    first; steps/s and the peak memory printed.  Returns the batch."""
     import copy
 
     import numpy as np
@@ -2155,11 +2201,13 @@ def _bf16_steps(t0, phase, cfg, n, bucket, device, batch=None):
     cuda = device != "cpu"
     batch, text = batch if batch is not None else fixed_batch(cfg, n, bucket)
     b = init_training(copy.deepcopy(cfg), device=device)
+    if init is not None:
+        init(b.model)
     gen = torch.Generator().manual_seed(7)
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     losses, t_start = [], None
-    for i in range(TRAIN_BF16_STEPS):
+    for i in range(steps):
         if i == 2:
             if cuda:
                 torch.cuda.synchronize()
@@ -2167,7 +2215,7 @@ def _bf16_steps(t0, phase, cfg, n, bucket, device, batch=None):
         losses.append(b.train_step(b.state, batch, text, gen)["loss"])
     losses = [float(x) for x in losses]   # the host copy syncs
     seconds = time.perf_counter() - t_start
-    timed = TRAIN_BF16_STEPS - 2
+    timed = steps - 2
     peak = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else float("nan")
     log(phase, t0, f"(b) {cfg['dtype']} steps on one batch of {n} at {bucket}, text "
         f"{text.shape[1]} wide (decoder length {text.shape[1] - 1}), random init: losses "
@@ -2451,54 +2499,73 @@ def _check_validation_shapes(t0, shapes, nh, hd):
 def backward_inputs(B, S, D, H, Kl, dtype, attn, seed, taps=5):
     """Inputs of B2's backward on the card in its argument order: the
     forward's (``coverage_step_inputs`` at K = 1: the coverage of 150 steps,
-    or for ``loc_aware`` one alignment), alpha from the plain forward, and
+    or for ``loc_aware`` one alignment; for ``bahdanau`` the content form's
+    enc, enc_proj, q and w_score), alpha from the plain forward, and
     cotangents at a step's scales."""
     import torch
 
-    from doc2tex_tpu_torch.ops.attention_step import coverage_attention_step_reference
+    from doc2tex_tpu_torch.ops.attention_step import (content_attention_step_reference,
+                                                      coverage_attention_step_reference)
 
     kw = coverage_step_inputs(B, 1, S, D, H, Kl, dtype,
                               COVERAGE_STEPS[-1] if attn == "coverage" else 1, seed, taps)
-    _, alpha = coverage_attention_step_reference(**kw)
     g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    cot = [torch.randn(B, D, generator=g, device="cuda") * 0.1,
+           torch.randn(B, S, generator=g, device="cuda") * 0.1]
+    if attn == "bahdanau":
+        args = [kw[k] for k in ("enc", "enc_proj", "q", "w_score")]
+        _, alpha = content_attention_step_reference(*args)
+        return args + [alpha] + cot
+    _, alpha = coverage_attention_step_reference(**kw)
     return [kw["enc"], kw["enc_proj"], kw["q"], kw["mem"], kw["loc_conv_w"],
-            kw["loc_conv_b"], kw["w_loc"], kw["w_score"], kw["b_loc"], alpha,
-            torch.randn(B, D, generator=g, device="cuda") * 0.1,
-            torch.randn(B, S, generator=g, device="cuda") * 0.1]
+            kw["loc_conv_b"], kw["w_loc"], kw["w_score"], kw["b_loc"], alpha] + cot
+
+
+def backward_form(args):
+    """(the wrapper, its plain version, the output names) of B2's backward
+    for ``args``: the coverage form's 12 arguments or the content form's 7."""
+    from doc2tex_tpu_torch.ops import attention_step as b2
+
+    if len(args) == 12:
+        return (b2.coverage_attention_step_backward,
+                b2.coverage_attention_step_backward_reference, B2_BWD_NAMES)
+    return (b2.content_attention_step_backward, b2.content_attention_step_backward_reference,
+            B2_BWD_CONTENT_NAMES)
 
 
 def check_backward(args, where):
-    """B2's backward on ``args`` against its plain version (``B2_BWD_TOL``)
-    and against itself (two runs, equal bits); returns (the largest error,
-    the largest error over its tolerance).  Not counted as launches."""
+    """B2's backward (either form) on ``args`` against its plain version
+    (``B2_BWD_TOL``) and against itself (two runs, equal bits); returns
+    (the largest error, the largest error over its tolerance).  Not counted
+    as launches."""
     import torch
 
-    from doc2tex_tpu_torch.ops import attention_step as b2
-
-    before = b2.coverage_attention_step_backward.launches
-    got = b2.coverage_attention_step_backward(*args)
-    again = b2.coverage_attention_step_backward(*args)
-    ref = b2.coverage_attention_step_backward_reference(*args)
+    kernel, plain, names = backward_form(args)
+    before = kernel.launches
+    got = kernel(*args)
+    again = kernel(*args)
+    ref = plain(*args)
     torch.cuda.synchronize()
-    b2.coverage_attention_step_backward.launches = before
+    kernel.launches = before
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"B2's backward differs between two runs at {where}")
     worst = (0.0, 0.0)
     top = max(b.abs().max().item() for b in ref)
-    for name, a, b in zip(B2_BWD_NAMES, got, ref):
+    for name, a, b in zip(names, got, ref):
+        bf16 = a.dtype == torch.bfloat16
         a, b = a.float(), b.float()
         if a.shape != b.shape or not torch.isfinite(a).all():
             raise AssertionError(f"B2's backward: {name} {tuple(a.shape)} at {where}")
         err = (a - b).abs()
         tol = B2_BWD_TOL * (b.abs().max() + B2_BWD_FLOOR * top) + 1e-30
-        if got[B2_BWD_NAMES.index(name)].dtype == torch.bfloat16:
+        if bf16:
             tol = tol + 2.0 ** -7 * b.abs()
         if (err > tol).any():
             raise AssertionError(
                 f"B2's backward disagrees with its plain version ({name}) at {where}: max abs "
                 f"err {err.max().item():.3e}, largest {b.abs().max().item():.3e}; the outputs' "
                 "largest: " + ", ".join(f"{n} {r.abs().max().item():.3e}"
-                                        for n, r in zip(B2_BWD_NAMES, ref)))
+                                        for n, r in zip(names, ref)))
         worst = (max(worst[0], err.max().item()), max(worst[1], (err / tol).max().item()))
     return worst
 
@@ -2521,13 +2588,14 @@ def _event_ms(fn, reps=20):
 
 
 def backward_timing(B, S, D, H, Kl, dtype_name="bfloat16", attn="coverage"):
-    """B2's backward timed (a call's share of a CUDA graph of 20) beside its
-    plain version (the same), autograd of the plain forward (a yardstick:
-    event time, host gaps included) and the bound: each input read once and
-    each output written once at 3.35 TB/s, or the work after the fold at
-    the float32 rate, per position: enc . g_context and alpha g_context
-    over D (3 D), the pre-activation's 5 taps and adds, tanh, the tanh
-    gradient, d q, d w_score, the 5 taps' M and R sums over H (40 H)."""
+    """B2's backward (the content form for ``bahdanau``) timed (a call's
+    share of a CUDA graph of 20) beside its plain version (the same),
+    autograd of the plain forward (a yardstick: event time, host gaps
+    included) and the bound: each input read once and each output written
+    once at 3.35 TB/s, or the work after the fold at the float32 rate, per
+    position: enc . g_context and alpha g_context over D (3 D), and over H
+    the pre-activation's 5 taps and adds, tanh, the tanh gradient, d q, d
+    w_score, the 5 taps' M and R sums (40 H; 10 H in the content form)."""
     import torch
 
     from doc2tex_tpu_torch.ops import attention_step as b2
@@ -2535,28 +2603,37 @@ def backward_timing(B, S, D, H, Kl, dtype_name="bfloat16", attn="coverage"):
 
     dtype = getattr(torch, dtype_name)
     args = backward_inputs(B, S, D, H, Kl, dtype, attn, seed=11)
-    before = b2.coverage_attention_step_backward.launches
-    ms = graph_ms(lambda: b2.coverage_attention_step_backward(*args))
-    got = b2.coverage_attention_step_backward(*args)
-    b2.coverage_attention_step_backward.launches = before
-    plain_ms = graph_ms(lambda: b2.coverage_attention_step_backward_reference(*args))
-    ref = b2.coverage_attention_step_backward_reference(*args)
-    enc, enc_proj, q, mem, cw, cb, w_loc, w_score, b_loc, _, g_ctx, g_alpha = args
-    leaves = [t.detach().clone().requires_grad_()
-              for t in (enc, enc_proj, q, mem, cw, cb, w_loc, b_loc, w_score)]
-    out = b2.coverage_attention_step_reference(*leaves)
+    kernel, plain, _ = backward_form(args)
+    before = kernel.launches
+    ms = graph_ms(lambda: kernel(*args))
+    got = kernel(*args)
+    kernel.launches = before
+    plain_ms = graph_ms(lambda: plain(*args))
+    ref = plain(*args)
+    content = len(args) == 7
+    if content:
+        enc, enc_proj, q, w_score, _, g_ctx, g_alpha = args
+        leaves = [t.detach().clone().requires_grad_() for t in (enc, enc_proj, q, w_score)]
+        out = b2.content_attention_step_reference(*leaves)
+    else:
+        enc, enc_proj, q, mem, cw, cb, w_loc, w_score, b_loc, _, g_ctx, g_alpha = args
+        leaves = [t.detach().clone().requires_grad_()
+                  for t in (enc, enc_proj, q, mem, cw, cb, w_loc, b_loc, w_score)]
+        out = b2.coverage_attention_step_reference(*leaves)
     autograd_ms = _event_ms(lambda: torch.autograd.grad(out, leaves, (g_ctx, g_alpha),
                                                         retain_graph=True))
     err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, ref))
     nbytes = sum(t.numel() * t.element_size() for t in list(args) + list(got))
-    flops = B * S * (3 * D + 40 * H)
+    flops = B * S * (3 * D + (10 if content else 40) * H)
     bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
     bound = max(bytes_ms, ops_ms)
+    plan = b2.backward_plan(B, S, D, H, dtype, b2.CONTENT if content else b2.COVERAGE,
+                            0 if content else args[4].shape[0], 0 if content else Kl)
     return dict(ms=ms, plain_ms=plain_ms, autograd_ms=autograd_ms, bound_ms=bound,
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations", max_abs_err=err,
-                text=f"backward, {B} samples S {S} D{D} H{H} Kl{Kl} {dtype_name} {attn}: kernel "
-                     f"{ms:.4f} ms, plain {plain_ms:.4f} ms, autograd of the plain forward "
-                     f"{autograd_ms:.4f} ms (events), bound {bound:.4f} ms (bytes "
+                text=f"backward, {B} samples S {S} D{D} H{H} Kl{Kl} {dtype_name} {attn} "
+                     f"({plan}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, autograd of the "
+                     f"plain forward {autograd_ms:.4f} ms (events), bound {bound:.4f} ms (bytes "
                      f"{bytes_ms:.4f} ms for {nbytes / 1e6:.2f} MB, operations {ops_ms:.4f} ms "
                      f"for {flops / 1e9:.4f} GFLOP f32), {bound / ms:.0%} of bound")
 
@@ -2585,18 +2662,19 @@ def backward_phase(t0, shapes, inputs):
     grid = [(B, S, D, H, Kl) for B, S, D, H, Kl in
             ((32, 623, 256, 256, 128), (8, 2525, 256, 256, 128), (3, 3, 128, 128, 64),
              (5, 61, 128, 128, 64), (2, 129, 256, 256, 8), (7, 1000, 128, 128, 64))]
+    grid += B2_BWD_WIDE
     worst, n = {}, 0
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype)[6:]
-        for attn in ("coverage", "loc_aware"):
+        for attn in ("coverage", "loc_aware", "bahdanau"):
             for B, S, D, H, Kl in grid:
                 err = check_backward(backward_inputs(B, S, D, H, Kl, dtype, attn, seed=n),
                                      f"B {B} S {S} D{D} H{H} Kl{Kl} {name} {attn}")
                 worst[name] = tuple(map(max, worst.get(name, (0.0, 0.0)), err))
                 n += 1
     log("train_lstm", t0, f"(e) B2's backward matches its plain version, two runs equal bit "
-        f"for bit, at {n} checks ((B, S, D, H, Kl) {grid} x coverage, loc_aware x float32, "
-        "bfloat16): max abs err "
+        f"for bit, at {n} checks ((B, S, D, H, Kl) {grid} x coverage, loc_aware and the "
+        "content form (bahdanau) x float32, bfloat16): max abs err "
         + ", ".join(f"{k} {e:.3e} (at most {r:.2f} of its tolerance)" for k, (e, r) in worst.items()))
     bf16 = sorted(s for s in shapes if s[-1] == "bfloat16")
     main = max(bf16, key=lambda s: (s[0] * s[1], s)) if bf16 else (32, 623, 128, 128, 64, "bfloat16")
@@ -3523,6 +3601,97 @@ def zoo_phase(t0, device="cuda", blocks=ZOO_BLOCKS, golden=None, crops=None):
     return records
 
 
+def zoo_train_config(block, attn_type):
+    """A zoo block (``tests/torch_port_zoo.yaml``) with the head's
+    ``attn_type`` and the reference's training recipe (ZOO_TRAIN_RECIPE of
+    ``config/train.yaml``), warmup and augmentation off."""
+    import copy
+
+    from doc2tex_tpu_torch.config import load_config
+    from doc2tex_tpu_torch.recognition import load_recog_config
+
+    cfg, _ = load_recog_config(ZOO_CONFIG, version=block)
+    cfg = copy.deepcopy(cfg)
+    recipe = load_config(REALDATA_CONFIG)
+    cfg.update({k: copy.deepcopy(recipe[k]) for k in ZOO_TRAIN_RECIPE if k in recipe})
+    cfg.update(warmup_epochs=0, augment=False)
+    cfg["Prediction"]["params"]["attn_type"] = attn_type
+    return cfg
+
+
+def zoo_train_phase(t0, device="cuda", blocks=ZOO_TRAIN_BLOCKS, n=ZOO_TRAIN_N,
+                    bucket=ZOO_TRAIN_BUCKET, steps=ZOO_TRAIN_STEPS):
+    """Phase 20b (see ZOO_TRAIN_BLOCKS and the module docstring).  Returns
+    the JSON records of B2's backward in its content form and at D != H
+    (launches from (b)) on the card; a test passes ``device="cpu"`` with a
+    tiny block to rehearse it (no kernel checks, no records)."""
+    from doc2tex_tpu_torch.ops import attention_step as b2
+    from doc2tex_tpu_torch.weights import load_variables
+
+    cuda = device != "cpu"
+    records = []
+
+    def init(model):
+        load_variables(model, zoo_variables(model))
+
+    for block, attn in blocks:
+        phase = f"{block}/{attn}"
+        cfg = zoo_train_config(block, attn)
+        batch, text = fixed_batch(cfg, n, bucket, seed=92)
+        head = cfg["Prediction"]["params"]
+        T = text.shape[1] - 1
+        log(phase, t0, f"the zoo block with the {attn} head (D {head['input_size']}, H "
+            f"{head['hidden_size']}" + (f", Kl {head['kernel_dim']}, kernel_size "
+                                       f"{head['kernel_size']}" if attn != "bahdanau" else "")
+            + f"), leaves drawn from numpy's seed 0; {cfg['optimizer']}, clip "
+            f"{cfg['grad_clip']}; a batch of {n} hard crops at {bucket}, decoder length {T}")
+        content = attn == "bahdanau"
+        with recorded_launches() as seen:
+            # (a) float32 card step against the CPU
+            _train_step_parity(t0, cfg, None, batch, text, device, phase=phase, spread=True,
+                               init=init)
+            step = b2.content_attention_step if content else b2.coverage_attention_step
+            backward = (b2.content_attention_step_backward if content
+                        else b2.coverage_attention_step_backward)
+            # (b) bf16 steps on the batch; (c) the launches a step
+            step.launches = backward.launches = 0
+            _bf16_steps(t0, phase, cfg, n, bucket, device, batch=(batch, text), steps=steps,
+                        init=init)
+            fwd, bwd = step.launches, backward.launches
+        key = "b2_bwd_content" if content else "b2_bwd"
+        shapes, inputs = seen[key], seen[key + "_inputs"]
+        log(phase, t0, f"(c) B2 in {steps} {cfg['dtype']} steps: forward launches {fwd}, "
+            f"backward {bwd} ({fwd / steps:g} and {bwd / steps:g} a step, decoder length {T}); "
+            f"the backward's (B, S, D, H, Kl, type): {sorted(shapes)}")
+        if cuda and not fwd == bwd == steps * T:
+            raise AssertionError(f"(c) {fwd} forward and {bwd} backward launches in {steps} "
+                                 f"steps of decoder length {T}")
+        if not cuda:
+            continue
+        # (d) the backward at every shape (a) and (b) launched, on the inputs of
+        # a launch there, against its plain version and itself; timed at (b)'s
+        worst = {}
+        for shape in sorted(shapes):
+            err = check_backward(inputs[shape], f"launched shape {shape}")
+            worst[shape[-1]] = tuple(map(max, worst.get(shape[-1], (0.0, 0.0)), err))
+        log(phase, t0, f"(d) B2's backward ({'content' if content else 'coverage'} form) matches "
+            f"its plain version, two runs equal bit for bit, at the {len(shapes)} shapes "
+            "launched: max abs err " + ", ".join(
+                f"{k} {e:.3e} (at most {r:.2f} of its tolerance)" for k, (e, r) in worst.items()))
+        B, S, D, H, Kl, _ = max((s for s in shapes if s[-1] == "bfloat16"),
+                                key=lambda s: (s[0] * s[1], s))
+        rec = backward_timing(B, S, D, H, Kl, "bfloat16", attn)
+        log(phase, t0, f"(d) B2's backward (the bf16 steps' launch) {rec['text']}")
+        records.append({
+            "name": "attention_step_backward_content" if content
+                    else "attention_step_backward_d_not_h",
+            "route": "cuda", "source": B2_BWD_SOURCE, "replaces": B2_BWD_REPLACES,
+            "launches": bwd, "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": None})
+    return records
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(TIME_LIMIT_S, exit=True)
     t0 = time.perf_counter()
@@ -3573,6 +3742,7 @@ def main() -> int:
     infer_phase(t0)
     realdata_phase(t0)
     records += zoo_phase(t0)
+    records += zoo_train_phase(t0)
     print(json.dumps({"kernels": records}), flush=True)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

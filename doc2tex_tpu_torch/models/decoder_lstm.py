@@ -28,8 +28,9 @@ Training: ``forward`` is the teacher-forced pass of the JAX ``__call__``:
 loop (JAX's ``lax.scan``), the logits stacked to (B, T, V), and with
 ``train`` one dropout at ``droprate`` over the stacked logits.  On the card
 the step's attention runs B2's kernel with its hand-written backward
-(``ops.attention_step.CoverageAttentionStepFn``); on the CPU autograd runs
-through the plain version.
+(``ops.attention_step.CoverageAttentionStepFn``, or
+``ContentAttentionStepFn`` for bahdanau); on the CPU autograd runs through
+the plain version.
 
 int8 attention memory (the ``decoder_mem`` part in ``quant_parts``, set by
 ``Model.set_quantize``): ``init_state`` quantizes ``enc`` and ``enc_proj``
@@ -53,10 +54,11 @@ The attention types, as the JAX head's ``attn_type``:
   zero-size placeholder and its memory is never int8.
 
 ``embed_target: False`` feeds the token one-hot (V wide) instead of an
-embedding.  Training through B2 on the card takes the coverage form at D =
-H only (its backward kernel's contract): a ``bahdanau`` head, or a
-coverage head at D != H, raises there (ROADMAP A9.5); on the CPU autograd
-runs the plain version of every type.
+embedding.  Every type trains on the card: the coverage and bahdanau heads
+through B2's forward kernel and its backward kernel (``ops.attention_step``'s
+``CoverageAttentionStepFn`` and ``ContentAttentionStepFn``, at every D and
+H the forward takes), the luong head through autograd of its plain
+PyTorch; on the CPU autograd runs the plain version of every type.
 """
 
 from __future__ import annotations

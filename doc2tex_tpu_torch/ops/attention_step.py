@@ -42,16 +42,17 @@ launches the kernel or raises.  ``coverage_attention_step.launches`` counts
 the coverage form's float launches, ``.int8_launches`` its int8 ones;
 ``content_attention_step`` counts its own the same way.
 
-Training: on a CUDA tensor that needs a gradient, ``coverage_attention_step``
-runs through ``CoverageAttentionStepFn``, whose forward is the kernel above
-(it saves the inputs and alpha, no (B, S, H) tensor) and whose backward is a
-second hand-written kernel (``csrc/attention_step_backward.cu``, at K = 1),
-``coverage_attention_step_backward``; its plain version
-``coverage_attention_step_backward_reference`` writes the gradient out.  On
-the CPU the step stays the plain version under autograd.  The backward
-kernel takes the coverage form at D = H only: a gradient through the content
-form, or through the coverage form at D != H, raises on the card (ROADMAP
-A9.5, the training of those heads).
+Training: on a CUDA tensor that needs a gradient (K = 1, float memory),
+``coverage_attention_step`` runs through ``CoverageAttentionStepFn`` and
+``content_attention_step`` through ``ContentAttentionStepFn``.  Their
+forward is the kernel above (saving the inputs and alpha, no (B, S, H)
+tensor); their backward a second hand-written kernel
+(``csrc/attention_step_backward.cu``: a clustered main pass and a finish
+pass), ``coverage_attention_step_backward`` and
+``content_attention_step_backward``, at every D and H the forward takes.
+Their plain versions, ``coverage_attention_step_backward_reference`` and
+``content_attention_step_backward_reference``, write the gradient out.  On
+the CPU the step stays the plain version under autograd.
 """
 
 from __future__ import annotations
@@ -68,10 +69,8 @@ from .._build import load_library
 SOURCE = "attention_step.cu"
 WIDE_DEFINE = "D2T_ATTENTION_STEP_WIDE"   # the build of SOURCE for D != H and the content form
 BACKWARD_SOURCE = "attention_step_backward.cu"
-BWD_CHUNK = 64            # positions per block in the backward's passes over S
-BWD_VECS = 7              # per-block partial vectors of H: d q, d w_score, 5 taps
 NEG_INF = -1e30
-WIDTHS = (128, 256)            # H the kernel is built for (and D = H of the backward)
+WIDTHS = (128, 256)            # H the kernel is built for
 D_WIDTHS = (128, 256, 512)     # D, enc's width, the forward takes
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 2}   # the memory's type, or the compute type
 _MEM_CODE = {**_DTYPE_CODE, torch.int8: 3}            # the memory's type (int8: coverage form)
@@ -344,6 +343,33 @@ def coverage_attention_step_backward_reference(enc, enc_proj, q, mem, loc_conv_w
     )
 
 
+def content_attention_step_backward_reference(enc, enc_proj, q, w_score, alpha, g_context,
+                                              g_alpha):
+    """Plain PyTorch version of the content form's backward at K = 1 (the
+    bahdanau head), written out rather than taken by autograd: the
+    coverage form's with no location term,
+
+        t = tanh(enc_proj + q),  g_a = g_alpha + enc . g_context,
+        g_e = alpha (g_a - sum_s alpha g_a),  g_pre = g_e w_score (1 - t^2),
+        d enc = alpha g_context,  d enc_proj = g_pre,  d q = sum_s g_pre,
+        d w_score = sum g_e t.
+
+    Computes in float32 (float64 for float64 inputs).  Returns (d enc and
+    d enc_proj in their inputs' types, d q, d w_score in the compute
+    type)."""
+    if q.shape[0] != enc.shape[0]:
+        raise ValueError(f"the backward takes K = 1: q {tuple(q.shape)}, enc {tuple(enc.shape)}")
+    ft = torch.promote_types(q.dtype, torch.float32)
+    H = enc_proj.shape[-1]
+    a, g_ctx = alpha.to(ft), g_context.to(ft)
+    t = torch.tanh(enc_proj.to(ft) + q.to(ft)[:, None, :])
+    g_a = g_alpha.to(ft) + torch.einsum("bsd,bd->bs", enc.to(ft), g_ctx)
+    g_e = a * (g_a - (a * g_a).sum(-1, keepdim=True))
+    g_pre = g_e[..., None] * w_score.to(ft).reshape(H) * (1 - t * t)
+    return ((a[..., None] * g_ctx[:, None, :]).to(enc.dtype), g_pre.to(enc_proj.dtype),
+            g_pre.sum(1), torch.einsum("bs,bsh->h", g_e, t))
+
+
 # ---- the kernel ----------------------------------------------------------------
 
 def _kernels(wide: bool = False):
@@ -499,8 +525,9 @@ def content_attention_step(enc, enc_proj, q, w_score, valid_len=None, enc_scale=
     the module docstring.  enc (Bs,S,D) and enc_proj (Bs,S,H) at sample
     rows, q (Bs*K,H), w_score (H,) or (H,1); int8 memory as in
     ``coverage_attention_step``.  Returns (context (Bs*K, D) float32, alpha
-    (Bs*K, S) float32).  It has no backward kernel: on CUDA tensors that
-    need a gradient it raises (ROADMAP A9.5)."""
+    (Bs*K, S) float32).  On CUDA tensors of which one needs a gradient (K =
+    1 only), through ``ContentAttentionStepFn``: the backward is a kernel
+    too."""
     _check_memory(enc, enc_proj, q)
     if w_score.numel() != enc_proj.shape[-1]:
         raise ValueError(f"w_score must have H = {enc_proj.shape[-1]} entries; got "
@@ -521,8 +548,9 @@ _STEPS = {COVERAGE: (coverage_attention_step, coverage_attention_step_reference,
 def _memory_step(form, tensors, valid_len, enc_scale, proj_scale, compute_dtype):
     """The body the coverage and content forms share, on shape-checked
     ``tensors`` (the form's arguments up to w_score): the plain version on
-    the CPU; on the card the gradient's path (the coverage form at K = 1
-    and D = H), or the kernel, counted."""
+    the CPU; on the card the gradient's path (K = 1, float memory: the
+    form's autograd function, both passes kernels), or the kernel,
+    counted."""
     enc, enc_proj, q = tensors[:3]
     _, reference, int8_reference = _STEPS[form]
     scales = _check_int8(enc, enc_proj, enc_scale, proj_scale, compute_dtype)
@@ -537,21 +565,18 @@ def _memory_step(form, tensors, valid_len, enc_scale, proj_scale, compute_dtype)
     if grad and scales:
         raise NotImplementedError("int8 memory is an inference mode: B2's int8 form takes "
                                   "no gradient")
-    if grad and form == CONTENT:
-        raise NotImplementedError("B2's content form (the bahdanau head) has no backward "
-                                  "kernel: training that head is ROADMAP A9.5")
     scales = tuple(t.reshape(enc.shape[0]).contiguous() for t in scales)
     _check_kernel_inputs(enc, enc_proj, tensors[2:] + scales, int8=bool(scales))
     if grad:
-        D, H, K = enc.shape[2], enc_proj.shape[-1], q.shape[0] // enc.shape[0]
-        if D != H:
-            raise NotImplementedError(f"B2's backward takes D = H; training a coverage head "
-                                      f"at D = {D}, H = {H} is ROADMAP A9.5")
+        K = q.shape[0] // enc.shape[0]
         if K != 1:
             raise NotImplementedError(f"B2's backward takes K = 1 (the teacher-forced pass); "
                                       f"got K = {K} with a gradient")
-        _check_backward_shape(D, H, tensors[4].shape[0], enc.dtype)
-        return CoverageAttentionStepFn.apply(*tensors, valid_len)
+        taps = tensors[4].shape[0] if form == COVERAGE else 0
+        check_backward_widths(enc.shape[1], enc.shape[2], enc_proj.shape[-1], enc.dtype, form,
+                              taps, tensors[4].shape[2] if form == COVERAGE else 0)
+        fn = CoverageAttentionStepFn if form == COVERAGE else ContentAttentionStepFn
+        return fn.apply(*tensors, valid_len)
     return _forward(form, tensors, valid_len, scales, compute_dtype)
 
 
@@ -619,41 +644,192 @@ class CoverageAttentionStepFn(torch.autograd.Function):
                 d_w_score.reshape(w_score.shape), None)
 
 
+class ContentAttentionStepFn(torch.autograd.Function):
+    """The content form (the bahdanau head) with a gradient, at K = 1: as
+    ``CoverageAttentionStepFn``, with no location term."""
+
+    @staticmethod
+    def forward(ctx, enc, enc_proj, q, w_score, valid_len=None):
+        context, alpha = _forward(CONTENT, (enc, enc_proj, q, w_score), valid_len)
+        ctx.save_for_backward(enc, enc_proj, q, w_score, alpha)
+        return context, alpha
+
+    @staticmethod
+    def backward(ctx, g_context, g_alpha):
+        enc, enc_proj, q, w_score, alpha = ctx.saved_tensors
+        d_enc, d_enc_proj, d_q, d_w_score = content_attention_step_backward(
+            enc, enc_proj, q, w_score, alpha, _aligned(g_context), _aligned(g_alpha))
+        return d_enc, d_enc_proj, d_q, d_w_score.reshape(w_score.shape), None
+
+
 def _aligned(t):
     """A cotangent as the kernel takes it: contiguous and 16-byte aligned."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _check_backward_shape(D, H, taps, dtype):
-    """What the backward kernel takes: the forward's widths and types."""
+# The backward's grid (csrc/attention_step_backward.cu): per row a cluster of
+# up to BWD_MAX_CLUSTER blocks splitting S into chunks (at least
+# BWD_MIN_CLUSTER blocks, which share the fold of W'; more only where each
+# gets a ring tile of positions), as many as leave every row's cluster on
+# the card at once (cudaOccupancyMaxActiveClusters); each block streams its
+# chunk through a ring of `stages` tiles of BWD_TILE positions, three where
+# two blocks still fit an SM, else two.
+BWD_TILE = 32             # positions per ring tile (8 warps x 4)
+BWD_MAX_CLUSTER = 8       # portable cluster size
+BWD_MIN_CLUSTER = 4       # ranks that share the fold (the last may own no positions)
+BWD_MAX_CHUNK = 1024      # positions a block may own
+BWD_VECS = {COVERAGE: 7, CONTENT: 2}   # a row's partial vectors of H: d q, d w_score, M[5]
+BWD_TWO_BLOCKS = SMEM_PER_SM // 2 - 1024  # shared memory of a block when two share an SM
+
+
+class BackwardPlan(NamedTuple):
+    """The backward's grid: block r of a row's cluster owns positions
+    [r * chunk, min(S, (r + 1) * chunk))."""
+
+    cluster: int     # blocks per row, along S
+    chunk: int       # positions per block
+    stages: int      # ring tiles
+
+
+def backward_smem_bytes(form: str, chunk: int, stages: int, D: int, H: int, elem: int) -> int:
+    """Dynamic shared memory of one block of the backward's main pass:
+    ``make_layout`` of the kernel."""
+    cov = form == COVERAGE
+    vecs = BWD_VECS[form]
+    return (_up16(MAX_TAPS * H * 4 if cov else 0)                # W'
+            + _up16(H * 4) * 2                                   # q + b', w_score
+            + _up16(H * 4 if cov else 0)                         # conv_b . w_loc
+            + _up16(chunk * 4) * 2                               # g_alpha then ge, alpha
+            + _up16((chunk + MAX_TAPS - 1) * 4 if cov else 0)    # mem and its halo
+            + _up16((H // 128) * chunk * MAX_TAPS * 4 if cov else 0)  # R
+            + _up16((vecs * H + BWD_MAX_CLUSTER) * 4)            # the row's partials by rank
+            + 8 * vecs * 128 * 4                                 # the warps' partials
+            + _up16((BWD_MAX_CLUSTER + (MAX_TAPS - 1) * MAX_TAPS) * 4)  # rank slots, R halo
+            + stages * BWD_TILE * (max(D, H) * elem + 16))       # the ring
+
+
+@functools.lru_cache(maxsize=None)
+def backward_plan(B: int, S: int, D: int, H: int, dtype: torch.dtype, form: str = COVERAGE,
+                  taps: int = MAX_TAPS, Kl: int = 0) -> BackwardPlan:
+    """The backward's grid for one call (see BWD_TILE): of the cluster
+    sizes from 1 to the larger of BWD_MIN_CLUSTER and S / BWD_TILE (at
+    most BWD_MAX_CLUSTER), the largest of those whose B clusters the card
+    holds in the fewest waves (``backward_clusters``); chunk = S / cluster
+    rounded up; the deepest ring (3, else 2 tiles) that leaves two blocks
+    an SM, else one that fits.  Raises, before asking the card, on what
+    the kernel does not take: memory other than float32 or bfloat16, D
+    outside D_WIDTHS, H outside WIDTHS, a coverage conv of more than
+    MAX_TAPS taps (or an even count), and an S that BWD_MAX_CLUSTER blocks
+    cannot hold."""
+    check_backward_widths(S, D, H, dtype, form, taps, Kl)
+    if B <= 0:
+        raise ValueError(f"backward kernel takes B > 0; got {B}")
+    best = None
+    top = min(BWD_MAX_CLUSTER, max(BWD_MIN_CLUSTER, -(-S // BWD_TILE)))
+    for cluster in range(1, top + 1):
+        chunk = max(-(-S // cluster), 2)
+        if chunk > BWD_MAX_CHUNK:
+            continue
+        sizes = {stages: backward_smem_bytes(form, chunk, stages, D, H, dtype.itemsize)
+                 for stages in (3, 2)}
+        stages = next((n for n, b in sizes.items() if b <= BWD_TWO_BLOCKS),
+                      next((n for n, b in sizes.items() if b <= SMEM_LIMIT), None))
+        if stages is None:
+            continue
+        fits = backward_clusters(form, D, H, dtype, cluster, sizes[stages])
+        key = (-(-B // max(fits, 1)), -cluster)
+        if best is None or key < best[0]:
+            best = (key, BackwardPlan(cluster, chunk, stages))
+    if best is None:
+        raise ValueError(f"S={S} at D={D}, H={H} does not fit {BWD_MAX_CLUSTER} blocks of "
+                         f"{SMEM_LIMIT} bytes of shared memory")
+    return best[1]
+
+
+def check_backward_widths(S, D, H, dtype, form=COVERAGE, taps=MAX_TAPS, Kl=0):
+    """Raise on what the backward kernel does not take (see ``backward_plan``)."""
     if dtype not in _DTYPE_CODE:
         raise TypeError(f"backward kernel takes float32/bfloat16 memory; got {dtype}")
-    if D != H or D not in WIDTHS:
-        raise ValueError(f"backward kernel takes D = H in {WIDTHS}; got D={D}, H={H}")
-    if not (0 < taps <= MAX_TAPS and taps % 2 == 1):
-        raise ValueError(f"backward kernel takes a location conv of at most {MAX_TAPS} taps; "
-                         f"got {taps}")
+    if form not in BWD_VECS:
+        raise ValueError(f"backward kernel takes the coverage and content forms; got {form!r}")
+    if H not in WIDTHS or D not in D_WIDTHS:
+        raise ValueError(f"backward kernel takes D in {D_WIDTHS} and H in {WIDTHS}; got D={D}, "
+                         f"H={H}")
+    if form == COVERAGE and not (0 < taps <= MAX_TAPS and taps % 2 == 1 and Kl > 0):
+        raise ValueError(f"backward kernel takes a location conv of at most {MAX_TAPS} taps "
+                         f"and Kl > 0; got {taps} taps, Kl {Kl}")
+    if S <= 0 or S > BWD_MAX_CLUSTER * BWD_MAX_CHUNK:
+        raise ValueError(f"backward kernel takes 0 < S <= {BWD_MAX_CLUSTER * BWD_MAX_CHUNK}; "
+                         f"got {S}")
 
 
-def backward_workspace_floats(B: int, S: int, H: int) -> int:
-    """Float32 scratch of one backward launch (``csrc/attention_step_backward.cu``
-    ``workspace_floats``): g_a (B, S), the chunks' sums (B, chunks), the
-    location taps' gradient R (B, S, 5), the blocks' partials (B * chunks,
-    BWD_VECS * H) and their sums (BWD_VECS * H)."""
-    chunks = -(-S // BWD_CHUNK)
-    return B * S + B * chunks + B * S * MAX_TAPS + (B * chunks + 1) * BWD_VECS * H
+def backward_workspace_floats(form: str, B: int, H: int) -> int:
+    """Float32 scratch of one backward call (``csrc/attention_step_backward.cu``
+    ``workspace_floats``): the rows' partial vectors (B, BWD_VECS, H)."""
+    return B * BWD_VECS[form] * H
+
+
+def _backward(form, enc, enc_proj, q, w_score, alpha, g_context, g_alpha, loc=None,
+              kernel=None, plan=None):
+    """The backward kernel of ``form`` (or ``kernel``, a library function
+    of the same C signature; with ``plan`` in place of ``backward_plan``'s)
+    on CUDA tensors, after its checks; ``loc`` =
+    (mem, loc_conv_w, loc_conv_b, w_loc, b_loc) in the coverage form.
+    Returns the kernel's outputs: (d enc, d enc_proj, d q, d w_score) and,
+    in the coverage form, (d mem, d loc_conv_w, d loc_conv_b, d w_loc, d
+    b_loc).  The callers count their launches."""
+    K = _check_memory(enc, enc_proj, q)
+    B, S, D = enc.shape
+    H = enc_proj.shape[-1]
+    if K != 1:
+        raise ValueError(f"backward kernel takes K = 1; got K = {K}")
+    mem, conv_w, conv_b, w_loc, b_loc = loc or (None,) * 5
+    taps, Kl = (conv_w.shape[0], conv_w.shape[2]) if loc else (0, 0)
+    plan = plan or backward_plan(B, S, D, H, enc.dtype, form, taps, Kl)
+    if (alpha.shape != (B, S) or g_alpha.shape != (B, S) or g_context.shape != (B, D)
+            or w_score.numel() != H or (loc and (
+                mem.shape != (B, S) or w_loc.shape != (Kl, H) or b_loc.shape != (H,)
+                or conv_w.shape[1] != 1 or conv_b.shape != (Kl,)))):
+        raise ValueError("backward shapes: alpha, g_alpha (B, S), g_context (B, D), w_score "
+                         "(H,); coverage: mem (B, S), loc_conv_w (taps, 1, Kl), loc_conv_b "
+                         "(Kl,), w_loc (Kl, H), b_loc (H,)")
+    ins = (q, w_score, alpha, g_context, g_alpha) + tuple(loc or ())
+    _check_kernel_inputs(enc, enc_proj, ins)
+    f32 = dict(dtype=torch.float32, device=enc.device)
+    outs = [torch.empty_like(enc), torch.empty_like(enc_proj), torch.empty(B, H, **f32),
+            torch.empty(H, **f32)]
+    if loc:
+        outs += [torch.empty(B, S, **f32), torch.empty(taps, 1, Kl, **f32),
+                 torch.empty(Kl, **f32), torch.empty(Kl, H, **f32), torch.empty(H, **f32)]
+    work = torch.empty(backward_workspace_floats(form, B, H), **f32)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    d_enc, d_enc_proj, d_q, d_w_score, *d_loc = outs
+    d_mem, d_conv_w, d_conv_b, d_w_loc, d_b_loc = d_loc or (None,) * 5
+    with torch.cuda.device(enc.device):
+        rc = (kernel or _backward_kernel())(
+            1 if form == COVERAGE else 2,
+            *map(ptr, (enc, enc_proj, q, mem, conv_w, conv_b, w_loc, w_score, b_loc, alpha,
+                       g_context, g_alpha, d_enc, d_enc_proj, d_q, d_mem, d_conv_w, d_conv_b,
+                       d_w_loc, d_b_loc, d_w_score, work)),
+            work.numel(), B, S, D, H, Kl, taps, _DTYPE_CODE[enc.dtype], *plan,
+            torch.cuda.current_stream(enc.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"attention_step backward kernel ({form} form) launch failed at B={B} "
+                           f"S={S} D={D} H={H}: CUDA error {rc}")
+    return outs
 
 
 def coverage_attention_step_backward(enc, enc_proj, q, mem, loc_conv_w, loc_conv_b, w_loc,
                                      w_score, b_loc, alpha, g_context, g_alpha):
     """The coverage form's backward at K = 1: the arguments and results of
     ``coverage_attention_step_backward_reference``.  On CUDA tensors the
-    hand-written kernel (four launches on the current stream, every sum in
-    a fixed order, so two runs give the same bits); on CPU tensors the plain
-    version.  Raises on what the kernel does not take: K > 1, D != H, widths
-    outside WIDTHS, more than MAX_TAPS taps, memory other than float32 or
-    bfloat16, and inputs that are not contiguous and 16-byte aligned."""
+    hand-written kernel (two launches on the current stream, every sum in a
+    fixed order, so two runs give the same bits); on CPU tensors the plain
+    version.  Raises on what the kernel does not take: K > 1, D outside
+    D_WIDTHS, H outside WIDTHS, more than MAX_TAPS taps, memory other than
+    float32 or bfloat16, and inputs that are not contiguous and 16-byte
+    aligned."""
     args = (enc, enc_proj, q, mem, loc_conv_w, loc_conv_b, w_loc, w_score, b_loc, alpha,
             g_context, g_alpha)
     _same_device(args)
@@ -661,46 +837,59 @@ def coverage_attention_step_backward(enc, enc_proj, q, mem, loc_conv_w, loc_conv
         return coverage_attention_step_backward_reference(*args)
     if enc.device.type != "cuda":
         raise ValueError(f"unsupported device {enc.device}")
-    K = _check_memory(enc, enc_proj, q)
-    B, S, D = enc.shape
-    H = enc_proj.shape[-1]
-    taps, Kl = loc_conv_w.shape[0], loc_conv_w.shape[2]
-    if K != 1:
-        raise ValueError(f"backward kernel takes K = 1; got K = {K}")
-    _check_backward_shape(D, H, taps, enc.dtype)
-    if (mem.shape != (B, S) or alpha.shape != (B, S) or g_alpha.shape != (B, S)
-            or g_context.shape != (B, D) or w_loc.shape != (Kl, H) or b_loc.shape != (H,)
-            or w_score.numel() != H or loc_conv_b.shape != (Kl,)):
-        raise ValueError("backward shapes: mem, alpha, g_alpha (B, S), g_context (B, D), "
-                         "w_loc (Kl, H), b_loc (H,), w_score (H,), loc_conv_b (Kl,)")
-    _check_kernel_inputs(enc, enc_proj, args[2:])
-    f32 = dict(dtype=torch.float32, device=enc.device)
-    outs = (torch.empty_like(enc), torch.empty_like(enc_proj), torch.empty(B, H, **f32),
-            torch.empty(B, S, **f32), torch.empty(taps, 1, Kl, **f32), torch.empty(Kl, **f32),
-            torch.empty(Kl, H, **f32), torch.empty(H, **f32), torch.empty(H, **f32))
-    work = torch.empty(backward_workspace_floats(B, S, H), **f32)
-    kernel = _backward_kernel()
-    with torch.cuda.device(enc.device):
-        rc = kernel(*(t.data_ptr() for t in args + outs), work.data_ptr(), work.numel(),
-                    B, S, D, H, Kl, taps, _DTYPE_CODE[enc.dtype], BWD_CHUNK,
-                    torch.cuda.current_stream(enc.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"attention_step backward kernel launch failed at B={B} S={S} "
-                           f"D={D}: CUDA error {rc}")
+    d_enc, d_enc_proj, d_q, d_w_score, d_mem, d_conv_w, d_conv_b, d_w_loc, d_b_loc = _backward(
+        COVERAGE, enc, enc_proj, q, w_score, alpha, g_context, g_alpha,
+        (mem, loc_conv_w, loc_conv_b, w_loc, b_loc))
     coverage_attention_step_backward.launches += 1
-    return outs
+    return d_enc, d_enc_proj, d_q, d_mem, d_conv_w, d_conv_b, d_w_loc, d_b_loc, d_w_score
 
 
 coverage_attention_step_backward.launches = 0
 
 
-def _backward_kernel():
-    lib, _ = load_library(BACKWARD_SOURCE)
-    fn = lib.d2t_attention_step_coverage_backward
+def content_attention_step_backward(enc, enc_proj, q, w_score, alpha, g_context, g_alpha):
+    """The content form's backward at K = 1: the arguments and results of
+    ``content_attention_step_backward_reference``; on CUDA tensors the
+    kernel of ``coverage_attention_step_backward`` in its content form, on
+    CPU tensors the plain version.  Raises as that one does."""
+    args = (enc, enc_proj, q, w_score, alpha, g_context, g_alpha)
+    _same_device(args)
+    if enc.device.type == "cpu":
+        return content_attention_step_backward_reference(*args)
+    if enc.device.type != "cuda":
+        raise ValueError(f"unsupported device {enc.device}")
+    outs = _backward(CONTENT, *args)
+    content_attention_step_backward.launches += 1
+    return tuple(outs)
+
+
+content_attention_step_backward.launches = 0
+
+
+def _backward_kernel(lib=None):
+    """The backward's C function, of this build or of ``lib``."""
+    fn = (lib or load_library(BACKWARD_SOURCE)[0]).d2t_attention_step_backward
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 22 + [ctypes.c_longlong] + [ctypes.c_int] * 8
-                   + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 22 + [ctypes.c_longlong]
+                   + [ctypes.c_int] * 10 + [ctypes.c_void_p])
     return fn
+
+
+def backward_clusters(form: str, D: int, H: int, dtype: torch.dtype, cluster: int,
+                      smem: int) -> int:
+    """How many clusters of ``cluster`` blocks of the backward's main pass,
+    each with ``smem`` bytes of dynamic shared memory, the current card
+    holds at once (``cudaOccupancyMaxActiveClusters``)."""
+    lib, _ = load_library(BACKWARD_SOURCE)
+    fn = lib.d2t_attention_step_backward_clusters
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    out = ctypes.c_int(0)
+    rc = fn(1 if form == COVERAGE else 2, D, H, _DTYPE_CODE[dtype], cluster, smem,
+            ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: CUDA error {rc}")
+    return out.value
 
 
 def build_backward() -> dict:

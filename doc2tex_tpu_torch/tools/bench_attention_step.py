@@ -2,6 +2,8 @@
 
     python -m doc2tex_tpu_torch.tools.bench_attention_step [--sweep] [--phases]
         [--against OTHER_CHECKOUT]
+    python -m doc2tex_tpu_torch.tools.bench_attention_step --backward [--sweep] [--phases]
+        [--against OTHER_CHECKOUT]
 
 Times both forms of the kernel in bf16 at the shapes of the ``synthetic``
 main path (the batches of 8 and 1 samples at beam 10 that its golden crops
@@ -22,7 +24,21 @@ phase boundary and prints each phase's mean over the blocks.
 these shapes and at the zoo's D = H = 256 (8 samples x beam 10, S 241, Kl
 128), in the order other, this, this, other, each in its own process.
 Prints one line per shape with the card's name and power limit first.
-Needs a card; fails without one.
+
+``--backward`` times B2's backward instead (``csrc/attention_step_backward.cu``,
+K = 1, bf16 memory, the inputs of ``backward_args``): the coverage form at
+the ``synthetic`` recipe's launches (``BWD_SHAPES``: its largest, 32
+samples x S 623, and the small shapes its soak launched; D = H = 128, Kl
+64) and at the reference widths (32 x S 623 and 8 x S 2525, D = H = 256,
+Kl 128), the coverage form at D 512, H 256 and the content form (the zoo's
+bahdanau head, D 512, H 256).  Each time is a call's share of a CUDA graph
+of 20 calls; beside it the device time of each of its two kernels (under
+``torch.profiler``); with ``--sweep`` the time at every cluster size
+beside the number of such clusters the card holds at once; with
+``--phases`` the mean of each phase of the main pass over its blocks.  ``--against`` times another checkout's
+coverage-form backward in this same process (its package loaded under
+another name, its kernel built from its own sources) on the same inputs,
+in the order other, this, this, other.  Needs a card; fails without one.
 """
 
 from __future__ import annotations
@@ -41,6 +57,7 @@ import torch
 from .. import _build
 from ..ops import attention_step as b2
 from .bench_decode_attention import graph_ms
+from .profile_slice import _device_us
 
 SHAPES = (  # (samples, K, S): the synthetic slice's launches, then the release shape
     (1, 10, 623), (8, 10, 135), (8, 10, 225), (8, 10, 267), (8, 10, 445), (64, 10, 623),
@@ -118,15 +135,15 @@ def plans(Bs, K, S):
                     yield b2.LaunchPlan(cluster, chunk, zsplit, 32, stages, smem)
 
 
-def timed_library():
-    """A copy of the kernel with a %globaltimer stamp at each phase
-    boundary (thread 0 of every block), built into build/."""
-    with open(os.path.join(_build.CSRC, b2.SOURCE)) as f:
+def _stamped_library(source, hooks, stem):
+    """A copy of ``source`` with a %globaltimer stamp at each of ``hooks``
+    (thread 0 of every block), built into build/."""
+    with open(os.path.join(_build.CSRC, source)) as f:
         src = f.read()
-    for text, after in HOOKS:
+    for text, after in hooks:
         if text not in src:
             raise RuntimeError(f"phase boundary not found in the kernel: {text!r}")
-    for i, (text, after) in enumerate(HOOKS):
+    for i, (text, after) in enumerate(hooks):
         src = src.replace(text, text + f"  STAMP({i});\n" if after else f"  STAMP({i});\n" + text, 1)
     src = src.replace("namespace {\n", r'''__device__ unsigned long long d2t_stamps[16384][8];
 #define STAMP(i) do { if (threadIdx.x == 0) { unsigned long long t_; \
@@ -140,7 +157,7 @@ extern "C" int d2t_read_stamps(void* host) {
 }
 '''
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    path = os.path.join(_build.BUILD_DIR, "attention_step_phases")
+    path = os.path.join(_build.BUILD_DIR, stem)
     with open(path + ".cu", "w") as f:
         f.write(src)
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
@@ -148,28 +165,41 @@ extern "C" int d2t_read_stamps(void* host) {
                           capture_output=True, text=True, timeout=_build.NVCC_TIMEOUT_S)
     if proc.returncode:
         raise RuntimeError(proc.stderr)
-    lib = ctypes.CDLL(path + ".so")
+    return ctypes.CDLL(path + ".so")
+
+
+def timed_library():
+    """A copy of the kernel with a %globaltimer stamp at each phase
+    boundary (thread 0 of every block), built into build/."""
+    lib = _stamped_library(b2.SOURCE, HOOKS, "attention_step_phases")
     fn = lib.d2t_attention_step_coverage
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 16 + [ctypes.c_void_p]
     return lib
 
 
-def phase_line(lib, kw, plan) -> str:
+def _phase_text(lib, call, n_blocks, names) -> str:
+    """Each phase's mean over the ``n_blocks`` blocks of ``call``'s last launch."""
     for _ in range(3):
-        b2.launch(b2.COVERAGE, plan, *kw.values(), kernel=lib.d2t_attention_step_coverage)
+        call()
     torch.cuda.synchronize()
     stamps = np.zeros((16384, 8), dtype=np.uint64)
     if lib.d2t_read_stamps(ctypes.c_void_p(stamps.ctypes.data)):
         raise RuntimeError("reading the stamps failed")
-    n = len(PHASES) + 1
-    t = stamps[: kw["enc"].shape[0] * plan.zsplit * plan.cluster, :n].astype(np.int64)
+    n = len(names) + 1
+    t = stamps[:n_blocks, :n].astype(np.int64)
     t0 = t[:, 0].min()
     d = np.diff(t, axis=1).mean(axis=0) / 1e3
     return (f"    phases (µs, mean of blocks): "
-            + ", ".join(f"{name} {x:.2f}" for name, x in zip(PHASES, d))
+            + ", ".join(f"{name} {x:.2f}" for name, x in zip(names, d))
             + f"; block {(t[:, -1] - t[:, 0]).mean() / 1e3:.1f} µs; last block starts at "
             f"{(t[:, 0].max() - t0) / 1e3:.1f} µs; kernel {(t[:, -1].max() - t0) / 1e3:.1f} µs")
+
+
+def phase_line(lib, kw, plan) -> str:
+    call = lambda: b2.launch(b2.COVERAGE, plan, *kw.values(),  # noqa: E731
+                             kernel=lib.d2t_attention_step_coverage)
+    return _phase_text(lib, call, kw["enc"].shape[0] * plan.zsplit * plan.cluster, PHASES)
 
 
 def ptxas_summary(info: dict) -> str:
@@ -186,17 +216,186 @@ def ptxas_summary(info: dict) -> str:
     return "ptxas:\n  " + "\n  ".join(lines)
 
 
+# ---- B2's backward ------------------------------------------------------------
+
+# (samples, S, D, H, Kl, form): the recipe's largest launch, the small shapes
+# its soak launched, the reference widths, then the zoo's widths
+BWD_SHAPES = (
+    (32, 623, 128, 128, 64, b2.COVERAGE),
+    *((B, S, 128, 128, 64, b2.COVERAGE) for B, S in (
+        (2, 68), (5, 9), (7, 33), (8, 66), (8, 68), (8, 130), (8, 132), (32, 63), (32, 135),
+        (32, 225), (32, 267), (32, 315), (32, 445))),
+    (32, 623, 256, 256, 128, b2.COVERAGE), (8, 2525, 256, 256, 128, b2.COVERAGE),
+    (16, 239, 512, 256, 128, b2.COVERAGE), (16, 239, 512, 256, 0, b2.CONTENT),
+)
+BWD_PHASES = ("prologue", "fold", "pass A", "exchange 1", "pass B", "block partials",
+              "exchange 2 and output")
+# phase boundaries in csrc/attention_step_backward.cu: (text, stamp after it)
+BWD_HOOKS = (("  extern __shared__ __align__(16) unsigned char smem[];\n", True),
+             ("  // ---- the fold of this rank's share", False),
+             ("  // ---- pass A, an enc tile at a time", False),
+             ("  // ---- the cluster's first exchange", False),
+             ("  // ---- pass B, an enc_proj tile at a time", False),
+             ("  // ---- the block's partial vectors", False),
+             ("  // ---- the cluster's second exchange", False),
+             ("    if (e < H) d_q[(long)b * H + e] = x;\n  }\n", True))
+
+
+def backward_args(B, S, D, H, Kl, form, seed=11):
+    """The backward's arguments on the card (bf16 memory, K = 1): the
+    forward's inputs as ``inputs`` makes them (the coverage of 150 steps),
+    alpha from the plain forward, cotangents of std 0.1; the content form's
+    seven, or the coverage form's twelve."""
+    kw = inputs(B, 1, S, D, Kl or 64, seed=seed)
+    if H != D:
+        g = torch.Generator().manual_seed(seed + 2)
+        kw["enc_proj"] = (torch.randn(B, S, H, generator=g) * 1.5).bfloat16().cuda()
+        kw.update({k: (torch.randn(*shape, generator=g) * sd).cuda() for k, shape, sd in (
+            ("q", (B, H), 1.5), ("w_loc", (Kl or 64, H), 0.35), ("b_loc", (H,), 0.17),
+            ("w_score", (H, 1), 0.4))})
+    g = torch.Generator().manual_seed(seed + 1)
+    cot = [(torch.randn(B, D, generator=g) * 0.1).cuda(),
+           (torch.randn(B, S, generator=g) * 0.1).cuda()]
+    if form == b2.CONTENT:
+        args = [kw[k] for k in ("enc", "enc_proj", "q", "w_score")]
+        return args + [b2.content_attention_step_reference(*args)[1]] + cot
+    _, alpha = b2.coverage_attention_step_reference(**kw)
+    return [kw[k] for k in ("enc", "enc_proj", "q", "mem", "loc_conv_w", "loc_conv_b", "w_loc",
+                            "w_score", "b_loc")] + [alpha] + cot
+
+
+def _backward_fn(module, args):
+    """The backward wrapper of ``module`` (this tree's ops.attention_step
+    or another checkout's) for ``args``, with its launch count left as it was."""
+    fn = (module.coverage_attention_step_backward if len(args) == 12
+          else module.content_attention_step_backward)
+
+    def call():
+        n = fn.launches
+        out = fn(*args)
+        fn.launches = n
+        return out
+    return call
+
+
+def load_other(checkout: str):
+    """Another checkout's ``doc2tex_tpu_torch.ops.attention_step``, imported
+    under the package name ``other_doc2tex_tpu_torch`` (its relative
+    imports, sources and build directory its own)."""
+    import importlib
+    import importlib.util
+
+    name = "other_doc2tex_tpu_torch"
+    pkg = os.path.join(os.path.abspath(checkout), "doc2tex_tpu_torch")
+    spec = importlib.util.spec_from_file_location(name, os.path.join(pkg, "__init__.py"),
+                                                  submodule_search_locations=[pkg])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module
+    spec.loader.exec_module(module)
+    return importlib.import_module(f"{name}.ops.attention_step")
+
+
+def kernel_split_us(call, reps=20) -> str:
+    """Device µs per call of each kernel ``call`` launches, by name, under
+    torch.profiler."""
+    call()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    parts = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and "b2_bwd" in e.key:
+            kind = "main" if "main" in e.key else "finish" if "finish" in e.key else e.key[:40]
+            parts[kind] = parts.get(kind, 0.0) + _device_us(e) / reps
+    return ", ".join(f"{k} {v:.2f}" for k, v in parts.items())
+
+
+def timed_backward_library():
+    """A copy of the backward with a %globaltimer stamp at each phase
+    boundary of its main pass (thread 0 of every block), built into build/."""
+    return _stamped_library(b2.BACKWARD_SOURCE, BWD_HOOKS, "attention_step_backward_phases")
+
+
+def backward_phase_line(lib, args, plan) -> str:
+    fn = b2._backward_kernel(lib)
+    form = b2.COVERAGE if len(args) == 12 else b2.CONTENT
+    enc, enc_proj, q = args[:3]
+    if form == b2.COVERAGE:
+        mem, cw, cb, w_loc, w_score, b_loc, alpha, g_ctx, g_alpha = args[3:]
+        call = lambda: b2._backward(form, enc, enc_proj, q, w_score, alpha, g_ctx,  # noqa: E731
+                                    g_alpha, (mem, cw, cb, w_loc, b_loc), kernel=fn)
+    else:
+        call = lambda: b2._backward(form, *args, kernel=fn)  # noqa: E731
+    return _phase_text(lib, call, enc.shape[0] * plan.cluster, BWD_PHASES)
+
+
+def backward_plans(B, S, D, H, form):
+    """Every backward plan of 1..BWD_MAX_CLUSTER blocks a row (the ring of
+    backward_plan's rule), and how many of its clusters the card holds."""
+    for cluster in range(1, b2.BWD_MAX_CLUSTER + 1):
+        chunk = max(-(-S // cluster), 2)
+        if chunk > b2.BWD_MAX_CHUNK:
+            continue
+        for stages in (3, 2):
+            smem = b2.backward_smem_bytes(form, chunk, stages, D, H, 2)
+            if smem <= b2.SMEM_LIMIT:
+                yield (b2.BackwardPlan(cluster, chunk, stages),
+                       b2.backward_clusters(form, D, H, torch.bfloat16, cluster, smem))
+                break
+
+
+def _call_with_plan(args, plan):
+    form = b2.COVERAGE if len(args) == 12 else b2.CONTENT
+    enc, enc_proj, q = args[:3]
+    if form == b2.CONTENT:
+        return lambda: b2._backward(form, *args, plan=plan)
+    mem, cw, cb, w_loc, w_score, b_loc, alpha, g_ctx, g_alpha = args[3:]
+    return lambda: b2._backward(form, enc, enc_proj, q, w_score, alpha, g_ctx, g_alpha,
+                                (mem, cw, cb, w_loc, b_loc), plan=plan)
+
+
+def backward_main(args) -> None:
+    print(ptxas_summary(b2.build_backward()), flush=True)
+    lib = timed_backward_library() if args.phases else None
+    other = load_other(args.against) if args.against else None
+    for B, S, D, H, Kl, form in BWD_SHAPES:
+        bargs = backward_args(B, S, D, H, Kl, form)
+        plan = b2.backward_plan(B, S, D, H, torch.bfloat16, form, 5 if Kl else 0, Kl)
+        call = _backward_fn(b2, bargs)
+        line = (f"backward {form}, {B} samples S {S} D {D} H {H} Kl {Kl}: "
+                f"{graph_ms(call) * 1e3:.2f} µs with {plan}; kernels (µs) "
+                f"{kernel_split_us(call)}")
+        if args.sweep:
+            line += "; every cluster size (µs, clusters the card holds): " + ", ".join(
+                f"{p.cluster} x {p.chunk}/{p.stages}: {graph_ms(_call_with_plan(bargs, p)) * 1e3:.2f}"
+                f" ({n})" for p, n in backward_plans(B, S, D, H, form))
+        if other is not None and form == b2.COVERAGE and (D, H) != (512, 256):
+            theirs = _backward_fn(other, bargs)
+            runs = [graph_ms(f) * 1e3 for f in (theirs, call, call, theirs)]
+            line += ("; µs per call (other, this, this, other): "
+                     + ", ".join(f"{x:.2f}" for x in runs))
+        print(line, flush=True)
+        if lib is not None:
+            print(backward_phase_line(lib, bargs, plan), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--phases", action="store_true")
     ap.add_argument("--against", default=None, metavar="OTHER_CHECKOUT")
+    ap.add_argument("--backward", action="store_true", help="time B2's backward instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("bench_attention_step needs a CUDA card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(f"{torch.cuda.get_device_name(0)}; nvidia-smi: {smi}", flush=True)
+    if args.backward:
+        backward_main(args)
+        return
     print(ptxas_summary(b2.build()), flush=True)
     lib = timed_library() if args.phases else None
     for Bs, K, S in SHAPES:

@@ -73,7 +73,10 @@ def soak_config(dtype: str) -> dict:
 def _launches() -> dict:
     return {"decode_attention": decode_attention.decode_attention.launches,
             "attention_step": attention_step.coverage_attention_step.launches,
-            "attention_step_backward": attention_step.coverage_attention_step_backward.launches}
+            "attention_step_content": attention_step.content_attention_step.launches,
+            "attention_step_backward": attention_step.coverage_attention_step_backward.launches,
+            "attention_step_backward_content":
+                attention_step.content_attention_step_backward.launches}
 
 
 def profile(config: str, batch: int, bucket: tuple, steps: int, dtype: str,

@@ -324,17 +324,61 @@ def test_d_not_h_and_content_kernels_match_plain_version(dtype):
 
 
 @pytest.mark.cuda
-def test_zoo_heads_refuse_a_gradient_on_the_card():
-    """A gradient through the content form, or through the coverage form at
-    D != H, raises naming ROADMAP A9.5 (no backward kernel takes them), and
-    never falls back to autograd of the plain version."""
+def test_zoo_heads_refuse_a_gradient_on_the_card(monkeypatch):
+    """(Named for what it checked before B2's backward took these forms.)
+    A gradient through the content form (the bahdanau head, D 512, H 256)
+    and through the coverage form at D 512 != H 256 now goes through the
+    kernels: over a 3-step sequence each forward and backward launches
+    once a step, nothing raises, the plain versions never run, and the
+    gradients match autograd of the plain steps on the same inputs
+    (float32, chip_smoke's B2_BWD_TOL of each gradient's largest magnitude,
+    times 10 for the three steps' sums)."""
     _need_card()
+    from doc2tex_tpu_torch.ops import attention_step as b2
+
     kw = chip_smoke.coverage_step_inputs(2, 1, 50, 512, 256, 64, torch.float32, 1, seed=0)
-    kw["q"].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="A9.5"):
-        coverage_attention_step(**kw)
-    with pytest.raises(NotImplementedError, match="A9.5"):
-        content_attention_step(kw["enc"], kw["enc_proj"], kw["q"], kw["w_score"])
+    names = {b2.COVERAGE: ("enc", "enc_proj", "loc_conv_w", "loc_conv_b", "w_loc", "b_loc",
+                           "w_score"),
+             b2.CONTENT: ("enc", "enc_proj", "w_score")}
+    qs = [torch.randn(2, 256, device="cuda") for _ in range(3)]
+    g = [torch.randn(2, 512, device="cuda") for _ in range(3)]
+
+    def run(form, step):
+        leaves = {k: kw[k].detach().clone().requires_grad_() for k in names[form]}
+        q_leaves = [q.clone().requires_grad_() for q in qs]
+        cum, loss = torch.zeros(2, 50, device="cuda"), 0.0
+        for t in range(3):
+            if form == b2.COVERAGE:
+                ctx, alpha = step(leaves["enc"], leaves["enc_proj"], q_leaves[t], cum,
+                                  leaves["loc_conv_w"], leaves["loc_conv_b"], leaves["w_loc"],
+                                  leaves["b_loc"], leaves["w_score"])
+            else:
+                ctx, alpha = step(leaves["enc"], leaves["enc_proj"], q_leaves[t],
+                                  leaves["w_score"])
+            loss = loss + (ctx * g[t]).sum() + (alpha * alpha).sum()
+            cum = cum + alpha
+        return torch.autograd.grad(loss, list(leaves.values()) + q_leaves)
+
+    steps = {b2.COVERAGE: (b2.coverage_attention_step, b2.coverage_attention_step_reference,
+                           b2.coverage_attention_step_backward),
+             b2.CONTENT: (b2.content_attention_step, b2.content_attention_step_reference,
+                          b2.content_attention_step_backward)}
+    want = {form: run(form, plain) for form, (_, plain, _) in steps.items()}
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain version ran")
+
+    for name in ("coverage_attention_step_reference", "coverage_attention_step_backward_reference",
+                 "content_attention_step_reference", "content_attention_step_backward_reference"):
+        monkeypatch.setattr(b2, name, refuse)
+    for form, (step, _, backward) in steps.items():
+        fwd, bwd = step.launches, backward.launches
+        got = run(form, step)
+        torch.cuda.synchronize()
+        assert step.launches == fwd + 3 and backward.launches == bwd + 3, form
+        for a, b in zip(got, want[form]):
+            assert (a - b).abs().max().item() <= (10 * chip_smoke.B2_BWD_TOL
+                                                  * b.abs().max().item()), form
 
 
 @pytest.mark.cuda
@@ -473,31 +517,39 @@ def test_long_release_decode_on_card_matches_cpu():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_coverage_backward_kernel_matches_plain_version(dtype):
-    """B2's coverage-form backward (K = 1) against its plain version, within
-    chip_smoke's B2_BWD_TOL, at D = H = 128 and 256, S that block chunks do
-    not divide (and S below the 5 taps), coverage and loc_aware memory; two
-    runs on the same inputs give the same bits (``check_backward``)."""
+    """B2's backward (K = 1) against its plain version, within chip_smoke's
+    B2_BWD_TOL: the coverage form (coverage and loc_aware memory) and the
+    content form (bahdanau), at D = H = 128 and 256 and at D != H (the zoo's
+    D 512, H 256; D 512, H 128; D 128, H 256), S that the block chunks do
+    not divide, S below the 5 taps and S where a cluster's last ranks own
+    no positions; two runs on the same inputs give the same bits
+    (``check_backward``)."""
     _need_card()
-    from doc2tex_tpu_torch.ops.attention_step import coverage_attention_step_backward
+    from doc2tex_tpu_torch.ops import attention_step as b2
 
-    cases = ((32, 623, 128, 64), (3, 3, 128, 64), (5, 61, 256, 128), (2, 1000, 256, 8),
-             (7, 130, 128, 16))
-    for n, (B, S, D, Kl) in enumerate(cases):
-        for attn in ("coverage", "loc_aware"):
-            args = chip_smoke.backward_inputs(B, S, D, D, Kl, dtype, attn, seed=n)
-            before = coverage_attention_step_backward.launches
-            chip_smoke.check_backward(args, (B, S, D, Kl, attn))
-            assert coverage_attention_step_backward.launches == before
-            got = coverage_attention_step_backward(*args)
-            assert coverage_attention_step_backward.launches == before + 1
+    cases = ((32, 623, 128, 128, 64), (3, 3, 128, 128, 64), (5, 61, 256, 256, 128),
+             (2, 1000, 256, 256, 8), (7, 130, 128, 128, 16), (16, 239, 512, 256, 128),
+             (4, 300, 512, 128, 16), (3, 77, 128, 256, 8), (5, 9, 256, 128, 64))
+    for n, (B, S, D, H, Kl) in enumerate(cases):
+        for attn in ("coverage", "loc_aware", "bahdanau"):
+            args = chip_smoke.backward_inputs(B, S, D, H, Kl, dtype, attn, seed=n)
+            fn = (b2.content_attention_step_backward if attn == "bahdanau"
+                  else b2.coverage_attention_step_backward)
+            before = fn.launches
+            chip_smoke.check_backward(args, (B, S, D, H, Kl, attn))
+            assert fn.launches == before
+            got = fn(*args)
+            assert fn.launches == before + 1
             assert got[0].dtype == got[1].dtype == dtype
-            assert got[4].shape == (5, 1, Kl) and got[3].shape == (B, S)
+            assert got[0].shape == (B, S, D) and got[1].shape == (B, S, H)
+            if attn != "bahdanau":
+                assert got[4].shape == (5, 1, Kl) and got[3].shape == (B, S)
 
 
 @pytest.mark.cuda
 def test_coverage_backward_kernel_raises_on_what_it_does_not_take():
     """The backward raises, before any launch, on K > 1, a width the kernel
-    is not built for, D != H and a conv wider than 5 taps."""
+    is not built for (D = H = 64) and a conv wider than 5 taps."""
     _need_card()
     from doc2tex_tpu_torch.ops.attention_step import coverage_attention_step_backward
 
@@ -507,7 +559,7 @@ def test_coverage_backward_kernel_raises_on_what_it_does_not_take():
                 z(Kl, H), z(H), z(H), z(B * K, S), z(B * K, D), z(B * K, S)]
 
     for args in ((2, 5, 10, 128, 128, 16, 5), (2, 1, 10, 64, 64, 16, 5),
-                 (2, 1, 10, 128, 256, 16, 5), (2, 1, 10, 128, 128, 16, 7)):
+                 (2, 1, 10, 128, 128, 16, 7)):
         before = coverage_attention_step_backward.launches
         with pytest.raises(ValueError):
             coverage_attention_step_backward(*inputs(*args))

@@ -330,6 +330,36 @@ def test_chip_smoke_zoo_phase_runs_on_cpu(monkeypatch):
     assert records == []     # the kernel records need the card
 
 
+def test_chip_smoke_zoo_train_phase_runs_on_cpu(monkeypatch):
+    """chip_smoke.zoo_train_phase on the CPU with a tiny VGG block, its
+    bahdanau head and the same block with the coverage head at D 64 != H
+    32 (leaves drawn from numpy, the reference's recipe): the float32 step
+    against the CPU's own (the card's check, rehearsed), bf16 steps whose
+    loss falls, and the launch counts and backward shapes recorded."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    import doc2tex_tpu_torch.recognition as recognition
+    from doc2tex_tpu_torch.config import make_config
+    from doc2tex_tpu_torch.data.synthetic import HARD_VOCAB_PATH
+
+    cfg = make_config(dict(
+        max_dimension=[64, 256], min_dimension=[32, 32], batch_max_length=6,
+        vocab=HARD_VOCAB_PATH, beam_size=10, dtype="bfloat16",
+        FeatureExtraction={"name": "VGG", "params": {"input_channel": 1,
+                                                     "output_channel": 64}},
+        SequenceModeling={"name": "None"},
+        Prediction={"name": "Attn", "params": {
+            "seqmodel": "None", "input_size": 64, "hidden_size": 32, "enc_init": True,
+            "kernel_size": 2, "kernel_dim": 8, "attn_type": "bahdanau", "droprate": 0.1}},
+    ))
+    monkeypatch.setattr(recognition, "load_recog_config",
+                        lambda path=None, version=None: (dict(cfg), None))
+    records = chip_smoke.zoo_train_phase(
+        0.0, device="cpu", blocks=(("tiny", "bahdanau"), ("tiny", "coverage")), n=2,
+        bucket=(64, 256), steps=3)
+    assert records == []     # the kernel records need the card
+
+
 def test_zoo_golden_names_the_yaml_blocks():
     """``tests/torch_port_golden_zoo.json`` holds JAX's float32 strings (8
     crops) and first-crop logits (ZOO_LOGIT_STEPS x the classes) for every

@@ -5,13 +5,15 @@ head at D = H = 16 with 8 location features, batch 3 at 32x64 (S 9),
 variables are numpy draws, carried into the port by ``weights.py``; the
 inputs are numpy draws too.
 
-- B2's backward, written out (``coverage_attention_step_backward_reference``),
-  against ``torch.autograd.grad`` of ``coverage_attention_step_reference``
-  in float64 over a 3-step sequence, where each step's alpha feeds the next
-  step's memory (the coverage, or the last alignment for ``loc_aware``),
-  so both cotangents (context and alpha) reach every step; S in {3, 7, 12}
-  (below the 5 taps, and the conv's edges on both sides) and a masked
-  ``valid_len``: every gradient within 1e-10 of its largest magnitude.
+- B2's backward, written out (``coverage_attention_step_backward_reference``,
+  and ``content_attention_step_backward_reference`` for bahdanau), against
+  ``torch.autograd.grad`` of the plain steps in float64 over a 3-step
+  sequence, where each step's alpha feeds the next step's memory (the
+  coverage, or the last alignment for ``loc_aware``) and the loss, so both
+  cotangents (context and alpha) reach every step; S in {3, 7, 12} (below
+  the 5 taps, and the conv's edges on both sides), a masked ``valid_len``,
+  and D = H or D != H (enc 24 wide, H 16): every gradient within 1e-10 of
+  its largest magnitude.
 - Teacher-forced logits (``forward(train=False)``) against JAX's
   ``__call__(train=False)``, coverage and loc_aware: within 1e-5.
 - One float32 train step (adamw, clip 5, no warmup) against JAX's
@@ -69,7 +71,8 @@ from doc2tex_tpu_torch.data.loader import ArrayDataset, BucketLoader
 from doc2tex_tpu_torch.data.synthetic import hard_vocab, synth_hard_dataset
 from doc2tex_tpu_torch.models import build_model
 from doc2tex_tpu_torch.ops.attention_step import (
-    coverage_attention_step, coverage_attention_step_backward,
+    content_attention_step_backward, content_attention_step_backward_reference,
+    content_attention_step_reference, coverage_attention_step, coverage_attention_step_backward,
     coverage_attention_step_backward_reference, coverage_attention_step_reference)
 from doc2tex_tpu_torch.tokenizer.converters import AttnLabelConverter
 from doc2tex_tpu_torch.train import checkpoint
@@ -149,38 +152,50 @@ def pairs():
 # ---- B2's backward, written out ---------------------------------------------
 
 @pytest.mark.parametrize("S", [3, 7, 12])
-@pytest.mark.parametrize("attn", ["coverage", "loc_aware"])
+@pytest.mark.parametrize("attn", ["coverage", "loc_aware", "bahdanau", "coverage_d_not_h",
+                                  "bahdanau_d_not_h"])
 def test_backward_reference_matches_autograd_over_a_sequence(attn, S):
     """Three steps; the loss reads every step's context and the last
-    memory, so each step's alpha gets a cotangent from the next step's
-    location term and from the loss.  The written-out backward, chained by
-    hand in reverse, against autograd of the whole sequence."""
+    memory (bahdanau: the sum of the alignments), so each step's alpha gets
+    a cotangent from the next step's location term and from the loss.  The
+    written-out backward (the coverage form's, or the content form's for
+    bahdanau; ``_d_not_h``: enc 24 wide, H 16), chained by hand in reverse,
+    against autograd of the whole sequence."""
     rng = np.random.default_rng(S)
-    Bt, D, Kl, T = 2, 16, 8, 3
+    kind = attn.removesuffix("_d_not_h")
+    Bt, H, Kl, T = 2, 16, 8, 3
+    D = 24 if attn.endswith("_d_not_h") else H
     valid = S - 1 if S == 12 else None
 
     def draw(*shape, scale=1.0):
         return torch.from_numpy(rng.normal(size=shape) * scale)
 
-    w = dict(enc=draw(Bt, S, D), enc_proj=draw(Bt, S, D), loc_conv_w=draw(5, 1, Kl, scale=0.5),
-             loc_conv_b=draw(Kl, scale=0.1), w_loc=draw(Kl, D, scale=0.35),
-             b_loc=draw(D, scale=0.2), w_score=draw(D, 1, scale=0.4))
-    qs, g_ctx = [draw(Bt, D) for _ in range(T)], [draw(Bt, D) for _ in range(T)]
+    w = dict(enc=draw(Bt, S, D), enc_proj=draw(Bt, S, H), loc_conv_w=draw(5, 1, Kl, scale=0.5),
+             loc_conv_b=draw(Kl, scale=0.1), w_loc=draw(Kl, H, scale=0.35),
+             b_loc=draw(H, scale=0.2), w_score=draw(H, 1, scale=0.4))
+    if kind == "bahdanau":
+        w = {k: w[k] for k in ("enc", "enc_proj", "w_score")}
+    qs, g_ctx = [draw(Bt, H) for _ in range(T)], [draw(Bt, D) for _ in range(T)]
     g_last = draw(Bt, S)
     leaves = {k: v.clone().requires_grad_() for k, v in w.items()}
     q_leaves = [q.clone().requires_grad_() for q in qs]
     cum = prev = torch.zeros(Bt, S, dtype=torch.float64)
     loss, saved = 0.0, []
     for t in range(T):
-        mem = cum if attn == "coverage" else prev
-        ctx, alpha = coverage_attention_step_reference(
-            leaves["enc"], leaves["enc_proj"], q_leaves[t], mem, leaves["loc_conv_w"],
-            leaves["loc_conv_b"], leaves["w_loc"], leaves["b_loc"], leaves["w_score"],
-            valid_len=valid)
+        mem = cum if kind == "coverage" else prev
+        if kind == "bahdanau":
+            ctx, alpha = content_attention_step_reference(
+                leaves["enc"], leaves["enc_proj"], q_leaves[t], leaves["w_score"],
+                valid_len=valid)
+        else:
+            ctx, alpha = coverage_attention_step_reference(
+                leaves["enc"], leaves["enc_proj"], q_leaves[t], mem, leaves["loc_conv_w"],
+                leaves["loc_conv_b"], leaves["w_loc"], leaves["b_loc"], leaves["w_score"],
+                valid_len=valid)
         saved.append((mem.detach(), alpha.detach()))
         loss = loss + (ctx * g_ctx[t]).sum()
         cum, prev = cum + alpha, alpha
-    loss = loss + ((cum if attn == "coverage" else prev) * g_last).sum()
+    loss = loss + ((prev if kind == "loc_aware" else cum) * g_last).sum()
     names = list(leaves)
     grads = torch.autograd.grad(loss, [leaves[k] for k in names] + q_leaves)
     want = dict(zip(names + [f"q{t}" for t in range(T)], grads))
@@ -189,17 +204,23 @@ def test_backward_reference_matches_autograd_over_a_sequence(attn, S):
     g_mem = g_last.clone()         # the cotangent of the memory the next step reads
     for t in reversed(range(T)):
         mem, alpha = saved[t]
-        d_enc, d_ep, d_q, d_mem, d_cw, d_cb, d_wl, d_bl, d_ws = \
-            coverage_attention_step_backward_reference(
-                w["enc"], w["enc_proj"], qs[t], mem, w["loc_conv_w"], w["loc_conv_b"],
-                w["w_loc"], w["w_score"], w["b_loc"], alpha, g_ctx[t], g_mem)
-        for k, v in (("enc", d_enc), ("enc_proj", d_ep), ("loc_conv_w", d_cw),
+        if kind == "bahdanau":     # alpha feeds only the loss's sum
+            d_enc, d_ep, d_q, d_ws = content_attention_step_backward_reference(
+                w["enc"], w["enc_proj"], qs[t], w["w_score"], alpha, g_ctx[t], g_last)
+            parts = (("enc", d_enc), ("enc_proj", d_ep), ("w_score", d_ws.reshape(-1, 1)))
+        else:
+            d_enc, d_ep, d_q, d_mem, d_cw, d_cb, d_wl, d_bl, d_ws = \
+                coverage_attention_step_backward_reference(
+                    w["enc"], w["enc_proj"], qs[t], mem, w["loc_conv_w"], w["loc_conv_b"],
+                    w["w_loc"], w["w_score"], w["b_loc"], alpha, g_ctx[t], g_mem)
+            parts = (("enc", d_enc), ("enc_proj", d_ep), ("loc_conv_w", d_cw),
                      ("loc_conv_b", d_cb), ("w_loc", d_wl), ("b_loc", d_bl),
-                     ("w_score", d_ws.reshape(-1, 1))):
+                     ("w_score", d_ws.reshape(-1, 1)))
+            # coverage: cum_t = cum_{t-1} + alpha_t; loc_aware: the memory is alpha_{t-1}
+            g_mem = g_mem + d_mem if kind == "coverage" else d_mem
+        for k, v in parts:
             got[k] += v
         got[f"q{t}"] = d_q
-        # coverage: cum_t = cum_{t-1} + alpha_t; loc_aware: the memory is alpha_{t-1}
-        g_mem = g_mem + d_mem if attn == "coverage" else d_mem
     assert set(got) == set(want)
     for k, v in want.items():
         err = (got[k] - v).abs().max().item()
@@ -225,6 +246,12 @@ def test_backward_wrapper_on_the_cpu_is_the_plain_version():
     with pytest.raises(ValueError, match="K = 1"):
         coverage_attention_step_backward_reference(args[0], args[1], torch.cat([args[2]] * 2),
                                                    *args[3:])
+    content = [args[0], args[1], args[2], args[7], args[9], args[10], args[11]]
+    before = content_attention_step_backward.launches
+    got = content_attention_step_backward(*content)
+    assert content_attention_step_backward.launches == before
+    assert all(torch.equal(a, b) for a, b in
+               zip(got, content_attention_step_backward_reference(*content)))
 
 
 # ---- the teacher-forced pass -------------------------------------------------
