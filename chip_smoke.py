@@ -445,12 +445,12 @@ INT8_MIN_CHAR_MATCH = 0.85
 INT8_MIN_CHANGED = 2
 # the modes that keep decode memory in int8 (phase 8b): their goldens (the
 # JAX package's strings on the CPU in float32 with the same parts) and the
-# parts; int8_kv is no quantize: mode, its parts are set on the model
+# parts; int8_kv is no quantize: mode, its parts (ops/quant.NAMED_PARTS) are
+# set on the model
 GOLDEN_QUANT = {
     "int8_full": {v: GOLDEN[v].replace(".json", "_int8_full.json")
                   for v in ("synthetic_tfm_big", "synthetic")},
     "int8_kv": {"synthetic_tfm_big": GOLDEN["synthetic_tfm_big"].replace(".json", "_int8_kv.json")}}
-QUANT_PARTS = {"int8_kv": ("encoder", "decoder_mem", "decoder_kv")}
 # the int8 forms replace XLA code of the reference, not a Pallas kernel:
 # decode_attention's _reference int8 branch, and the LSTM step on int8 memory
 B1_INT8_REPLACES = "doc2tex_tpu/ops/decode_attention.py:36"
@@ -1174,6 +1174,7 @@ def slice_phase(t0, version, kernel, quantize=None):
     float32 run; ``launch_counts()`` of that run is in ``SLICE_COUNTS``.
     With decode memory in int8 (int8_full, int8_kv) every launch of the
     head's kernel that reads it must be its int8 form's."""
+    from doc2tex_tpu_torch.ops.quant import NAMED_PARTS
     from doc2tex_tpu_torch.recognition import load_recog_config
 
     from doc2tex_tpu_torch.eval.metrics import get_single_ED
@@ -1183,9 +1184,9 @@ def slice_phase(t0, version, kernel, quantize=None):
     for dtype in ("float32", "bfloat16"):
         cfg, weights = load_recog_config(version=golden["version"])
         cfg["dtype"] = dtype
-        cfg["quantize"] = "int8_full" if quantize in QUANT_PARTS else quantize
+        cfg["quantize"] = "int8_full" if quantize in NAMED_PARTS else quantize
         out, launches, steps, seconds = run_slice(cfg, weights, crops, 10, "cuda",
-                                                  parts=QUANT_PARTS.get(quantize))
+                                                  parts=NAMED_PARTS.get(quantize))
         if launches <= 0:
             raise AssertionError(f"{version} {dtype} run launched its kernel {kernel} 0 times")
         counts = launch_counts()
@@ -2813,7 +2814,7 @@ def attention_int8_timing(B, K, M, masked, step, nh=8, hd=32):
     import torch
 
     from doc2tex_tpu_torch.ops.decode_attention import (
-        decode_attention, decode_attention_int8_reference, launch_plan)
+        decode_attention, decode_attention_int8_reference, launch_plan, tile_of)
     from doc2tex_tpu_torch.tools.bench_decode_attention import graph_ms
 
     q, k8, v8, ks, vs, mask = int8_attention_inputs(B, K, M, nh, hd, torch.bfloat16, masked,
@@ -2835,8 +2836,9 @@ def attention_int8_timing(B, K, M, masked, step, nh=8, hd=32):
     return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound,
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations", max_abs_err=err,
                 text=f"int8 K/V, B{B} K{K} M{M} {'step ' + str(step) if masked else 'no mask'} "
-                     f"nh{nh} hd{hd} bf16 q (cluster {plan.cluster}, chunk {plan.chunk}, "
-                     f"{plan.smem_bytes} B smem): max abs err {err:.3e}, kernel {ms:.4f} ms, "
+                     f"nh{nh} hd{hd} bf16 q (cluster {plan.cluster}, chunk {plan.chunk}, ring "
+                     f"{plan.stages} x {tile_of(2, 1)}, {plan.smem_bytes} B smem): max abs err "
+                     f"{err:.3e}, kernel {ms:.4f} ms, "
                      f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({nbytes / 1e6:.2f} MB), "
                      f"{bound / ms:.0%} of bound, achieved "
                      f"{nbytes / (ms * 1e-3) / 1e9:.0f} GB/s")

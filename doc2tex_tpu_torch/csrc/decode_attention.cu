@@ -60,15 +60,35 @@
 //   a            = round(p * round(v_scale[b,m,h]) to T) to T          (f32: p * v_scale)
 //   out[b,k,h,d] = round(sum_m a * v8[b,m,h,d])                        f32 sum
 //
-// The same grid and passes: int8 tiles (half the bytes of bf16) stream
-// through the ring, and the tensor-core Q.K and P.V take their B fragments
-// straight from the int8 rows, each pair of bytes widened to T in registers
-// (an int8 value up to 127 is exact in bf16; float32 reads 4 bytes at a
-// time): no staging copy, no extra barrier.  Each block reads the scales of
-// its positions for its head once (strided by nh; cp.async, ahead of the
-// mask) into shared memory: k_scale multiplies each f32 score after the dot, v_scale is
-// folded into P at its two rounding points, so the cluster's partial P.V
-// sums carry it.
+// The same grid and passes, with what an int8 row saves spent on depth:
+//   - bf16 q: a ring buffer holds 256 positions (kTile8), the bytes of a
+//     bf16 form's 128, so each tile step (one wait and one barrier) moves
+//     twice the positions, and launch_plan may take a ring of up to 8 of
+//     them; rows are unpadded (at hd 32 the Q.K fragment loads below are
+//     conflict-free, P.V's two-way).  A block's chunk stays a multiple of
+//     128: a last tile of which only the first 128 positions are the
+//     block's gives its 8 warps 16 positions each, not 32.  float32 q
+//     keeps 128-position tiles and its CUDA-core passes (4 bytes widened
+//     at a time);
+//   - fragments from packed loads (bf16 q): the mma's k index is permuted
+//     so that a thread's Q.K B fragments of every k step come from one
+//     load of HD/4 consecutive bytes of its position's row (Q's A
+//     fragments, read once, take the same permutation); for P.V a thread
+//     reads one 4-byte word of each of its 4 rows a k step, and byte t of
+//     the word is the B fragment of n tile t (d = 4g + t: the output's
+//     columns are permuted back in its final write).  Four int8 bytes go
+//     to two bf16 pairs exactly in two instructions an element (byte
+//     permutes place 128 + the low 7 bits and -(128 + 128 x the sign bit)
+//     as bf16 values, one bf16x2 FMA subtracts: i8x4_to_bf16); float32 q
+//     widens a byte as 2^23 + (b ^ 0x80) under a magic exponent, less
+//     2^23 + 128;
+//   - the scales travel with their tile (bf16 q): the K tile's cp.async
+//     group carries k_scale and v_scale of its positions (strided by nh),
+//     only of those a beam attends, into the block's per-position arrays
+//     (float32 q reads them all ahead of the mask, as before).
+//     k_scale multiplies each f32 score after the dot, v_scale is folded
+//     into P at its two rounding points, so the cluster's partial P.V sums
+//     carry it.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -85,6 +105,8 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kMaxQ = 16;          // beam queries per sample (one m16 tile)
 constexpr int kTile = 128;         // positions per ring buffer: 16 per warp
+constexpr int kTile8 = 256;        // int8 K/V with bf16 q: 32 per warp
+constexpr int kSeg = 128;          // positions per task of the softmax passes: a float4 a lane
 constexpr int kMaxCluster = 8;     // portable cluster size
 constexpr int kMaxStages = 8;
 constexpr int kMaxSmem = 232448;   // 227 KB: the most a block may use on sm_90
@@ -98,21 +120,32 @@ struct Layout {
 
 __host__ __device__ inline int up16(int x) { return (x + 15) & ~15; }
 
-// elem: bytes of q's type; kelem: of K/V's (elem, or 1 for int8 K/V)
+// elem: bytes of q's type; kelem: of K/V's (elem, or 1 for int8 K/V).
+// int8 K/V with bf16 q (elem 2) streams 256-position tiles of unpadded rows
+__host__ __device__ constexpr bool packed_int8(int elem, int kelem) {
+  return kelem == 1 && elem == 2;
+}
+__host__ __device__ constexpr int tile_of(int elem, int kelem) {
+  return packed_int8(elem, kelem) ? kTile8 : kTile;
+}
+__host__ __device__ constexpr int ring_row(int hd, int elem, int kelem) {
+  return packed_int8(elem, kelem) ? hd : hd * kelem + 16;
+}
+
 __host__ __device__ inline Layout make_layout(int K, int chunk, int stages, int hd, int elem,
                                               int kelem) {
   const int rs = hd * elem + 16;   // a Q row, padded by 16 bytes
-  const int rsk = hd * kelem + 16; // a K/V row of the ring
+  const int tile = tile_of(elem, kelem);
   Layout L;
   int off = 0;
-  const int ring = stages * kTile * rsk;
+  const int ring = stages * tile * ring_row(hd, elem, kelem);
   const int ored = kWarps * kMaxQ * hd * 4;  // partial outputs, in the ring at the end
   L.ring = off;   off += up16(ring > ored ? ring : ored);
   L.q = off;      off += up16(kMaxQ * rs);
   L.oblk = off;   off += up16(kMaxQ * hd * 4);
   L.red = off;    off += up16((kWarps + 4) * kMaxQ * 4);
   L.psum = off;   off += up16(kMaxQ * kWarps * 4);
-  L.tflag = off;  off += up16(chunk / kTile * 4);
+  L.tflag = off;  off += up16((chunk + tile - kTile) / tile * 4);  // chunk: whole kTile
   L.mbits = off;  off += up16(chunk * 2);
   L.scores = off; off += up16(K * (chunk + 4) * 4);
   L.ksc = L.vsc = off;
@@ -240,11 +273,28 @@ __device__ __forceinline__ float i8_to_f32(uint32_t x, uint32_t i) {
   return __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7540u + i)) - 8388736.f;
 }
 
-// the two int8 values of the low 16 bits of w (low byte first) -> two T packed
-template <typename T>
-__device__ __forceinline__ uint32_t widen2(uint32_t w) {
-  const uint32_t x = w ^ 0x8080u;
-  return pack2<T>(i8_to_f32(x, 0), i8_to_f32(x, 1));
+// a * 1 + c, and a * b (+ -0: the product rounded once), on bf16 pairs
+__device__ __forceinline__ uint32_t bf16x2_add(uint32_t a, uint32_t c) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(0x3F803F80u), "r"(c));
+  return d;
+}
+__device__ __forceinline__ uint32_t bf16x2_mul(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(0x80008000u));
+  return d;
+}
+
+// four int8 values (bytes 0..3 of w) -> bf16 pairs (0, 1) and (2, 3),
+// exactly.  With l the low 7 bits of a byte b and s its sign bit, b = (128
+// + l) - (128 + 128 s): 128 + l is bf16 0x4300 | l, and -(128 + 128 s) is
+// bf16 0xC300 | (b & 0x80) (the sign bit lands in the exponent's lowest
+// bit).  One byte permute places each term, one bf16x2 FMA subtracts
+// exactly: two instructions an element.
+__device__ __forceinline__ void i8x4_to_bf16(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  const uint32_t l = w & 0x7f7f7f7fu, sgn = w & 0x80808080u;
+  lo = bf16x2_add(__byte_perm(l, 0x43434343u, 0x5140u), __byte_perm(sgn, 0xC3C3C3C3u, 0x5140u));
+  hi = bf16x2_add(__byte_perm(l, 0x43434343u, 0x5342u), __byte_perm(sgn, 0xC3C3C3C3u, 0x5342u));
 }
 
 // four consecutive int8 values (4-byte aligned) -> float4, exactly
@@ -253,37 +303,63 @@ __device__ __forceinline__ float4 load4_i8(const unsigned char* p) {
   return make_float4(i8_to_f32(x, 0), i8_to_f32(x, 1), i8_to_f32(x, 2), i8_to_f32(x, 3));
 }
 
+// HD/4 consecutive bytes (HD/16 words) of an int8 row, aligned to their size
+template <int HD>
+__device__ __forceinline__ void load_row_quarter(const unsigned char* p, uint32_t (&w)[HD / 16]) {
+  if constexpr (HD == 32) {
+    const uint2 x = *reinterpret_cast<const uint2*>(p);
+    w[0] = x.x; w[1] = x.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < HD / 64; ++i) {
+      const uint4 x = reinterpret_cast<const uint4*>(p)[i];
+      w[4 * i] = x.x; w[4 * i + 1] = x.y; w[4 * i + 2] = x.z; w[4 * i + 3] = x.w;
+    }
+  }
+}
+
+// the scores of one n8 tile of int8 K with bf16 q into s: the thread's
+// positions m, m + 1 (m even), rows g and g + 8 in acc[0..1] and acc[2..3];
+// scaled by ks after the dot, masked to -inf, and the row maxima kept.
+// mbits is zero past the block's positions, so the pair of masks is one
+// load, and rows g, g + 8 of both positions are bits 0, 8, 16, 24 of it
+// shifted by g
+__device__ __forceinline__ void store_scores8(const float (&acc)[4], float* s, int SS,
+                                              const uint16_t* mbits, const float* ks, int m,
+                                              int K, int g, float (&rmax)[2]) {
+  const uint32_t b = *reinterpret_cast<const uint32_t*>(mbits + m) >> g;
+  const float2 sc = *reinterpret_cast<const float2*>(ks + m);
+  const float2 v0 = make_float2(b & 1u ? acc[0] * sc.x : -INFINITY,
+                                b & 0x10000u ? acc[1] * sc.y : -INFINITY);
+  const float2 v1 = make_float2(b & 0x100u ? acc[2] * sc.x : -INFINITY,
+                                b & 0x1000000u ? acc[3] * sc.y : -INFINITY);
+  rmax[0] = fmaxf(rmax[0], fmaxf(v0.x, v0.y));
+  rmax[1] = fmaxf(rmax[1], fmaxf(v1.x, v1.y));
+  if (g < K) *reinterpret_cast<float2*>(s + g * SS + m) = v0;
+  if (g + 8 < K) *reinterpret_cast<float2*>(s + (g + 8) * SS + m) = v1;
+}
+
 // ---- Q.K of one tile: f32 scores of rows < K into s (row stride SS) -----
 // Each thread also keeps the running maximum of the rows it scores.  With
-// kQ8 each score is multiplied by its position's k scale (ks) after the dot.
+// int8 K each score is multiplied by its position's k scale (ks) after the
+// dot.
 
 // tensor cores: warp w scores positions 16w..16w+15 of the tile (two n8
 // tiles) against the 16 (padded) query rows held as A fragments; the thread
-// holds rows g and g + 8.  int8 K (kQ8): the thread's B fragment of n tile
-// nt is K[16w + 8nt + g][16kk + 2c, +1] and [.. + 8, + 9], two 2-byte loads
-template <typename T, int HD, bool kQ8>
+// holds rows g and g + 8
+template <typename T, int HD>
 __device__ __forceinline__ void score_tile_mma(const unsigned char* buf,
                                                const uint32_t (&qa)[HD / 16][4], float* s, int SS,
-                                               const uint16_t* mbits, const float* ks, int m0,
-                                               int n_local, int K, int warp, int lane,
-                                               float (&rmax)[2]) {
-  constexpr int RS = HD * (kQ8 ? 1 : 2) + 16;
+                                               const uint16_t* mbits, int m0, int n_local, int K,
+                                               int warp, int lane, float (&rmax)[2]) {
+  constexpr int RS = HD * 2 + 16;
   const int g = lane >> 2, c = lane & 3;
   float acc[2][4] = {};
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
     uint32_t b[4];
-    if constexpr (kQ8) {
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        const unsigned char* rp = buf + (16 * warp + 8 * nt + g) * RS + kk * 16 + 2 * c;
-        b[2 * nt] = widen2<T>(*reinterpret_cast<const uint16_t*>(rp));
-        b[2 * nt + 1] = widen2<T>(*reinterpret_cast<const uint16_t*>(rp + 8));
-      }
-    } else {
-      const int pos = 16 * warp + (lane & 7) + 8 * (lane >> 4);
-      ldmatrix_x4(b, buf + pos * RS + (kk * 16 + 8 * ((lane >> 3) & 1)) * 2);
-    }
+    const int pos = 16 * warp + (lane & 7) + 8 * (lane >> 4);
+    ldmatrix_x4(b, buf + pos * RS + (kk * 16 + 8 * ((lane >> 3) & 1)) * 2);
     mma16816<T>(acc[0], qa[kk], b[0], b[1]);
     mma16816<T>(acc[1], qa[kk], b[2], b[3]);
   }
@@ -292,14 +368,6 @@ __device__ __forceinline__ void score_tile_mma(const unsigned char* buf,
     const int m = m0 + 16 * warp + 8 * nt + 2 * c;  // even: a float2 of two positions
     const unsigned bits0 = m < n_local ? mbits[m] : 0u;
     const unsigned bits1 = m + 1 < n_local ? mbits[m + 1] : 0u;
-    if constexpr (kQ8) {
-      const float2 sc = *reinterpret_cast<const float2*>(ks + m);
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        acc[nt][2 * half] *= sc.x;
-        acc[nt][2 * half + 1] *= sc.y;
-      }
-    }
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int r = g + 8 * half;
@@ -309,6 +377,36 @@ __device__ __forceinline__ void score_tile_mma(const unsigned char* buf,
       rmax[half] = fmaxf(rmax[half], fmaxf(v.x, v.y));
       if (r < K) *reinterpret_cast<float2*>(s + r * SS + m) = v;
     }
+  }
+}
+
+// int8 K, bf16 q: warp w scores positions 8NT*w .. 8NT*w + 8NT-1 of a kTile8
+// tile (NT n8 tiles: 4, or 2 where only the tile's first kSeg positions
+// are the block's).  The k index is permuted: thread (g, c) of n tile nt
+// reads bytes [c*HD/4, (c+1)*HD/4) of row 8NT*w + 8nt + g in one load, and
+// k step kk takes their bytes 4kk..4kk+3 as its slots 2c, 2c+1 (b0) and 2c+8,
+// 2c+9 (b1).  qa holds Q in the same permutation.
+template <int HD, int NT>
+__device__ __forceinline__ void score_tile_mma8(const unsigned char* buf,
+                                                const uint32_t (&qa)[HD / 16][4], float* s, int SS,
+                                                const uint16_t* mbits, const float* ks, int m0,
+                                                int K, int warp, int lane, float (&rmax)[2]) {
+  const int g = lane >> 2, c = lane & 3;
+  float acc[NT][4] = {};
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    uint32_t w[HD / 16];
+    load_row_quarter<HD>(buf + (8 * NT * warp + 8 * nt + g) * HD + c * (HD / 4), w);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t b0, b1;
+      i8x4_to_bf16(w[kk], b0, b1);
+      mma16816<__nv_bfloat16>(acc[nt], qa[kk], b0, b1);
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    store_scores8(acc[nt], s, SS, mbits, ks, m0 + 8 * NT * warp + 8 * nt + 2 * c, K, g, rmax);
   }
 }
 
@@ -360,32 +458,56 @@ __device__ __forceinline__ void score_tile_f32(const unsigned char* buf, const f
 // tensor cores: warp w takes positions 16w..16w+15 of the tile as one k16
 // step over all of hd; P (rounded to T; tile t of row r at p + r*PS +
 // 2*kTile*t) is the A operand.  Rows >= K read row K-1: their outputs are
-// dropped.  int8 V (kQ8): the thread's B fragment of n tile (np, h8) is
-// V[16w + 2c, + 1][16np + 8h8 + g] and rows + 8, + 9: four byte loads
-template <typename T, int HD, bool kQ8>
+// dropped.
+template <typename T, int HD>
 __device__ __forceinline__ void pv_tile_mma(const unsigned char* buf, const T* p, int PS, int t,
                                             int K, int warp, int lane, float (&o)[HD / 8][4]) {
-  constexpr int RS = HD * (kQ8 ? 1 : 2) + 16;
+  constexpr int RS = HD * 2 + 16;
   uint32_t a[4];
   const int prow = min((lane & 7) + 8 * ((lane >> 3) & 1), K - 1);
   ldmatrix_x4(a, p + prow * PS + 2 * kTile * t + 16 * warp + 8 * (lane >> 4));
   const int pos = 16 * warp + (lane & 7) + 8 * ((lane >> 3) & 1);
-  const int g = lane >> 2, c = lane & 3;
 #pragma unroll
   for (int np = 0; np < HD / 16; ++np) {
     uint32_t b[4];
-    if constexpr (kQ8) {
-#pragma unroll
-      for (int h8 = 0; h8 < 2; ++h8) {
-        const unsigned char* cp = buf + (16 * warp + 2 * c) * RS + np * 16 + 8 * h8 + g;
-        b[2 * h8] = widen2<T>(cp[0] | (uint32_t)cp[RS] << 8);
-        b[2 * h8 + 1] = widen2<T>(cp[8 * RS] | (uint32_t)cp[9 * RS] << 8);
-      }
-    } else {
-      ldmatrix_x4_trans(b, buf + pos * RS + (np * 16 + 8 * (lane >> 4)) * 2);
-    }
+    ldmatrix_x4_trans(b, buf + pos * RS + (np * 16 + 8 * (lane >> 4)) * 2);
     mma16816<T>(o[2 * np], a, b[0], b[1]);
     mma16816<T>(o[2 * np + 1], a, b[2], b[3]);
+  }
+}
+
+// int8 V, bf16 q: warp w takes positions 8NT*w .. 8NT*w + 8NT-1 of a kTile8
+// tile (as score_tile_mma8) as NT/2 k16 steps.  P (its row r of the warp's
+// positions at p + r*PS) is the A operand, read as the bf16 form reads it.  Thread (g, c) reads word g + 8h
+// of rows 2c, 2c+1, 2c+8, 2c+9 of the step (its k slots): byte t of the four
+// words is its B fragment of n tile 4h + t, whose column g is d = 32h + 4g +
+// t.  One byte permute gathers bytes t and t + 1 of two rows.
+template <int HD, int NT>
+__device__ __forceinline__ void pv_tile_mma8(const unsigned char* buf, const __nv_bfloat16* p,
+                                             int PS, int K, int warp, int lane,
+                                             float (&o)[HD / 8][4]) {
+  const int g = lane >> 2, c = lane & 3;
+  const int prow = min((lane & 7) + 8 * ((lane >> 3) & 1), K - 1);
+#pragma unroll
+  for (int j = 0; j < NT / 2; ++j) {
+    uint32_t a[4];
+    ldmatrix_x4(a, p + prow * PS + 16 * j + 8 * (lane >> 4));
+    const unsigned char* vp = buf + (8 * NT * warp + 16 * j + 2 * c) * HD + 4 * g;
+#pragma unroll
+    for (int h = 0; h < HD / 32; ++h) {
+      uint32_t x[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        x[i] = *reinterpret_cast<const uint32_t*>(vp + (i & 1) * HD + (i >> 1) * 8 * HD + 32 * h);
+      }
+      uint32_t b0[4], b1[4];  // n tile t: rows (2c, 2c+1) and (2c+8, 2c+9) of byte t
+      i8x4_to_bf16(__byte_perm(x[0], x[1], 0x5140u), b0[0], b0[1]);
+      i8x4_to_bf16(__byte_perm(x[0], x[1], 0x7362u), b0[2], b0[3]);
+      i8x4_to_bf16(__byte_perm(x[2], x[3], 0x5140u), b1[0], b1[1]);
+      i8x4_to_bf16(__byte_perm(x[2], x[3], 0x7362u), b1[2], b1[3]);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) mma16816<__nv_bfloat16>(o[4 * h + t], a, b0[t], b1[t]);
+    }
   }
 }
 
@@ -429,15 +551,19 @@ decode_attention_kernel(const T* __restrict__ q, const TK* __restrict__ k,
   constexpr bool kQ8 = sizeof(TK) == 1;   // int8 K/V with per-vector scales
   constexpr int ELEM = sizeof(T);
   constexpr int KELEM = sizeof(TK);
+  constexpr bool kMma8 = packed_int8(ELEM, KELEM);  // int8 K/V, bf16 q: packed fragments
+  constexpr int TILE = tile_of(ELEM, KELEM);        // positions per ring buffer
+  constexpr int SEGS = TILE / kSeg;                 // softmax tasks per tile and row
   constexpr int RS = HD * ELEM + 16;     // bytes of a padded Q row
-  constexpr int RSK = HD * KELEM + 16;   // bytes of a padded K/V row of the ring
+  constexpr int RSK = ring_row(HD, ELEM, KELEM);  // bytes of a K/V row of the ring
   constexpr int QCPR = HD * ELEM / 16;   // 16-byte pieces of a Q row
   constexpr int QVEC = 16 / ELEM;
   constexpr int CPR = HD * KELEM / 16;   // 16-byte pieces of a K/V row
   constexpr int VEC = 16 / KELEM;
-  constexpr int PIECES = kTile * CPR / kThreads;  // 16-byte copies per thread and tile
+  constexpr int PIECES = TILE * CPR / kThreads;  // 16-byte copies per thread and tile
   static_assert(HD % 32 == 0 && HD <= 128 && PIECES >= 1, "head dim");
   static_assert(!kQ8 || sizeof(T) != 1, "q is float, half or bfloat16");
+  static_assert(!kMma8 || sizeof(T) == 2, "int8 K/V takes float or bfloat16 q");
 
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -477,42 +603,62 @@ decode_attention_kernel(const T* __restrict__ q, const TK* __restrict__ k,
 
   const int m_lo = rank * chunk;
   const int n_local = max(0, min(M - m_lo, chunk));
-  const int n_tiles = (n_local + kTile - 1) / kTile;
+  const int n_tiles = (n_local + TILE - 1) / TILE;
+  // the block's positions in kSeg steps (a last int8 tile may have one)
+  const int n_segs = kMma8 ? (n_local + kSeg - 1) / kSeg : n_tiles * SEGS;
   const long row = (long)nh * HD;  // elements between consecutive positions / queries
   const T* qb = q + ((long)b * K * nh + h) * HD;
   const TK* kb = k + ((long)b * M * nh + h) * HD + (long)m_lo * row;
   const TK* vb = v + ((long)b * M * nh + h) * HD + (long)m_lo * row;
+  const float* ksb = kQ8 ? k_scale + ((long)b * M + m_lo) * nh + h : nullptr;
+  const float* vsb = kQ8 ? v_scale + ((long)b * M + m_lo) * nh + h : nullptr;
 
   // tile i of the stream: K tiles 0..n_tiles-1, then V tiles.  Thread tid
   // copies pieces tid, tid + kThreads, ... of every tile.  Until the mask
   // is `known`, only K tiles go, whole (a K row no beam attends only gets
   // a score of -inf); after, a row no beam attends is not read, nor a tile
-  // without an attended row.
+  // without an attended row.  int8 K/V with bf16 q: a K tile's group also
+  // carries the k and v scales of its positions (zeros where a row is not
+  // read).
   auto issue = [&](int i, bool known) {
     if (i < 2 * n_tiles && (known || i < n_tiles)) {
       const int tt = i < n_tiles ? i : i - n_tiles;
       if (!known || tflag[tt]) {
-        const TK* src = (i < n_tiles ? kb : vb) + (long)tt * kTile * row;
-        unsigned char* dst = ring + (i % stages) * (kTile * RSK);
+        const TK* src = (i < n_tiles ? kb : vb) + (long)tt * TILE * row;
+        unsigned char* dst = ring + (i % stages) * (TILE * RSK);
 #pragma unroll
         for (int j = 0; j < PIECES; ++j) {
           const int piece = tid + j * kThreads;
           const int r = piece / CPR, c = piece % CPR;
-          const int m = tt * kTile + r;
+          const int m = tt * TILE + r;
           const bool live = m < n_local && (!known || mbits[m] != 0);
           cp_async16(dst + r * RSK + c * 16, live ? src + r * row + c * VEC : src, live ? 16 : 0);
+        }
+        if constexpr (kMma8) {
+          if (i < n_tiles) {
+            static_assert(2 * TILE % kThreads == 0, "whole scale copies per thread");
+#pragma unroll
+            for (int jj = 0; jj < 2 * TILE / kThreads; ++jj) {
+              const int j = tid + jj * kThreads;
+              const int m = tt * TILE + j % TILE;
+              const bool live = m < n_local && (!known || mbits[m] != 0);
+              const float* from = j < TILE ? ksb : vsb;
+              if (m < n_segs * kSeg) {  // the last tile may reach past the chunk
+                cp_async4((j < TILE ? ks_s : vs_s) + m, live ? from + (long)m * nh : from,
+                          live ? 4 : 0);
+              }
+            }
+          }
         }
       }
     }
     cp_async_commit();
   };
 
-  // int8 K/V: the scales of this block's positions for this head (zeros
-  // past them, to the last tile's end), the oldest cp.async group: every
-  // wait below that covers a later group covers it
-  if constexpr (kQ8) {
-    const float* ksb = k_scale + ((long)b * M + m_lo) * nh + h;
-    const float* vsb = v_scale + ((long)b * M + m_lo) * nh + h;
+  // int8 K/V with float32 q: the scales of this block's positions for this
+  // head (zeros past them, to the last tile's end), the oldest cp.async
+  // group: every wait below that covers a later group covers it
+  if constexpr (kQ8 && !kMma8) {
     for (int m = tid; m < n_tiles * kTile; m += kThreads) {
       const bool live = m < n_local;
       cp_async4(ks_s + m, live ? ksb + (long)m * nh : k_scale, live ? 4 : 0);
@@ -543,6 +689,8 @@ decode_attention_kernel(const T* __restrict__ q, const TK* __restrict__ k,
     }
     cp_async_commit();
     for (int i = 0; i < stages - 1; ++i) issue(i, false);  // the first K tiles fly with it
+  } else if constexpr (kMma8) {
+    for (int i = 0; i < stages - 1; ++i) issue(i, false);  // all rows: no wait for the queries
   }
   // queries, zero-padded to 16 rows
   for (int i = tid; i < kMaxQ * QCPR; i += kThreads) {
@@ -553,30 +701,53 @@ decode_attention_kernel(const T* __restrict__ q, const TK* __restrict__ k,
   }
   for (int t = tid; t < n_tiles; t += kThreads) tflag[t] = mask == nullptr;
   if (mask != nullptr) {
-    cp_async_wait(stages - 1);  // the mask's group (after the int8 scales')
+    cp_async_wait(stages - 1);  // the mask's group (after float32 q's int8 scales)
     __syncthreads();
+    // kMma8: rows past K read row K - 1, and are masked off after, so that
+    // the loads of a position are independent of K
     int off[kMaxQ];
 #pragma unroll
-    for (int r = 0; r < kMaxQ; ++r) off[r] = r < K ? moff[r] : 0;
+    for (int r = 0; r < kMaxQ; ++r) off[r] = r < K ? moff[r] : (kMma8 ? moff[K - 1] : 0);
     for (int m = tid; m < n_local; m += kThreads) {
       unsigned bits = 0;
 #pragma unroll
       for (int r = 0; r < kMaxQ; ++r) {
-        if (r < K) bits |= (unsigned)(stage[off[r] + m] != 0) << r;
+        if constexpr (kMma8) {
+          bits |= (unsigned)(stage[off[r] + m] != 0) << r;
+        } else {
+          if (r < K) bits |= (unsigned)(stage[off[r] + m] != 0) << r;
+        }
       }
+      if constexpr (kMma8) bits &= (2u << (K - 1)) - 1u;
       mbits[m] = static_cast<uint16_t>(bits);
-      if (bits) tflag[m / kTile] = 1;
+      if (bits) tflag[m / TILE] = 1;
     }
   } else {
     for (int m = tid; m < n_local; m += kThreads) mbits[m] = 0xffffu;
   }
+  if constexpr (kMma8) {  // store_scores8 reads the masks of the last segment whole
+    for (int m = n_local + tid; m < n_segs * kSeg; m += kThreads) mbits[m] = 0;
+  }
   __syncthreads();
   // the rest of the first stages - 1 tiles: V tiles when there are fewer K
   // tiles (pass 2 waits for all of these)
-  for (int i = mask != nullptr ? n_tiles : 0; i < stages - 1; ++i) issue(i, true);
+  for (int i = kMma8 || mask != nullptr ? n_tiles : 0; i < stages - 1; ++i) issue(i, true);
 
   uint32_t qa[HD / 16][4];
-  if constexpr (!kF32) {
+  if constexpr (kMma8) {
+    // in score_tile_mma8's permutation: k step kk of thread (g, c) takes
+    // d = c*HD/4 + 4kk + (0, 1) as slots 2c, 2c+1 and + (2, 3) as 2c+8, 2c+9
+    const int g = lane >> 2, c = lane & 3;
+    const uint32_t* q0 = reinterpret_cast<const uint32_t*>(q_s + g * RS) + c * (HD / 8);
+    const uint32_t* q1 = reinterpret_cast<const uint32_t*>(q_s + (g + 8) * RS) + c * (HD / 8);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      qa[kk][0] = q0[2 * kk];
+      qa[kk][1] = q1[2 * kk];
+      qa[kk][2] = q0[2 * kk + 1];
+      qa[kk][3] = q1[2 * kk + 1];
+    }
+  } else if constexpr (!kF32) {
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
       ldmatrix_x4(qa[kk], q_s + ((lane & 7) + 8 * ((lane >> 3) & 1)) * RS +
@@ -593,15 +764,26 @@ decode_attention_kernel(const T* __restrict__ q, const TK* __restrict__ k,
     __syncthreads();  // tile i landed for all; everyone is done with tile i - 1
     issue(i + stages - 1, true);
     if (tflag[i]) {
-      const unsigned char* buf = ring + (i % stages) * (kTile * RSK);
+      const unsigned char* buf = ring + (i % stages) * (TILE * RSK);
       if constexpr (kF32) {
         score_tile_f32<HD, kQ8>(buf, reinterpret_cast<const float*>(q_s), s, SS, mbits, ks_s,
-                                i * kTile, n_local, K, tid, rmax);
+                                i * TILE, n_local, K, tid, rmax);
+      } else if constexpr (kMma8) {
+        if (i * TILE + kSeg == n_segs * kSeg) {  // a last tile with one segment of the chunk
+          score_tile_mma8<HD, 2>(buf, qa, s, SS, mbits, ks_s, i * TILE, K, warp, lane, rmax);
+        } else {
+          score_tile_mma8<HD, 4>(buf, qa, s, SS, mbits, ks_s, i * TILE, K, warp, lane, rmax);
+        }
       } else {
-        score_tile_mma<T, HD, kQ8>(buf, qa, s, SS, mbits, ks_s, i * kTile, n_local, K, warp,
-                                   lane, rmax);
+        score_tile_mma<T, HD>(buf, qa, s, SS, mbits, i * TILE, n_local, K, warp, lane, rmax);
       }
     }
+  }
+
+  // kMma8: v's scales rounded to T once per position (every K tile's
+  // group, which carried them, has landed)
+  if constexpr (kMma8) {
+    for (int m = tid; m < n_segs * kSeg; m += kThreads) vs_s[m] = round_to<T>(vs_s[m]);
   }
 
   // row maxima: warp, then block, then cluster
@@ -639,22 +821,22 @@ decode_attention_kernel(const T* __restrict__ q, const TK* __restrict__ k,
   __syncthreads();
 
   // e = exp(s - max) in place, then p = e / sum.  Warp w takes the w-th
-  // eighth of the (row, tile) pairs in row order, a float4 of positions per
-  // lane.  It sums each row it meets into psum[row][w]; a row's sum is then
-  // taken over w in order.
-  static_assert(kTile == 4 * 32, "a tile is a float4 per lane");
-  const int n_tasks = K * n_tiles;
+  // eighth of the (row, segment) pairs in row order, a segment being kSeg
+  // positions, a float4 of them per lane.  It sums each row it meets into
+  // psum[row][w]; a row's sum is then taken over w in order.
+  static_assert(kSeg == 4 * 32, "a segment is a float4 per lane");
+  const int n_tasks = K * n_segs;
   const int first = warp * n_tasks / kWarps, last = (warp + 1) * n_tasks / kWarps;
-  const int r_first = n_tiles ? first / n_tiles : 0, t_first = n_tiles ? first % n_tiles : 0;
+  const int r_first = n_segs ? first / n_segs : 0, t_first = n_segs ? first % n_segs : 0;
   if (lane < K) psum[lane * kWarps + warp] = 0.f;
   __syncwarp();
   {
     int r = r_first, t = t_first;
     float lane_sum = 0.f;
     for (int task = first; task < last; ++task) {
-      if (tflag[t]) {
+      if (tflag[t / SEGS]) {
         const float g = gmax[r];  // -inf for a row masked everywhere: exp gives NaN, as softmax
-        float4* e = reinterpret_cast<float4*>(s + r * SS + t * kTile) + lane;
+        float4* e = reinterpret_cast<float4*>(s + r * SS + t * kSeg) + lane;
         float4 x = *e;
         x.x = expf(x.x - g);
         x.y = expf(x.y - g);
@@ -663,7 +845,7 @@ decode_attention_kernel(const T* __restrict__ q, const TK* __restrict__ k,
         *e = x;
         lane_sum += (x.x + x.y) + (x.z + x.w);
       }
-      const bool row_end = ++t == n_tiles;
+      const bool row_end = ++t == n_segs;
       if (row_end || task + 1 == last) {
         lane_sum = warp_sum(lane_sum);
         if (lane == 0) psum[r * kWarps + warp] = lane_sum;
@@ -691,18 +873,18 @@ decode_attention_kernel(const T* __restrict__ q, const TK* __restrict__ k,
 
   // p = e / sum with the cluster's sum, rounded to T, over the same
   // pairs.  The quotient is correctly rounded: q = e * (1/sum), then one
-  // FMA step on its exact remainder.  Below float32 a tile's rounded values
-  // go to the first half of its own f32 values, after the warp has read
-  // them all.
+  // FMA step on its exact remainder.  Below float32 a segment's rounded
+  // values go to the first half of its own f32 values, after the warp has
+  // read them all.
   T* p_s = reinterpret_cast<T*>(s);
   const int PS = kF32 ? SS : 2 * SS;  // P's row stride in elements of T
   {
     int r = r_first, t = t_first;
     for (int task = first; task < last; ++task) {
-      if (tflag[t]) {
+      if (tflag[t / SEGS]) {
         const float sum = gsum[r];
         const float inv = 1.f / sum;
-        float4* e = reinterpret_cast<float4*>(s + r * SS + t * kTile) + lane;
+        float4* e = reinterpret_cast<float4*>(s + r * SS + t * kSeg) + lane;
         const float4 x = *e;
         float p[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
@@ -710,21 +892,32 @@ decode_attention_kernel(const T* __restrict__ q, const TK* __restrict__ k,
           const float q0 = p[j] * inv;
           p[j] = fmaf(fmaf(-q0, sum, p[j]), inv, q0);
         }
-        if constexpr (kQ8) {  // v's scale folded into P at the reference's rounding points
-          const float4 vs = reinterpret_cast<const float4*>(vs_s + t * kTile)[lane];
-          const float sc[4] = {vs.x, vs.y, vs.z, vs.w};
-#pragma unroll
-          for (int j = 0; j < 4; ++j) p[j] = round_to<T>(p[j]) * round_to<T>(sc[j]);
-        }
-        if constexpr (kF32) {
-          *e = make_float4(p[0], p[1], p[2], p[3]);
-        } else {
+        if constexpr (kMma8) {
+          // v's scale folded into P at the reference's rounding points, on
+          // bf16 pairs: round(p) (the pack) times round(v_scale) (rounded
+          // once a position), the exact product rounded once by one FMA
+          const float4 vs = reinterpret_cast<const float4*>(vs_s + t * kSeg)[lane];
           __syncwarp();
           reinterpret_cast<uint2*>(p_s + r * PS + 2 * kTile * t)[lane] =
-              make_uint2(pack2<T>(p[0], p[1]), pack2<T>(p[2], p[3]));
+              make_uint2(bf16x2_mul(pack2<T>(p[0], p[1]), pack2<T>(vs.x, vs.y)),
+                         bf16x2_mul(pack2<T>(p[2], p[3]), pack2<T>(vs.z, vs.w)));
+        } else {
+          if constexpr (kQ8) {  // v's scale folded into P at the reference's rounding points
+            const float4 vs = reinterpret_cast<const float4*>(vs_s + t * kSeg)[lane];
+            const float sc[4] = {vs.x, vs.y, vs.z, vs.w};
+#pragma unroll
+            for (int j = 0; j < 4; ++j) p[j] = round_to<T>(p[j]) * round_to<T>(sc[j]);
+          }
+          if constexpr (kF32) {
+            *e = make_float4(p[0], p[1], p[2], p[3]);
+          } else {
+            __syncwarp();
+            reinterpret_cast<uint2*>(p_s + r * PS + 2 * kTile * t)[lane] =
+                make_uint2(pack2<T>(p[0], p[1]), pack2<T>(p[2], p[3]));
+          }
         }
       }
-      if (++t == n_tiles) {
+      if (++t == n_segs) {
         t = 0;
         ++r;
       }
@@ -741,11 +934,20 @@ decode_attention_kernel(const T* __restrict__ q, const TK* __restrict__ k,
     issue(i + stages - 1, true);
     const int tt = i - n_tiles;
     if (tflag[tt]) {
-      const unsigned char* buf = ring + (i % stages) * (kTile * RSK);
+      const unsigned char* buf = ring + (i % stages) * (TILE * RSK);
       if constexpr (kF32) {
-        pv_tile_f32<HD, kQ8>(buf, s, SS, tt * kTile, K, tid, o_f32);
+        pv_tile_f32<HD, kQ8>(buf, s, SS, tt * TILE, K, tid, o_f32);
+      } else if constexpr (kMma8) {
+        // P of the warp's positions q (as score_tile_mma8's): segment tt*SEGS + q/kSeg
+        if (tt * TILE + kSeg == n_segs * kSeg) {
+          pv_tile_mma8<HD, 2>(buf, p_s + 2 * kSeg * tt * SEGS + 16 * warp, PS, K, warp, lane,
+                              o_mma);
+        } else {
+          pv_tile_mma8<HD, 4>(buf, p_s + 2 * kSeg * (tt * SEGS + warp / 4) + 32 * (warp % 4), PS,
+                              K, warp, lane, o_mma);
+        }
       } else {
-        pv_tile_mma<T, HD, kQ8>(buf, p_s, PS, tt, K, warp, lane, o_mma);
+        pv_tile_mma<T, HD>(buf, p_s, PS, tt, K, warp, lane, o_mma);
       }
     }
   }
@@ -766,6 +968,19 @@ decode_attention_kernel(const T* __restrict__ q, const TK* __restrict__ k,
       if (lane < QD) {
         *reinterpret_cast<float4*>(o_red + (warp * kMaxQ + r) * HD + 4 * qd) =
             make_float4(o_f32[r][0], o_f32[r][1], o_f32[r][2], o_f32[r][3]);
+      }
+    }
+  } else if constexpr (kMma8) {
+    // n tile 4h + t: columns 2c, 2c + 1 are d = 32h + 8c + t and that + 4
+    const int g = lane >> 2, c = lane & 3;
+#pragma unroll
+    for (int nt = 0; nt < HD / 8; ++nt) {
+      const int d = 32 * (nt / 4) + 8 * c + nt % 4;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float* dst = o_red + (warp * kMaxQ + g + 8 * half) * HD + d;
+        dst[0] = o_mma[nt][2 * half];
+        dst[4] = o_mma[nt][2 * half + 1];
       }
     }
   } else {

@@ -49,7 +49,10 @@ INT8_Q_DTYPES = (torch.float32, torch.bfloat16)   # q's types of the int8 K/V fo
 # The kernel's grid (csrc/decode_attention.cu): one cluster of up to
 # MAX_CLUSTER blocks per (sample, head), each block owning `chunk` positions
 # and keeping their f32 scores in shared memory.
-TILE = 128                # positions per ring buffer
+TILE = 128                # positions per ring buffer; a block's chunk is a multiple of it
+TILE_INT8 = 256           # the int8 K/V form with bf16 q: unpadded int8 rows
+STAGES = (3, 2)           # ring depths launch_plan tries (float32 q with int8 K/V too)
+STAGES_INT8 = (2, 3, 4, 5, 6, 7, 8)   # the int8 K/V form with bf16 q
 WARPS = 8
 MAX_CLUSTER = 8           # portable cluster size
 SMEM_LIMIT = 232_448      # dynamic shared memory a block may use on sm_90 (227 KB)
@@ -60,8 +63,8 @@ SMS = 132                 # H100 SXM
 # 126-128, and 183 at hd 128 (nvcc -Xptxas -v, PR 6)
 BLOCKS_PER_SM = {(2, 32): 4, (2, 64): 4, (2, 128): 2, (4, 32): 2, (4, 64): 2, (4, 128): 1}
 # the int8 K/V form, by q's element bytes and hd: 48 registers at bf16 hd 32,
-# 64 at hd 64, 118 at hd 128; float32 125, 128 and 167 (nvcc -Xptxas -v)
-BLOCKS_PER_SM_INT8 = {(2, 32): 5, (2, 64): 4, (2, 128): 2, (4, 32): 2, (4, 64): 2,
+# 118 at hd 64, 151 at hd 128; float32 125, 128 and 168 (nvcc -Xptxas -v, PR 18)
+BLOCKS_PER_SM_INT8 = {(2, 32): 5, (2, 64): 2, (2, 128): 1, (4, 32): 2, (4, 64): 2,
                       (4, 128): 1}
 # launch_plan: one block per (sample, head) when that makes at least
 # ONE_BLOCK_MIN blocks and fits; else the plan of least modelled time,
@@ -70,6 +73,16 @@ BLOCKS_PER_SM_INT8 = {(2, 32): 5, (2, 64): 4, (2, 128): 2, (4, 32): 2, (4, 64): 
 # (tools/bench_decode_attention.py --sweep; PERF.md, PR 6).
 ONE_BLOCK_MIN = 2 * SMS
 FIXED_US, CLUSTER_US, US_PER_POSITION = 15.0, 5.0, 0.01
+# The int8 K/V form with bf16 q: the plan of least modelled time over
+# every cluster and ring.  Its blocks' time is a chain of latencies more
+# than a stream of bytes (the ring's depth barely moves it), so the model
+# counts each wave of blocks: INT8_FIXED_US + INT8_CLUSTER_US if split +
+# INT8_US_PER_POSITION x chunk, stretched by INT8_SHARE for each other
+# block that shares an SM in that wave.  Fitted to its device times over
+# every plan at the main path's and the long decode's shapes on an H100
+# (tools/bench_decode_attention.py --int8 --sweep [--long]; PERF.md, PR
+# 18).  Ties go to the smaller cluster, then the shallower ring.
+INT8_FIXED_US, INT8_CLUSTER_US, INT8_US_PER_POSITION, INT8_SHARE = 4.0, 0.5, 0.015, 0.7
 
 
 class LaunchPlan(NamedTuple):
@@ -86,21 +99,33 @@ def _up16(x: int) -> int:
     return (x + 15) // 16 * 16
 
 
+def packed_int8(elem: int, kelem: int) -> bool:
+    """The int8 K/V form with bf16 q (``elem`` 2, ``kelem`` 1): TILE_INT8
+    positions a ring buffer, unpadded rows."""
+    return kelem == 1 and elem == 2
+
+
+def tile_of(elem: int, kelem: int | None = None) -> int:
+    """Positions per ring buffer."""
+    return TILE_INT8 if packed_int8(elem, elem if kelem is None else kelem) else TILE
+
+
 def smem_bytes(K: int, chunk: int, stages: int, hd: int, elem: int, kelem: int | None = None
                ) -> int:
     """Dynamic shared memory of one block: ``make_layout`` of the kernel.
     ``elem``: bytes of q's type; ``kelem``: of K/V's (1 for int8 K/V, whose
     form adds the positions' scales)."""
     kelem = elem if kelem is None else kelem
+    tile = tile_of(elem, kelem)
     rs = hd * elem + 16  # a padded Q row
-    rsk = hd * kelem + 16  # a padded K/V row of the ring
+    rsk = hd if packed_int8(elem, kelem) else hd * kelem + 16  # a K/V row of the ring
     q8 = 2 * _up16(chunk * 4) if kelem != elem else 0
-    return (_up16(max(stages * TILE * rsk, WARPS * MAX_BEAM * hd * 4))  # ring / partial outputs
+    return (_up16(max(stages * tile * rsk, WARPS * MAX_BEAM * hd * 4))  # ring / partial outputs
             + _up16(MAX_BEAM * rs)                                   # queries
             + _up16(MAX_BEAM * hd * 4)                               # the block's output
             + _up16((WARPS + 4) * MAX_BEAM * 4)                      # row max and sum
             + _up16(MAX_BEAM * WARPS * 4)                            # sums per row and warp
-            + _up16(chunk // TILE * 4)                               # tile flags
+            + _up16(-(-chunk // tile) * 4)                           # tile flags
             + _up16(chunk * 2)                                       # mask bits per position
             + _up16(K * (chunk + 4) * 4)                             # f32 scores
             + q8)                                                    # int8: k and v scales
@@ -114,8 +139,10 @@ def launch_plan(B: int, K: int, M: int, nh: int, hd: int, dtype: torch.dtype,
     one when B*nh >= ONE_BLOCK_MIN and it fits, with the ring that takes
     the fewest waves of blocks; else the plan of least modelled time (see
     FIXED_US).  Ties go to the smaller cluster, then the deeper ring.
-    ``kv_dtype`` torch.int8 plans the int8 K/V form (its own blocks per SM;
-    the model's times are the bf16 form's).
+    ``kv_dtype`` torch.int8 plans the int8 K/V form: with bf16 q over rings
+    of STAGES_INT8 tiles of TILE_INT8 positions, the plan of least modelled
+    time (see INT8_FIXED_US); with float32 q as the bf16 form (its own
+    blocks per SM).
     Raises where M does not fit MAX_CLUSTER blocks."""
     if dtype not in _DTYPE_CODE:
         raise TypeError(f"kernel takes float32/float16/bfloat16; got {dtype}")
@@ -128,23 +155,36 @@ def launch_plan(B: int, K: int, M: int, nh: int, hd: int, dtype: torch.dtype,
                          f"got K={K}, hd={hd}, M={M}")
     elem = dtype.itemsize
     kelem = elem if kv_dtype is None else kv_dtype.itemsize
+    packed = packed_int8(elem, kelem)
+    tile = tile_of(elem, kelem)
     best = None
     for cluster in range(1, MAX_CLUSTER + 1):
         chunk = -(-(-(-M // cluster)) // TILE) * TILE
         if -(-M // chunk) != cluster:
             continue  # the same chunks as a smaller cluster
-        for stages in (3, 2):
+        for stages in STAGES_INT8 if packed else STAGES:
+            if packed and stages - 1 > 2 * -(-chunk // tile):
+                continue  # deeper than a block's stream of K and V tiles
             smem = smem_bytes(K, chunk, stages, hd, elem, kelem)
             if smem > SMEM_LIMIT:
                 continue
             blocks = BLOCKS_PER_SM if kelem == elem else BLOCKS_PER_SM_INT8
             per_sm = min(blocks[elem, hd], SMEM_PER_SM // (smem + 1024))
             waves = -(-B * nh * cluster // (SMS * per_sm))
-            if cluster == 1 and B * nh >= ONE_BLOCK_MIN:
+            if packed:
+                block_us = INT8_FIXED_US + INT8_CLUSTER_US * (cluster > 1) \
+                    + INT8_US_PER_POSITION * chunk
+                cost, left = 0.0, B * nh * cluster
+                while left > 0:  # each wave, with the blocks an SM holds in it
+                    cost += block_us * (1 + INT8_SHARE * (min(per_sm, -(-left // SMS)) - 1))
+                    left -= SMS * per_sm
+                key = (False, cost, cluster, stages)
+            elif cluster == 1 and B * nh >= ONE_BLOCK_MIN:
                 cost = waves
+                key = (False, cost, cluster, -stages)
             else:
                 cost = waves * (FIXED_US + CLUSTER_US * (cluster > 1) + US_PER_POSITION * chunk)
-            key = (cluster > 1 or B * nh < ONE_BLOCK_MIN, cost, cluster, -stages)
+                key = (True, cost, cluster, -stages)
             if best is None or key < best[0]:
                 best = (key, LaunchPlan(cluster, chunk, stages, smem))
     if best is None:

@@ -63,6 +63,9 @@ _RECIP_127 = float(np.float32(1.0) / np.float32(127.0))
 
 PARTS = ("encoder", "decoder_mem", "decoder_kv")
 _MODES = {"int8": ("encoder",), "int8_full": ("encoder", "decoder_mem")}
+# named sets of parts that are no ``quantize:`` mode: the caller sets them on
+# the model (``Model.set_quantize``) over an ``int8_full`` config
+NAMED_PARTS = {"int8_kv": ("encoder", "decoder_mem", "decoder_kv")}
 
 
 def parts_for_mode(mode) -> Optional[tuple]:

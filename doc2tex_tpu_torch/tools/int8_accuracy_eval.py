@@ -43,6 +43,7 @@ from ..data.synthetic import hard_vocab, synth_hard_dataset
 from ..decode.runner import make_decode_fn
 from ..engine.inferencing import validation
 from ..models import build_model
+from ..ops.quant import NAMED_PARTS
 from ..tokenizer.converters import AttnLabelConverter, TFMLabelConverter
 from ..weights import load_weights
 from .release_eval import card, wilson
@@ -53,8 +54,7 @@ OUT_PATH = os.path.join(_ROOT, "doc2tex_tpu_torch", "tools", "int8_eval_cuda.jso
 EVAL_SEED = 32         # the soak's held-out curve set, as the JAX tool uses
 BEAM = 5
 # mode -> the quantized parts (Model.set_quantize)
-MODES = {"bf16": None, "int8": "int8", "int8_full": "int8_full",
-         "int8_kv": ("encoder", "decoder_mem", "decoder_kv")}
+MODES = {"bf16": None, "int8": "int8", "int8_full": "int8_full", **NAMED_PARTS}
 
 
 def release_version(family: str, big: bool) -> str:

@@ -1,21 +1,30 @@
 """Where the time of the port's main path goes, on a CUDA card.
 
     python -m doc2tex_tpu_torch.tools.profile_slice [--version synthetic_tfm_big]
-        [--crops 16] [--beam 10] [--dtype bfloat16] [--quantize int8] [--out result.json]
+        [--crops 16] [--beam 10] [--dtype bfloat16] [--quantize int8|int8_full|int8_kv]
+        [--against OTHER_CHECKOUT] [--out result.json]
 
 Runs MathRecognition with the released weights of ``--version``
 (``synthetic_tfm_big``, ``synthetic_tfm`` or ``synthetic_long``, the TFM
 head, or ``synthetic``, the coverage-LSTM head; ``--quantize int8`` as the
-releases ship, unquantized by default) on seeded synthetic crops (the first
+releases ship, ``int8_full`` with the decode memory in int8 too, and
+``int8_kv`` the parts encoder, decoder_mem and decoder_kv, the TFM head's
+self-attention caches in int8 as well; unquantized by default) on seeded
+synthetic crops (the first
 ``--crops`` seeds whose crop needs no resize, as ``chip_smoke.py`` uses;
 for ``synthetic_long`` the long generator's seeds 0, 1, ..., its golden
 crops), once to warm up, once timed,
 and once under ``torch.profiler``.  Prints and writes: wall time, crops/s,
 the device's busy time (sum of kernel times; one stream) and idle share,
 the encoder's time on the batches the main path builds (mean of 20
-passes), the head's hand-written kernel's device time and launches, and
-the kernels that took the most device time (as JSON, also to ``--out``
-when given).  Needs a card; fails without one.
+passes), the head's hand-written kernel's device time and launches (and
+those of its int8 form, which reads decode memory in int8), and the
+kernels that took the most device time (as JSON, also to ``--out`` when
+given).  ``--against`` (TFM head) then profiles the same call with another
+checkout's ``decode_attention`` in place of this one's (loaded into this
+process as ``bench_decode_attention --against`` loads it; everything else
+this checkout's), in the order other, this, this, other, under
+``"against"``.  Needs a card; fails without one.
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import time
 
@@ -32,6 +42,7 @@ import torch
 from ..data.synthetic import seeded_crops, synth_long_sample
 from ..ops.attention_step import coverage_attention_step
 from ..ops.decode_attention import decode_attention
+from ..ops.quant import NAMED_PARTS
 from ..recognition import MathRecognition, load_recog_config
 from ..transforms.augment import normalize
 
@@ -46,15 +57,67 @@ def _device_us(evt) -> float:
     raise AttributeError("profiler event has no device time")
 
 
-def profile(version: str, n_crops: int, beam: int, dtype: str, quantize=None) -> dict:
+def profiled_call(rec, crops, kernel_name):
+    """One call under torch.profiler: (wall seconds, device events, the
+    kernel's device µs, its int8 forms' device µs (the instances whose K/V
+    or memory type is int8))."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t = time.perf_counter()
+        rec(crops)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernel_us = sum(_device_us(e) for e in kernels if kernel_name in e.key)
+    # int8_t is "signed char" in the instance's name ("unsigned char" is the mask's)
+    int8_us = sum(_device_us(e) for e in kernels
+                  if kernel_name in e.key and re.search(r"(?<!un)signed char", e.key))
+    return wall, kernels, kernel_us, int8_us
+
+
+def against(rec, crops, checkout: str) -> list:
+    """The call profiled with ``checkout``'s decode_attention and with this
+    one's, in the order other, this, this, other: wall of an unprofiled
+    call, device busy, B1's device time and launches, of them its int8
+    form's."""
+    from ..models import decoder_tfm
+    from .bench_decode_attention import load_other
+
+    theirs, mine = load_other(checkout).decode_attention, decoder_tfm.decode_attention
+    rows = []
+    for tree, fn in (("other", theirs), ("this", mine), ("this", mine), ("other", theirs)):
+        decoder_tfm.decode_attention = fn
+        try:
+            rec(crops)
+            torch.cuda.synchronize()
+            fn.launches = fn.int8_launches = 0
+            t = time.perf_counter()
+            rec(crops)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            launches, int8_launches = fn.launches + fn.int8_launches, fn.int8_launches
+            prof_wall, kernels, kernel_us, int8_us = profiled_call(rec, crops, "decode_attention")
+        finally:
+            decoder_tfm.decode_attention = mine
+        rows.append({"tree": tree, "wall_s": wall, "profiled_wall_s": prof_wall,
+                     "device_busy_s": sum(_device_us(e) for e in kernels) / 1e6,
+                     "kernel_launches": launches, "kernel_device_s": kernel_us / 1e6,
+                     "kernel_int8_launches": int8_launches, "kernel_int8_device_s": int8_us / 1e6})
+    return rows
+
+
+def profile(version: str, n_crops: int, beam: int, dtype: str, quantize=None,
+            other: str | None = None) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg, weights = load_recog_config(version=version)
     cfg["dtype"] = dtype
-    cfg["quantize"] = quantize
+    cfg["quantize"] = "int8_full" if quantize in NAMED_PARTS else quantize
     rec = MathRecognition(cfg, weights, beam_size=beam, device="cuda")
+    if quantize in NAMED_PARTS:
+        rec.model.set_quantize(NAMED_PARTS[quantize])
     if version == "synthetic_long":     # its 448x960 regime: the long generator's seeds 0, 1, ...
         crops = [synth_long_sample(np.random.default_rng(s))[0] for s in range(n_crops)]
     else:
@@ -66,12 +129,13 @@ def profile(version: str, n_crops: int, beam: int, dtype: str, quantize=None) ->
     # the LSTM head's kernel: B2 in its coverage form (one launch a step)
     kernel, kernel_name = ((decode_attention, "decode_attention") if tfm
                            else (coverage_attention_step, "attention_step"))
-    kernel.launches = 0
+    kernel.launches = kernel.int8_launches = 0
     t = time.perf_counter()
     rec(crops)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
-    launches = kernel.launches
+    int8_launches = kernel.int8_launches
+    launches = kernel.launches + int8_launches
     steps = launches // (2 * rec.model.predicter.num_layers) if tfm else launches
 
     # the encoder alone, on the batches the main path builds
@@ -90,16 +154,9 @@ def profile(version: str, n_crops: int, beam: int, dtype: str, quantize=None) ->
         torch.cuda.synchronize()
     encode_s = (time.perf_counter() - t) / ENCODE_REPS
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t = time.perf_counter()
-        rec(crops)
-        torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    prof_wall, kernels, kernel_us, int8_us = profiled_call(rec, crops, kernel_name)
     busy_us = sum(_device_us(e) for e in kernels)
     top = sorted(kernels, key=_device_us, reverse=True)[:12]
-    kernel_us = sum(_device_us(e) for e in kernels if kernel_name in e.key)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     return {
@@ -113,8 +170,10 @@ def profile(version: str, n_crops: int, beam: int, dtype: str, quantize=None) ->
         "profiled_wall_s": prof_wall, "device_busy_s": busy_us / 1e6,
         "device_idle_share": 1.0 - busy_us / 1e6 / prof_wall,
         "kernel_device_s": kernel_us / 1e6,
+        "kernel_int8_launches": int8_launches, "kernel_int8_device_s": int8_us / 1e6,
         "top_kernels": [{"name": e.key[:120], "device_s": _device_us(e) / 1e6,
                          "count": e.count} for e in top],
+        "against": against(rec, crops, other) if other and tfm else None,
     }
 
 
@@ -126,10 +185,12 @@ def main() -> None:
     ap.add_argument("--crops", type=int, default=16)
     ap.add_argument("--beam", type=int, default=10)
     ap.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
-    ap.add_argument("--quantize", default=None, choices=["int8"])
+    ap.add_argument("--quantize", default=None, choices=["int8", "int8_full", "int8_kv"])
+    ap.add_argument("--against", default=None, metavar="OTHER_CHECKOUT")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
-    result = profile(args.version, args.crops, args.beam, args.dtype, args.quantize)
+    result = profile(args.version, args.crops, args.beam, args.dtype, args.quantize,
+                     args.against)
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:

@@ -126,6 +126,17 @@ def test_kernel_raises_past_its_plan():
     with pytest.raises(ValueError, match="does not fit"):
         decode_attention(q, k, k)
     assert decode_attention.launches == before
+    # the int8 form refuses a plan with fewer bytes than its layout needs
+    from doc2tex_tpu_torch.ops import decode_attention as b1
+
+    q = torch.zeros(1, 4, 8, 32, device="cuda", dtype=torch.bfloat16)
+    k8 = torch.zeros(1, 300, 8, 32, device="cuda", dtype=torch.int8)
+    ks = torch.ones(1, 300, 8, device="cuda")
+    plan = b1.LaunchPlan(1, 384, 3, b1.smem_bytes(4, 384, 3, 32, 2, 1) - 16)
+    before = decode_attention.int8_launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        b1.launch(q, k8, k8, None, plan, scales=(ks, ks))
+    assert decode_attention.int8_launches == before
 
 
 @pytest.mark.cuda
@@ -696,11 +707,34 @@ def test_int8_kv_kernel_matches_plain_version(dtype):
              (1, 10, 5010, 8, 32, True, 500), (8, 10, 1510, 8, 32, True, None),
              (64, 10, 930, 8, 32, True, 71), (4, 16, 96, 4, 64, True, None),
              (4, 3, 70, 2, 128, False, None), (2, 5, 300, 2, 128, True, None))
+    # the int8 form's own edges: M one past a tile (256 positions with bf16
+    # q; a masked M is T steps x K), a dead cache tail of whole tiles, and a
+    # cluster split of 256-tiles
+    cases += ((4, 10, 257, 8, 32, False, None), (4, 1, 257, 8, 32, True, None),
+              (2, 10, 1510, 8, 32, True, 40), (1, 10, 2570, 8, 32, True, 256),
+              (3, 16, 513, 2, 64, False, None))
     before = decode_attention.int8_launches
     for B, K, M, nh, hd, masked, step in cases:
         chip_smoke.check_attention_int8(B, K, M, nh, hd, dtype, masked, seed=M, step=step)
     assert chip_smoke.int8_rounding_point_check() == 6
     assert decode_attention.int8_launches == before      # the checks do not count
+    # every ring the launcher takes (2..8), and a mask whose middle tiles no
+    # beam attends, through launch() with explicit plans
+    from doc2tex_tpu_torch.ops import decode_attention as b1
+
+    B, K, M, nh, hd = 4, 10, 2000, 8, 32
+    q, k8, v8, ks, vs, mask = chip_smoke.int8_attention_inputs(B, K, M, nh, hd, dtype, True, 5)
+    mask[:, :, 300:1100] = False
+    ref = b1.decode_attention_int8_reference(q, k8, v8, mask, ks, vs)
+    chunk = -(-M // b1.TILE) * b1.TILE
+    atol, rtol = chip_smoke.INT8_TOL[str(dtype).split(".")[-1]]
+    for stages in range(2, 9):
+        plan = b1.LaunchPlan(1, chunk, stages, b1.smem_bytes(K, chunk, stages, hd,
+                                                             dtype.itemsize, 1))
+        got = b1.launch(q, k8, v8, mask, plan, scales=(ks, vs))
+        torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
+    assert decode_attention.int8_launches == before + 7  # launch() counts each of its launches
+    decode_attention.int8_launches = before
 
 
 @pytest.mark.cuda
