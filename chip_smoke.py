@@ -34,10 +34,15 @@ Needs one CUDA card; exits non-zero without one.  Phases, one line each:
    sample rows) at samples {1, 8, 64} x K {1, 5, 10} x S {83, 445, 623,
    2525} x the same widths and the slice's shapes, on coverage of decode
    steps 1 and 150; each x valid_len {None, S - 17}, float32 and bfloat16
-   memory.  Then both forms timed (bf16, CUDA graphs) at each of the
-   slice's shapes and at the release shape (64 crops x beam 10, S 623)
-   beside the plain version and the bound.  The JSON record holds the
-   coverage form at the slice's largest launch;
+   memory; then every form (coverage and content, float32, bf16 and int8
+   memory with float32 and bf16 compute) at forced plans of a cluster of 1
+   and of 8 blocks, all beams a block or one, the whole chunk in shared
+   memory and a ring (``check_b2_plans``).  Then both forms timed (bf16,
+   CUDA graphs) at each of the slice's shapes and at the release shape (64
+   crops x beam 10, S 623) beside the plain version, the bound and the
+   launch floor (an empty kernel on the plan's grid, cluster and shared
+   memory).  The JSON record holds the coverage form at the slice's
+   largest launch;
 6. slice   — the same with the released coverage-LSTM ``synthetic``
    against its own golden file; B2's coverage-form launch count must rise
    in each run;
@@ -67,8 +72,10 @@ Needs one CUDA card; exits non-zero without one.  Phases, one line each:
    623 at B 64, self M 5010, in float32 and bf16 q (``TOL``), and bit for
    bit on rounding-point inputs; B2's int8 form at its launched shapes, the
    release shape and D = H = 256 (S 623, 2525), float32 and bf16 compute
-   (``B2_TOL``); both timed (CUDA graphs) beside the float forms and
-   their bounds.  The JSON line's ``decode_attention_int8`` and
+   (``B2_TOL``), and P's bf16 rounding on inputs whose every product sits
+   halfway between two bf16 values (``b2_int8_rounding_point_check``); both
+   timed (CUDA graphs) beside the float forms, their bounds and B2's launch
+   floor, and the content form on int8 memory at the zoo's largest launch.  The JSON line's ``decode_attention_int8`` and
    ``attention_step_int8`` hold the release-shape times and the launches of
    the 16-crop float32 int8_full call;
 9. serve   — ``python -m doc2tex_tpu_torch.api.serve --selftest 32
@@ -249,7 +256,9 @@ Needs one CUDA card; exits non-zero without one.  Phases, one line each:
    leaves within the larger of it and 4 times the CPU's own spread); (b)
    ``ZOO_TRAIN_STEPS`` bf16 steps, the loss falling; (c) B2's forward and
    backward launching once per decode step each (T = the decoder length)
-   in those steps; (d) the backward against its plain version and itself at
+   in those steps; (d) the forward against its plain version at every
+   shape (a) and (b) launched (the content form's timed there beside its
+   launch floor), and the backward against its plain version and itself at
    every shape (a) and (b) launched, timed at (b)'s.
 
 Then a JSON line with the kernels' numbers (B2's backward: its launches
@@ -777,15 +786,28 @@ def tfm_launch_shapes(steps: int, config=None, beam_size: int = 10):
     return sorted(shapes, key=lambda s: (s[3] is None, s))
 
 
-def _b2_result(ms, plain_ms, got, ref, nbytes, flops, text):
-    """B2's timing record: the bound of the work, and the text line."""
+def b2_floor_ms(plan, Bs) -> float:
+    """B2's launch floor: an empty kernel on ``plan``'s grid, cluster and
+    dynamic shared memory for ``Bs`` samples, a call's share of a CUDA
+    graph of 20 (``attention_step.launch_floor``)."""
+    from doc2tex_tpu_torch.ops.attention_step import launch_floor
+    from doc2tex_tpu_torch.tools.bench_decode_attention import graph_ms
+
+    return graph_ms(lambda: launch_floor(plan, Bs))
+
+
+def _b2_result(ms, plain_ms, got, ref, nbytes, flops, text, floor_ms=None):
+    """B2's timing record: the bound of the work, and the text line (with
+    the launch floor where given)."""
     err = max((got[0] - ref[0]).abs().max().item(), (got[1] - ref[1]).abs().max().item())
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / F32_FLOPS * 1e3
     bound = max(bytes_ms, ops_ms)
+    floor = "" if floor_ms is None else f", launch floor {floor_ms:.4f} ms"
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations", max_abs_err=err,
-                text=f"{text}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+                text=f"{text}: kernel {ms:.4f} ms{floor}, plain {plain_ms:.4f} ms, "
+                     f"bound {bound:.4f} ms "
                      f"(bytes {bytes_ms:.4f} ms for {nbytes / 1e6:.2f} MB, operations "
                      f"{ops_ms:.4f} ms for {flops / 1e9:.4f} GFLOP f32), {bound / ms:.0%} of "
                      f"bound, achieved {nbytes / (ms * 1e-3) / 1e9:.0f} GB/s, "
@@ -845,7 +867,8 @@ def coverage_step_timing(Bs, K, S, D, H, Kl):
     return _b2_result(ms, plain_ms, got, ref, nbytes, flops,
                       f"coverage form, {Bs} samples x K {K} S {S} D{D} H{H} Kl{Kl} bf16 "
                       f"(cluster {plan.cluster}, chunk {plan.chunk}, zsplit {plan.zsplit}, "
-                      f"{plan.smem_bytes} B smem)")
+                      f"stages {plan.stages}, {plan.smem_bytes} B smem)",
+                      b2_floor_ms(plan, Bs))
 
 
 def _check_b2(name, got, ref, where):
@@ -1057,6 +1080,11 @@ def attention_step_phase(t0):
         "(samples {1,8,64} x K {1,5,10} x S {83,445,623,2525} x (D,H,Kl) {(128,128,64),"
         "(256,256,128)}, and the synthetic slice's shapes; x coverage of step {1,150} x valid "
         "{None, S-17}): " + text)
+    n, plans, text = check_b2_plans()
+    log("kernel", t0, f"attention_step matches plain version at {n} checks of forced plans "
+        "(coverage 2 samples x K 10 S 445 D=H=128, content 1 x 10 S 250 D 512 H 256; float32, "
+        "bf16 and int8 memory with float32 and bf16 compute; (form, memory, cluster, zsplit, "
+        f"stages) {sorted(set(plans))}; x valid {{None, S-17}}): " + text)
 
     timings = {shape: coverage_step_timing(*shape) for shape in main_path}
     for Bs, K, S, D, H, Kl in main_path:
@@ -1075,6 +1103,170 @@ def attention_step_phase(t0):
         "ms": rel["ms"], "plain_ms": rel["plain_ms"], "bound_ms": rel["bound_ms"],
         "bound_by": rel["bound_by"], "library_ms": None,
     }
+
+
+# B2's plans forced (phase 5): every form and memory type at a cluster of 1
+# and of 8 blocks, a block holding all K beams or one, the whole chunk in
+# shared memory where it fits and a ring: (form, memory, compute type, Bs,
+# K, S, D, H, Kl).  S is one that eight blocks of a multiple of 8 cover
+B2_PLAN_CASES = tuple(
+    (form, mem, compute, *shape) for form, shape in (
+        ("coverage", (2, 10, 445, 128, 128, 64)), ("content", (1, 10, 250, 512, 256, 0)))
+    for mem, compute in (("float32", None), ("bfloat16", None), ("int8", "float32"),
+                         ("int8", "bfloat16")))
+
+
+def b2_case_inputs(form, mem, compute, Bs, K, S, D, H, Kl, t, seed):
+    """The step's keywords of a B2 case on the card (the coverage form's
+    at coverage of step ``t``; the content form's four), the int8 keywords
+    ({} for float memory), and the plain version to hold it to."""
+    import torch
+
+    from doc2tex_tpu_torch.ops import attention_step as b2
+
+    dtype = torch.int8 if mem == "int8" else getattr(torch, mem)
+    if mem == "int8":
+        kw, q8 = coverage_int8_inputs(Bs, K, S, D, H, Kl or 4, getattr(torch, compute), t, seed)
+    else:
+        kw, q8 = coverage_step_inputs(Bs, K, S, D, H, Kl or 4, dtype, t, seed), {}
+    if form == "content":
+        kw = {k: kw[k] for k in ("enc", "enc_proj", "q", "w_score")}
+    if q8:
+        plain = (b2.content_attention_step_int8_reference if form == "content"
+                 else b2.coverage_attention_step_int8_reference)
+        ref = lambda valid: plain(*kw.values(), valid, q8["enc_scale"],  # noqa: E731
+                                  q8["proj_scale"], q8["compute_dtype"])
+    else:
+        plain = (b2.content_attention_step_reference if form == "content"
+                 else b2.coverage_attention_step_reference)
+        ref = lambda valid: plain(**kw, valid_len=valid)  # noqa: E731
+    return kw, q8, ref
+
+
+def forced_plans(form, Bs, K, S, D, H, Kl, dtype):
+    """B2 plans of a cluster of 1 and of 8 (chunk S / cluster rounded up to
+    8), a block of all K beams or of one, each with the whole chunk where it
+    fits (not the feature form) and a ring of 2 tiles."""
+    from doc2tex_tpu_torch.ops import attention_step as b2
+
+    for cluster in (1, 8):
+        chunk = -(-(-(-S // cluster)) // 8) * 8
+        if (cluster - 1) * chunk >= S:
+            raise AssertionError(f"S {S} does not make a cluster of {cluster}")
+        for zsplit in dict.fromkeys((1, K)):
+            for stages in (b2.FULL, 2):
+                smem = b2.smem_bytes(form, K // zsplit, chunk, 32, stages, H, Kl, dtype.itemsize,
+                                     D)
+                if smem <= b2.SMEM_LIMIT:
+                    yield b2.LaunchPlan(cluster, chunk, zsplit, 32, stages, smem)
+
+
+def check_b2_plans():
+    """Every case of B2_PLAN_CASES at each of its ``forced_plans``, valid_len
+    None and S - 17, launched directly (``attention_step.launch``: not a
+    counted launch) against the plain version (B2_TOL).  Returns (checks
+    made, the plans' shapes, the worst errors as text)."""
+    import torch
+
+    from doc2tex_tpu_torch.ops import attention_step as b2
+
+    worst, n, seen = {}, 0, []
+    for case in B2_PLAN_CASES:
+        form, mem, compute, Bs, K, S, D, H, Kl = case
+        kw, q8, ref = b2_case_inputs(*case, COVERAGE_STEPS[-1], seed=n)
+        dtype = kw["enc"].dtype
+        scales = (tuple(q8[k].reshape(Bs).contiguous() for k in ("enc_scale", "proj_scale"))
+                  if q8 else ())
+        args = [kw[k] for k in ("enc", "enc_proj", "q")] + [
+            kw[k] for k in (("w_score",) if form == "content" else (
+                "mem", "loc_conv_w", "loc_conv_b", "w_loc", "b_loc", "w_score"))]
+        name = f"{mem}" + (f"/{compute}" if compute else "")
+        for plan in forced_plans(form, Bs, K, S, D, H, Kl or 4 if form != "content" else 0,
+                                 dtype):
+            seen.append((form, name, plan.cluster, plan.zsplit, plan.stages))
+            for valid in (None, S - 17):
+                n += 1
+                got = b2.launch(form, plan, *args, valid_len=valid, scales=scales,
+                                compute_dtype=q8.get("compute_dtype"))
+                torch.cuda.synchronize()
+                worst[name] = tuple(map(max, worst.get(name, (0.0, 0.0)), _check_b2(
+                    f"attention step ({form} form, forced plan)", got, ref(valid),
+                    f"{Bs} samples K {K} S {S} D{D} H{H} {name} {plan} valid {valid}")))
+    return n, seen, ("max abs err " + ", ".join(
+        f"{k} {e:.3e} (at most {r:.2f} of its tolerance)" for k, (e, r) in worst.items())
+        + f"; tol {B2_TOL[0]:g} abs + {B2_TOL[1]:g} rel")
+
+
+def halfway_bytes(scale: float):
+    """The int8 values x whose product with the bf16 value ``scale`` lies
+    exactly halfway between two bf16 neighbours (where round to nearest
+    even decides), and those products rounded down and up in magnitude."""
+    import numpy as np
+
+    x = np.arange(-127, 128, dtype=np.float64)
+    p = x * scale
+    keep = p != 0
+    x, p = x[keep], p[keep]
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(p))) - 7)   # bf16 keeps 8 significant bits
+    frac = np.abs(p) / ulp
+    half = frac - np.floor(frac) == 0.5
+    low = np.sign(p) * np.floor(frac) * ulp
+    return x[half], low[half], (low + np.sign(p) * ulp)[half]
+
+
+def b2_int8_rounding_point_check() -> list:
+    """B2's int8 form with bf16 compute rounds P = round(round(ps) * x8) to
+    bf16 where the plain version does, ties to even: every byte of
+    enc_proj sits where ps * x8 lies exactly halfway between two bf16
+    values (S 64, so that alpha is not small).  Per form (coverage and content,
+    the wrapper's plan): the kernel within B2_TOL of the plain version,
+    whose P is the products rounded to nearest even; P rounded toward zero,
+    or away from it, instead moves the plain version's outputs by more than
+    100 times the tolerance, so the kernel's P has the plain version's
+    bits.  Returns (form, max abs err, the smaller of the two moves) per
+    form."""
+    import numpy as np
+    import torch
+
+    from doc2tex_tpu_torch.ops import attention_step as b2
+
+    scale = 0.02734375                # a bf16 value (0x3CE0): round(ps) = ps; 66 bytes
+    xs, lows, highs = halfway_bytes(scale)
+    if len(xs) < 16:
+        raise AssertionError(f"only {len(xs)} halfway bytes for scale {scale}")
+    even = torch.from_numpy(xs * scale).float().bfloat16()
+    if (even.view(torch.int16) & 1).any():
+        raise AssertionError("torch's bf16 rounding of the halfway products is not to even")
+    rows = []
+    for form, shape in (("coverage", (2, 10, 64, 128, 128, 64)),
+                        ("content", (1, 10, 64, 512, 256, 0))):
+        kw, q8, ref = b2_case_inputs(form, "int8", "bfloat16", *shape, COVERAGE_STEPS[-1],
+                                     seed=3)
+        Bs, K, S, D, H, Kl = shape
+        pick = torch.from_numpy(np.random.default_rng(5).integers(0, len(xs), (Bs, S, H)))
+        kw["enc_proj"] = torch.from_numpy(xs)[pick].to(torch.int8).cuda()
+        q8["proj_scale"] = torch.full((Bs, 1, 1), scale, device="cuda")
+        step = b2.content_attention_step if form == "content" else b2.coverage_attention_step
+        before = step.int8_launches
+        got = step(**kw, **q8)
+        step.int8_launches = before   # a check, not a main-path launch
+        want = ref(None)
+        err, _ = _check_b2(f"attention step ({form} form, int8 rounding points)", got, want,
+                           f"{shape}, every product halfway")
+        moves = []
+        for other in (lows, highs):
+            wrong = dict(kw, enc_proj=torch.from_numpy(other)[pick].bfloat16().cuda())
+            plain = (b2.content_attention_step_reference if form == "content"
+                     else b2.coverage_attention_step_reference)
+            c, a = plain(**wrong)
+            c = c * q8["enc_scale"].reshape(-1, 1).repeat_interleave(K, dim=0)
+            moves.append(max((c - want[0]).abs().max().item(), (a - want[1]).abs().max().item()))
+        torch.cuda.synchronize()
+        if min(moves) < 100 * B2_TOL[0]:
+            raise AssertionError(f"{form}: P rounded another way moves the outputs by only "
+                                 f"{min(moves):.3e}: the check cannot see P's rounding")
+        rows.append((form, err, min(moves)))
+    return rows
 
 
 def golden_file(version: str, quantize=None) -> str:
@@ -2920,7 +3112,36 @@ def coverage_int8_timing(Bs, K, S, D, H, Kl):
     result = _b2_result(ms, plain_ms, got, ref, nbytes, flops,
                         f"int8 form, {Bs} samples x K {K} S {S} D{D} H{H} Kl{Kl} int8 memory, "
                         f"bf16 compute (cluster {plan.cluster}, chunk {plan.chunk}, zsplit "
-                        f"{plan.zsplit}, {plan.smem_bytes} B smem)")
+                        f"{plan.zsplit}, stages {plan.stages}, {plan.smem_bytes} B smem)",
+                        b2_floor_ms(plan, Bs))
+    return dict(result, library_ms=None)
+
+
+def content_int8_timing(Bs, K, S, D, H):
+    """B2's content form on int8 memory (bf16 compute) and its plain version
+    timed at one shape (CUDA graphs), beside the bound and the launch
+    floor, as ``coverage_int8_timing``."""
+    import torch
+
+    from doc2tex_tpu_torch.ops.attention_step import (
+        CONTENT, content_attention_step, content_attention_step_int8_reference, launch_plan)
+    from doc2tex_tpu_torch.tools.bench_decode_attention import graph_ms
+
+    kw, q8, ref_of = b2_case_inputs("content", "int8", "bfloat16", Bs, K, S, D, H, 0, 1, seed=7)
+    before = content_attention_step.int8_launches
+    ms = graph_ms(lambda: content_attention_step(**kw, **q8))
+    ref_args = (*kw.values(), None, q8["enc_scale"], q8["proj_scale"], torch.bfloat16)
+    plain_ms = graph_ms(lambda: content_attention_step_int8_reference(*ref_args))
+    got, ref = content_attention_step(**kw, **q8), ref_of(None)
+    content_attention_step.int8_launches = before
+    nbytes = sum(t.numel() * t.element_size() for t in kw.values())
+    nbytes += 2 * Bs * INT8_BYTES_PER_SCALE + (got[0].numel() + got[1].numel()) * 4
+    plan = launch_plan(Bs, K, S, D, H, 0, torch.int8, CONTENT)
+    result = _b2_result(ms, plain_ms, got, ref, nbytes, Bs * K * S * (5 * H + 3 + 2 * D),
+                        f"content form on int8 memory, {Bs} samples x K {K} S {S} D{D} H{H}, "
+                        f"bf16 compute (cluster {plan.cluster}, chunk {plan.chunk}, zsplit "
+                        f"{plan.zsplit}, stages {plan.stages}, {plan.smem_bytes} B smem)",
+                        b2_floor_ms(plan, Bs))
     return dict(result, library_ms=None)
 
 
@@ -2983,11 +3204,19 @@ def int8_memory_phase(t0):
     log("int8_memory", t0, f"B2's int8 form matches its plain version at {n} checks ((samples, "
         f"K, S, D, H, Kl) {cgrid}, the first {len(b2_shapes)} launched by the int8 run; x "
         "float32, bf16 compute x coverage of step {1,150} x valid {None, S-17}): " + text)
+    for form, err, move in b2_int8_rounding_point_check():
+        log("int8_memory", t0, f"B2's int8 form ({form}) rounds P where its plain version does "
+            f"on inputs whose every product ps * x8 lies halfway between two bf16 values: max "
+            f"abs err {err:.3e} (tol {B2_TOL[0]:g} abs + {B2_TOL[1]:g} rel), while P rounded "
+            f"toward or away from zero moves the outputs by {move:.3e} or more: P's bits are "
+            "the plain version's")
     b2 = {}
     for shape in cgrid:
         b2[shape] = coverage_int8_timing(*shape)
         log("int8_memory", t0, f"B2 {b2[shape]['text']} (bf16 memory form "
             f"{coverage_step_timing(*shape)['ms']:.4f} ms in this run)")
+    log("int8_memory", t0, "B2 " + content_int8_timing(1, 10, 207, 512, 256)["text"]
+        + " (the zoo's largest bahdanau launch)")
     rel1 = timings["self"]
     rel2 = b2[max(b2_shapes)] if b2_shapes else b2[64, 10, 623, 128, 128, 64]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -3280,7 +3509,8 @@ def content_step_timing(Bs, K, S, D, H):
     out = _b2_result(ms, plain_ms, got, ref, nbytes, flops,
                      f"content form, {Bs} samples x K {K} S {S} D{D} H{H} bf16 "
                      f"(cluster {plan.cluster}, chunk {plan.chunk}, zsplit {plan.zsplit}, "
-                     f"{plan.smem_bytes} B smem)")
+                     f"stages {plan.stages}, {plan.smem_bytes} B smem)",
+                     b2_floor_ms(plan, Bs))
     out["text"] += (f"; the coverage form with a zero location conv {zero_ms:.4f} ms "
                     f"(outputs {zero_diff:.1e} from the content form's)")
     return out
@@ -3670,8 +3900,16 @@ def zoo_train_phase(t0, device="cuda", blocks=ZOO_TRAIN_BLOCKS, n=ZOO_TRAIN_N,
                                  f"steps of decoder length {T}")
         if not cuda:
             continue
-        # (d) the backward at every shape (a) and (b) launched, on the inputs of
-        # a launch there, against its plain version and itself; timed at (b)'s
+        # (d) the forward at every shape (a) and (b) launched it with, against
+        # its plain version; the backward at every shape, on the inputs of a
+        # launch there, against its plain version and itself; timed at (b)'s
+        fshapes = sorted(seen["b2_content" if content else "b2"])
+        n, text = (check_content_shapes if content else check_coverage_shapes)(fshapes)
+        log(phase, t0, f"(d) B2's forward matches its plain version at {n} checks of the "
+            f"{len(fshapes)} shapes launched {fshapes}: {text}")
+        if content:
+            log(phase, t0, "(d) B2's forward (the steps' launch) "
+                + content_step_timing(*max(fshapes))["text"])
         worst = {}
         for shape in sorted(shapes):
             err = check_backward(inputs[shape], f"launched shape {shape}")

@@ -58,27 +58,37 @@
 //     over zsplit groups, whose blocks read the sample's tiles again from
 //     L2.  ops/attention_step.py's launch_plan chooses (cluster, chunk,
 //     zsplit, tile, stages);
-//   - prologue, one round trip: the w_loc rows for W' (registers), then one
-//     cp.async group of q's rows, b_loc, w_score, the conv weights and the
-//     coverage rows with their halo (shared memory), then the first ring
-//     tiles;
-//   - each enc_proj tile (32 or 16 positions) comes into a ring of shared
-//     memory once, by 16-byte cp.async, and every beam of the block is
-//     scored against it; the first enc tiles are issued while the block
-//     scores, and the rest stream through the same ring after the softmax;
+//   - prologue: the weights first (the w_loc rows for W' into registers,
+//     then one cp.async group of w_score, b_loc and the conv weights), then
+//     the step's own inputs (q's rows, the coverage rows with their halo),
+//     then the memory;
+//   - the memory, by 16-byte cp.async, in one of two ways (stages):
+//       whole chunk (stages 0, the plans of the content and int8 forms where
+//       two such blocks fit an SM): every enc_proj tile and every enc row
+//       of the block's chunk is issued in the prologue, so a block waits
+//       one memory latency, not one a tile; each enc_proj tile is its own
+//       group (the first with the prologue's), enc one group after them
+//       (one bulk copy of enc's rows on an mbarrier measured slower);
+//       ring (stages >= 2): enc_proj tiles (32 or 16 positions), then enc
+//       tiles, stream through a ring of shared memory, the next issued as
+//       the block takes one;
 //   - scoring: an item is (position, G beams); HS lanes split its H, each a
 //     float4 of h at a time, with the G beams' window taps (coverage) in
 //     registers, so one float4 of W' serves G beams.  The same loop runs
 //     over Kl feature rows in the feature form;
-//   - the f32 scores of the block's positions stay in shared memory.  Row
-//     maxima, then row sums, are combined over the cluster through
-//     distributed shared memory (every rank's value loaded at once), so the
-//     softmax is exact and two-pass as the reference's; each block writes
-//     its normalised alpha;
+//   - one exchange, the split softmax of flash decoding: each block keeps
+//     its positions' scores, then its row maxima m_r, p = exp(e - m_r) in
+//     place, l_r = sum p and an unnormalised context c_r = sum p enc, so
+//     enc needs no alpha and streams with enc_proj.  One cluster barrier;
+//     then every rank reads the C ranks' (m, l) over distributed shared
+//     memory: m = max m_c, l = sum_c l_c exp(m_c - m) in rank order.  Rank
+//     r adds its share of the outputs, sum_c c_c exp(m_c - m) in rank order,
+//     over l; each block writes its alpha = p exp(m_r - m) / l, correctly
+//     rounded, while the exit barrier (split: arrive after the last remote
+//     read) settles;
 //   - context: threads own a float4 of D over a group of positions for every
-//     beam; the groups meet in shared memory, the blocks of the cluster
-//     through distributed shared memory, each rank adding its share of the
-//     outputs in rank order.  One launch, no workspace in device memory.
+//     beam; the groups meet in shared memory.  One launch, no workspace in
+//     device memory, no atomics: two runs give equal bits.
 //
 // The int8 memory form (coverage and content forms; mem_dtype int8).
 // The reference computes the LSTM step on int8 memory in XLA, not in its
@@ -91,16 +101,20 @@
 //   x, e, alpha as above with P for enc_proj
 //   ctx[d]  = (sum_s alpha[s] * enc8[b,s,d]) * enc_scale[b]      (f32)
 //
-// The same grid, ring and loops: the int8 rows stream through the ring (a
-// quarter of float's, half of bfloat16's bytes) and are widened where they
-// are read; the scale is applied once per element of P and once per output.
+// The same grid, ring and loops: the int8 rows stream through shared memory
+// (a quarter of float's, half of bfloat16's bytes) and are widened where
+// they are read.  With bfloat16 compute, 4 bytes of enc_proj become two
+// bf16 pairs exactly in 2 instructions an element (i8x4_to_bf16), and one
+// bf16x2 multiply by the pair (round(ps), round(ps)) gives P rounded once,
+// as the plain version rounds it; with float32 compute P = ps * x8, rounded
+// once to f32.  The scale of enc is applied once per output.
 //
 // Measured on an H100 (PERF.md §6): the scoring loop issues about one
 // instruction every two cycles per scheduler, with or without the MUFU work,
 // the shared loads or more warps, and many of its float operations read
 // two source registers from one bank.  At the slice's
-// shapes a block's fixed chain (prologue, cluster exchanges, output) of
-// ~8 us dominates.
+// shapes a block's fixed chain (prologue, memory round trips, cluster
+// barriers, output) dominates.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -137,11 +151,15 @@ constexpr bool kWide = false;  // D = H, a compile-time constant
 // smem_bytes() is the same arithmetic; the launcher refuses a plan whose
 // bytes are fewer than this layout needs.
 struct Layout {
-  int w, cw, qb, ws, win, scores, oblk, red, misc, ring, stage, total;
+  int w, cw, qb, ws, win, scores, oblk, red, misc, ring, stage, enc, total;
 };
 
 __host__ __device__ inline int up16(int x) { return (x + 15) & ~15; }
 __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
+
+// misc: each beam's sum l and factors exp(m_c - m) of the C ranks, and the
+// (m_c, l_c) the C ranks pushed
+constexpr int kMiscFloats = kMaxQ + 3 * kMaxQ * kMaxCluster;
 
 __host__ __device__ inline Layout make_layout(int form, int Kz, int chunk, int tile, int stages,
                                               int D, int H, int Kl, int elem) {
@@ -151,17 +169,27 @@ __host__ __device__ inline Layout make_layout(int form, int Kz, int chunk, int t
   L.w = off;      off += up16(depth * H * 4);                             // W' or w_loc, scaled
   L.cw = off;     off += up16(form == kCoverage ? (kTaps + 1) * Kl * 4 : 0);  // conv_w, conv_b
   L.qb = off;     off += up16(Kz * H * 4);                                // (q + b') scaled
-  L.ws = off;     off += up16(H * 4);                                     // -2 w_score
+  L.ws = off;     off += up16(H * 4);                                     // w_score
   L.win = off;    off += up16(form == kCoverage ? Kz * (chunk + 2 * kHalo) * 4 : 0);
-  L.scores = off; off += up16(Kz * chunk * 4);
-  L.oblk = off;   off += up16(imax(Kz * D, H) * 4);                       // b_loc, then context
+  L.scores = off; off += up16(Kz * chunk * 4);                            // e, then p
+  L.oblk = off;   off += up16((imax(Kz * D, H) + kMaxCluster) * 4);       // b_loc, then pushes
   L.red = off;    off += kRedFloats * 4;
-  L.misc = off;   off += up16((4 * kMaxQ + 4) * 4);
-  // a ring stage: tile enc_proj or enc rows, padded by 16 bytes, and in the
-  // feature form the tile's loc_feat rows of every beam
-  L.stage = up16(tile * (imax(D, H) * elem + 16)) +
-            (form == kFeature ? Kz * tile * (Kl * 4 + 16) : 0);
-  L.ring = off;   off += stages * L.stage;
+  L.misc = off;   off += up16(kMiscFloats * 4);
+  L.ring = off;
+  if (stages == 0) {
+    // the whole chunk: its enc_proj rows, then its enc rows, each padded
+    // by 16 bytes
+    L.stage = 0;
+    L.enc = off + up16(chunk * (H * elem + 16));
+    off = L.enc + up16(chunk * (D * elem + 16));
+  } else {
+    // a ring stage: tile enc_proj or enc rows, padded by 16 bytes, and in
+    // the feature form the tile's loc_feat rows of every beam
+    L.stage = up16(tile * (imax(D, H) * elem + 16)) +
+              (form == kFeature ? Kz * tile * (Kl * 4 + 16) : 0);
+    L.enc = 0;
+    off += stages * L.stage;
+  }
   L.total = off;
   return L;
 }
@@ -197,6 +225,61 @@ __device__ __forceinline__ float round_to(float x) {
   } else {
     return __bfloat162float(__float2bfloat16_rn(x));
   }
+}
+
+// a * 1 + c, and a * b (+ -0: the product rounded once), on bf16 pairs
+__device__ __forceinline__ uint32_t bf16x2_add(uint32_t a, uint32_t c) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(0x3F803F80u), "r"(c));
+  return d;
+}
+__device__ __forceinline__ uint32_t bf16x2_mul(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(0x80008000u));
+  return d;
+}
+
+// four int8 values (bytes 0..3 of w) -> bf16 pairs (0, 1) and (2, 3),
+// exactly (as csrc/decode_attention.cu's).  With l the low 7 bits of a byte
+// b and s its sign bit, b = (128 + l) - (128 + 128 s): 128 + l is bf16
+// 0x4300 | l, and -(128 + 128 s) is bf16 0xC300 | (b & 0x80).  One byte
+// permute places each term, one bf16x2 FMA subtracts exactly.
+__device__ __forceinline__ void i8x4_to_bf16(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  const uint32_t l = w & 0x7f7f7f7fu, sgn = w & 0x80808080u;
+  lo = bf16x2_add(__byte_perm(l, 0x43434343u, 0x5140u), __byte_perm(sgn, 0xC3C3C3C3u, 0x5140u));
+  hi = bf16x2_add(__byte_perm(l, 0x43434343u, 0x5342u), __byte_perm(sgn, 0xC3C3C3C3u, 0x5342u));
+}
+
+// P of four int8 values of enc_proj (4 bytes, aligned) with the sample's
+// scale ps (rounded to RT; ps2 the pair (ps, ps) as bf16 bits), as floats:
+// round_RT(ps * x8), rounded once
+template <typename RT>
+__device__ __forceinline__ float4 dequant4(const void* p, float ps, uint32_t ps2) {
+  if constexpr (sizeof(RT) == 4) {
+    const float4 x = load4<int8_t>(p);
+    return make_float4(x.x * ps, x.y * ps, x.z * ps, x.w * ps);
+  } else {
+    uint32_t lo, hi;
+    i8x4_to_bf16(*reinterpret_cast<const uint32_t*>(p), lo, hi);
+    lo = bf16x2_mul(lo, ps2);
+    hi = bf16x2_mul(hi, ps2);
+    return make_float4(__uint_as_float(lo << 16), __uint_as_float(lo & 0xffff0000u),
+                       __uint_as_float(hi << 16), __uint_as_float(hi & 0xffff0000u));
+  }
+}
+
+// the cluster barrier in two halves (PTX barrier.cluster): arrive, releasing
+// the thread's writes and reads, then wait
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 __device__ __forceinline__ float ex2_approx(float x) {
@@ -262,17 +345,17 @@ __device__ __forceinline__ float warp_sum(float x) {
 // each; lane `sub` of an item takes the float4 columns sub, sub + HS, ...
 // of H.  For each column and beam:
 //   x' = P * 2/ln2 + qb + sum_j a_j * w_s[j]     (qb and w_s pre-scaled)
-//   e += (-2 w) / (1 + 2^x')
+//   e += w / (1 + 2^x'),  score = sum_h w - 2 e
 // with j over the 5 window taps (coverage; a_j in registers) or the Kl
 // features (feature form; a_j from the tile's loc_feat rows): one loop.
 // int8 memory (T int8_t): P = round_RT(enc_proj8 * ps), ps the sample's
-// proj_scale already rounded to RT.
+// proj_scale already rounded to RT (ps2: as a bf16 pair).
 template <typename T, typename RT, int H, int G, int FORM>
 __device__ __forceinline__ void score_tile(const unsigned char* buf, const float* loc_tile,
                                            const float* w_s, const float* qb_s, const float* ws_s,
                                            const float* win_s, float* sc_s, float sum_ws,
-                                           float ps, int chunk, int p0, int np, int tile, int Kz,
-                                           int Kl, int HS, int tid) {
+                                           float ps, uint32_t ps2, int chunk, int p0, int np,
+                                           int tile, int Kz, int Kl, int HS, int tid) {
   constexpr bool kCov = FORM == kCoverage;
   constexpr int RS = H * (int)sizeof(T) + 16;
   constexpr int NC = H / 4;  // float4 columns
@@ -307,10 +390,11 @@ __device__ __forceinline__ void score_tile(const unsigned char* buf, const float
       }
       for (int c = sub; c < NC; c += HS) {
         const int h0 = 4 * c;
-        float4 p = load4<T>(prow + h0 * (int)sizeof(T));
+        float4 p;
         if constexpr (sizeof(T) == 1) {
-          p = make_float4(round_to<RT>(p.x * ps), round_to<RT>(p.y * ps), round_to<RT>(p.z * ps),
-                          round_to<RT>(p.w * ps));
+          p = dequant4<RT>(prow + h0, ps, ps2);
+        } else {
+          p = load4<T>(prow + h0 * (int)sizeof(T));
         }
         const float4 wsc = *reinterpret_cast<const float4*>(ws_s + h0);
         float x[G][4];
@@ -364,7 +448,7 @@ __device__ __forceinline__ void score_tile(const unsigned char* buf, const float
     }
     if (live && sub == 0) {
 #pragma unroll
-      for (int gg = 0; gg < G; ++gg) sc_s[(g * G + gg) * chunk + p0 + pl] = sum_ws + e[gg];
+      for (int gg = 0; gg < G; ++gg) sc_s[(g * G + gg) * chunk + p0 + pl] = fmaf(-2.f, e[gg], sum_ws);
     }
   }
 }
@@ -382,7 +466,7 @@ attention_step_kernel(const T* __restrict__ enc, const T* __restrict__ enc_proj,
   constexpr bool kCov = FORM == kCoverage;
   constexpr bool kQ8 = sizeof(T) == 1;  // int8 memory with per-sample scales
   constexpr int ELEM = sizeof(T);
-  constexpr int RS = H * ELEM + 16;   // bytes of a padded enc_proj row in the ring
+  constexpr int RS = H * ELEM + 16;   // bytes of a padded enc_proj row in shared memory
   constexpr int CPR = H * ELEM / 16;  // 16-byte pieces of an enc_proj row
   constexpr int VEC = 16 / ELEM;      // elements of a piece
   constexpr int NC = H / 4;           // float4 columns of H
@@ -391,40 +475,37 @@ attention_step_kernel(const T* __restrict__ enc, const T* __restrict__ enc_proj,
   // enc's width: DT where the instance fixes it, so that every width below
   // and the loops over it are compile-time constants there
   const int D = DT > 0 ? DT : d_width;
-  const int RSD = D * ELEM + 16;      // RS and CPR of an enc row
+  const int RSD = D * ELEM + 16;      // RS and CPR of an enc row in a ring tile
   const int CPRD = D * ELEM / 16;
+  const bool full = stages == 0;      // the whole chunk in shared memory
 
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int C = gridDim.x;  // the cluster spans x
   const int rank = blockIdx.x;
-  // a cluster of one block needs only the block's barrier
-  auto cluster_sync = [&]() {
-    if (C == 1) {
-      __syncthreads();
-    } else {
-      cluster.sync();
-    }
-  };
   const int b = blockIdx.y;
   const long row0 = (long)b * K + (long)blockIdx.z * Kz;  // the block's first decode row
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
+  const float escale = kQ8 ? __ldg(enc_scale + b) : 1.f;
+  const float pscale = kQ8 ? __ldg(proj_scale + b) : 1.f;
 
   const Layout L = make_layout(FORM, Kz, chunk, tile, stages, D, H, Kl, ELEM);
   float* w_s = reinterpret_cast<float*>(smem + L.w);
   float* qb_s = reinterpret_cast<float*>(smem + L.qb);
   float* ws_s = reinterpret_cast<float*>(smem + L.ws);
   float* win_s = reinterpret_cast<float*>(smem + L.win);
-  float* sc_s = reinterpret_cast<float*>(smem + L.scores);  // [Kz][chunk]
-  float* o_blk = reinterpret_cast<float*>(smem + L.oblk);   // [Kz][D]
+  float* sc_s = reinterpret_cast<float*>(smem + L.scores);  // [Kz][chunk]: e, then p
+  float* o_blk = reinterpret_cast<float*>(smem + L.oblk);   // b_loc, then the pushed sums
   float* red = reinterpret_cast<float*>(smem + L.red);
-  float* blk_max = reinterpret_cast<float*>(smem + L.misc);
-  float* blk_sum = blk_max + kMaxQ;
-  float* gmax = blk_max + 2 * kMaxQ;
-  float* gsum = blk_max + 3 * kMaxQ;
-  float* sum_ws_s = blk_max + 4 * kMaxQ;
+  float* gsum = reinterpret_cast<float*>(smem + L.misc);     // l
+  float* gfac = gsum + kMaxQ;                                // [Kz][kMaxCluster]: exp(m_c - m)
+  float* xm = gfac + kMaxQ * kMaxCluster;                    // [Kz][kMaxCluster]: m_c pushed
+  float* xl = xm + kMaxQ * kMaxCluster;                      // [Kz][kMaxCluster]: l_c pushed
+  // rank c's copy of a shared-memory address, to push to (this block's own
+  // in a cluster of one)
+  auto to = [&](float* p, int c) -> float* { return C == 1 ? p : cluster.map_shared_rank(p, c); };
   unsigned char* ring = smem + L.ring;
 
   const int lo = rank * chunk;
@@ -439,17 +520,23 @@ attention_step_kernel(const T* __restrict__ enc, const T* __restrict__ enc_proj,
   const T* enc_b = enc + ((long)b * S + lo) * D;
 
   // tile i of the stream: enc_proj tiles 0..nt_p-1 (with their loc_feat
-  // rows in the feature form), then enc tiles.  Every call commits a group.
-  auto issue = [&](int i) {
+  // rows in the feature form), then enc tiles: in a ring slot, or (enc_proj)
+  // at its rows of the whole chunk
+  auto tile_buf = [&](int i) -> unsigned char* {
+    if (!full) return ring + (i % stages) * L.stage;
+    return i < nt_p ? ring + i * tile * RS : smem + L.enc + (i - nt_p) * tile * RSD;
+  };
+  auto issue_tile = [&](int i) {
     if (i < n_stream) {
       const bool proj = i < nt_p;
       const int p0 = (proj ? i : i - nt_p) * tile;
       const int np = min(tile, (proj ? n_sc : n_cx) - p0);
-      unsigned char* dst = ring + (i % stages) * L.stage;
+      unsigned char* dst = tile_buf(i);
       const int w = proj ? H : D, cpr = proj ? CPR : CPRD, rs = proj ? RS : RSD;
       const T* src = (proj ? proj_b : enc_b) + (long)p0 * w;
+      const int lg = __ffs(cpr) - 1;  // cpr is a power of 2
       for (int piece = tid; piece < np * cpr; piece += kThreads) {
-        const int r = piece / cpr, c = piece % cpr;
+        const int r = piece >> lg, c = piece & (cpr - 1);
         cp_async16(dst + r * rs + c * 16, src + (long)r * w + c * VEC);
       }
       if constexpr (FORM == kFeature) {
@@ -465,15 +552,21 @@ attention_step_kernel(const T* __restrict__ enc, const T* __restrict__ enc_proj,
         }
       }
     }
+  };
+  // every call commits a group
+  auto issue = [&](int i) {
+    issue_tile(i);
     cp_async_commit();
   };
-  // ---- prologue.  One group of cp.async, the oldest, brings q's rows, b_loc
-  // (into o_blk until the context), w_score, and the location inputs: the
-  // conv weights and the coverage rows of the block's beams with a halo of
-  // kHalo positions each side, zero outside [0, S) and read at every
-  // position, valid or not (coverage form), or w_loc (feature form).
+  // ---- prologue.  The weights first: the w_loc rows this thread sums for
+  // W' (coverage form, registers), then one cp.async group of w_score, b_loc
+  // (into o_blk until the exchange) and the conv weights or w_loc; then the
+  // step's own inputs: q's rows, and the coverage rows of the block's beams
+  // with a halo of kHalo positions each side, zero outside [0, S) and read
+  // at every position, valid or not.  Then the memory: in the whole-chunk
+  // form every tile (the first in the prologue's group), else the first
+  // ring tiles.
   float* cw_s = reinterpret_cast<float*>(smem + L.cw);
-  // coverage form: this thread's first rows of w_loc (see W' below) go first
   constexpr int NJP = kThreads / NC;
   const int h4 = tid % NC, jp = tid / NC;
   const int MJ = (Kl - jp + NJP - 1) / NJP;  // rows of w_loc this thread sums
@@ -487,7 +580,6 @@ attention_step_kernel(const T* __restrict__ enc, const T* __restrict__ enc_proj,
     }
   };
   if constexpr (kCov) load_rows(0);
-  for (int i = tid; i < Kz * NC; i += kThreads) cp_async16(qb_s + 4 * i, q + row0 * H + 4 * i);
   for (int i = tid; i < NC; i += kThreads) {
     cp_async16(ws_s + 4 * i, w_score + 4 * i);
     if constexpr (FORM != kContent) cp_async16(o_blk + 4 * i, b_loc + 4 * i);
@@ -503,6 +595,11 @@ attention_step_kernel(const T* __restrict__ enc, const T* __restrict__ enc_proj,
       cp_async4(cw_s + i, u == kTaps ? conv_b + i % Kl : live ? conv_w + t * Kl + i % Kl : conv_w,
                 live);
     }
+  } else if constexpr (FORM == kFeature) {
+    for (int i = tid; i < Kl * NC; i += kThreads) cp_async16(w_s + 4 * i, w_loc + 4 * i);
+  }
+  for (int i = tid; i < Kz * NC; i += kThreads) cp_async16(qb_s + 4 * i, q + row0 * H + 4 * i);
+  if constexpr (kCov) {
     for (int k = 0; k < Kz; ++k) {
       for (int j = tid; j < WL; j += kThreads) {
         const int s = lo - kHalo + j;
@@ -510,12 +607,32 @@ attention_step_kernel(const T* __restrict__ enc, const T* __restrict__ enc_proj,
         cp_async4(win_s + k * WL + j, live ? loc + (row0 + k) * S + s : loc, live);
       }
     }
-  } else {
-    for (int i = tid; i < Kl * NC; i += kThreads) cp_async16(w_s + 4 * i, w_loc + 4 * i);
   }
-  cp_async_commit();
-  for (int i = 0; i < stages - 1; ++i) issue(i);
+  int pro_pending;  // groups committed after the prologue's
+  if (full) {
+    if (nt_p > 0) issue_tile(0);
+    cp_async_commit();
+    for (int i = 1; i < nt_p; ++i) issue(i);
+    for (int i = nt_p; i < n_stream; ++i) issue_tile(i);
+    cp_async_commit();  // enc, one group
+    pro_pending = max(nt_p, 1);
+  } else {
+    cp_async_commit();
+    for (int i = 0; i < stages - 1; ++i) issue(i);
+    pro_pending = stages - 1;
+  }
 
+  cp_async_wait(pro_pending);  // the prologue's group
+  if constexpr (FORM == kContent) {
+    // q's rows this thread copied, scaled: no other thread's copy is read
+    // before the barrier below
+    for (int i = tid; i < Kz * NC; i += kThreads) {
+      float4* v = reinterpret_cast<float4*>(qb_s + 4 * i);
+      *v = make_float4(v->x * kTwoOverLn2, v->y * kTwoOverLn2, v->z * kTwoOverLn2,
+                       v->w * kTwoOverLn2);
+    }
+  }
+  __syncthreads();
   if constexpr (kCov) {
     // W'[u] (window slot u = tap t - ks + kHalo; zero rows outside the
     // conv's taps) and b' = conv_b . w_loc + b_loc.  Thread (jp, h4) sums
@@ -525,8 +642,6 @@ attention_step_kernel(const T* __restrict__ enc, const T* __restrict__ enc_proj,
     float4 acc[kTaps + 1];
 #pragma unroll
     for (int u = 0; u <= kTaps; ++u) acc[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-    cp_async_wait(stages - 1);  // the prologue's group
-    __syncthreads();
     for (int m0 = 0; m0 < MJ; m0 += 8) {
       if (m0 > 0) load_rows(m0);
 #pragma unroll
@@ -548,12 +663,6 @@ attention_step_kernel(const T* __restrict__ enc, const T* __restrict__ enc_proj,
     for (int u = 0; u <= kTaps; ++u) {
       reinterpret_cast<float4*>(red + (jp * (kTaps + 1) + u) * H)[h4] = acc[u];
     }
-    if (warp == 0) {
-      float sum = 0.f;
-      for (int h = lane; h < H; h += 32) sum += ws_s[h];
-      sum = warp_sum(sum);
-      if (lane == 0) *sum_ws_s = sum;
-    }
     __syncthreads();
     for (int i = tid; i < (kTaps + 1) * H; i += kThreads) {
       const int u = i / H, h = i % H;
@@ -566,38 +675,50 @@ attention_step_kernel(const T* __restrict__ enc, const T* __restrict__ enc_proj,
         o_blk[h] = sum + o_blk[h];  // b' (o_blk held b_loc)
       }
     }
-  } else {
-    cp_async_wait(stages - 1);  // the prologue's group
     __syncthreads();
+  } else if constexpr (FORM == kFeature) {
     for (int i = tid; i < Kl * H; i += kThreads) w_s[i] *= kTwoOverLn2;
-    if (warp == 0) {
-      float sum = 0.f;
-      for (int h = lane; h < H; h += 32) sum += ws_s[h];
-      sum = warp_sum(sum);
-      if (lane == 0) *sum_ws_s = sum;
-    }
   }
-  __syncthreads();
-  for (int i = tid; i < Kz * H; i += kThreads) {
-    qb_s[i] = (FORM == kContent ? qb_s[i] : qb_s[i] + o_blk[i % H]) * kTwoOverLn2;
+  if constexpr (FORM != kContent) {
+    for (int i = tid; i < Kz * H; i += kThreads) qb_s[i] = (qb_s[i] + o_blk[i % H]) * kTwoOverLn2;
+    __syncthreads();
   }
-  for (int h = tid; h < H; h += kThreads) ws_s[h] *= -2.f;
-  __syncthreads();
-  const float sum_ws = *sum_ws_s;
-  const float ps = kQ8 ? round_to<RT>(__ldg(proj_scale + b)) : 1.f;
+  // no rank pushes into another's o_blk before that one is done with b'
+  // here: its reads of b' were consumed before the block barrier above, so
+  // the arrival needs no release; each rank waits for it before its first
+  // push
+  if (C > 1) cluster_arrive_relaxed();
+  // sum_h w_score, in every warp
+  float sum_ws;
+  {
+    float sum = 0.f;
+    for (int h = lane; h < H; h += 32) sum += ws_s[h];
+    sum_ws = warp_sum(sum);
+  }
+  const float ps = kQ8 ? round_to<RT>(pscale) : 1.f;
+  uint32_t ps2 = 0;
+  if constexpr (kQ8 && sizeof(RT) == 2) {
+    const uint32_t u = __bfloat16_as_ushort(__float2bfloat16_rn(pscale));
+    ps2 = u | (u << 16);
+  }
 
-  // ---- scores, a ring tile at a time
+  // ---- scores, a tile at a time
   {
     const int items = tile * (Kz / G);
     int HS = kThreads / items;
     HS = HS >= 8 ? 8 : HS >= 4 ? 4 : HS >= 2 ? 2 : 1;
     for (int i = 0; i < nt_p; ++i) {
-      cp_async_wait(stages - 2);
-      __syncthreads();  // tile i landed for all; everyone is done with tile i - 1
-      issue(i + stages - 1);
-      const unsigned char* buf = ring + (i % stages) * L.stage;
+      if (!full) {
+        cp_async_wait(stages - 2);
+        __syncthreads();  // tile i landed for all; everyone is done with tile i - 1
+        issue(i + stages - 1);
+      } else if (i > 0) {
+        cp_async_wait(nt_p - i);  // tile i's group; the later tiles and enc may be in flight
+        __syncthreads();
+      }
+      const unsigned char* buf = tile_buf(i);
       const float* loc_tile = reinterpret_cast<const float*>(buf + up16(tile * RS));
-      score_tile<T, RT, H, G, FORM>(buf, loc_tile, w_s, qb_s, ws_s, win_s, sc_s, sum_ws, ps,
+      score_tile<T, RT, H, G, FORM>(buf, loc_tile, w_s, qb_s, ws_s, win_s, sc_s, sum_ws, ps, ps2,
                                     chunk, i * tile, min(tile, n_sc - i * tile), tile, Kz, Kl,
                                     HS, tid);
     }
@@ -606,29 +727,14 @@ attention_step_kernel(const T* __restrict__ enc, const T* __restrict__ enc_proj,
     for (int s = n_sc + tid; s < n_local; s += kThreads) sc_s[k * chunk + s] = kNegInf;
   }
   __syncthreads();
+  if (C > 1) cluster_wait();  // every rank is past its prologue: pushes may start
 
-  // ---- softmax over S, in f32: row maxima, then row sums, over the cluster
+  // ---- the block's softmax, in f32: row maxima m_r, p = exp(e - m_r) in
+  // place, row sums l_r, pushed to every rank (lane c to rank c)
   for (int k = warp; k < Kz; k += kWarps) {
     float m = -INFINITY;
     for (int s = lane; s < n_local; s += 32) m = fmaxf(m, sc_s[k * chunk + s]);
     m = warp_max(m);
-    if (lane == 0) blk_max[k] = m;
-  }
-  cluster_sync();
-  if (tid < Kz) {  // every rank's value in flight at once
-    float v[kMaxCluster];
-#pragma unroll
-    for (int c = 0; c < kMaxCluster; ++c) {
-      v[c] = c < C ? *cluster.map_shared_rank(blk_max + tid, c) : -INFINITY;
-    }
-    float m = v[0];
-#pragma unroll
-    for (int c = 1; c < kMaxCluster; ++c) m = fmaxf(m, v[c]);
-    gmax[tid] = m;
-  }
-  __syncthreads();
-  for (int k = warp; k < Kz; k += kWarps) {
-    const float m = gmax[k];
     float sum = 0.f;
     for (int s = lane; s < n_local; s += 32) {
       const float x = expf(sc_s[k * chunk + s] - m);
@@ -636,52 +742,23 @@ attention_step_kernel(const T* __restrict__ enc, const T* __restrict__ enc_proj,
       sum += x;
     }
     sum = warp_sum(sum);
-    if (lane == 0) blk_sum[k] = sum;
-  }
-  cluster_sync();
-  if (tid < Kz) {
-    float v[kMaxCluster];
-#pragma unroll
-    for (int c = 0; c < kMaxCluster; ++c) {
-      v[c] = c < C ? *cluster.map_shared_rank(blk_sum + tid, c) : 0.f;
-    }
-    float sum = 0.f;
-#pragma unroll
-    for (int c = 0; c < kMaxCluster; ++c) sum += v[c];  // in rank order
-    gsum[tid] = sum;
-  }
-  __syncthreads();
-  // alpha = e / sum, correctly rounded in the normal range: q = e * (1/sum)
-  // and one FMA step on its remainder
-  for (int k = 0; k < Kz; ++k) {
-    const float sum = gsum[k];
-    const float inv = 1.f / sum;
-    for (int s = tid; s < n_local; s += kThreads) {
-      const float e = sc_s[k * chunk + s];
-      const float q0 = e * inv;
-      const float a = fmaf(fmaf(-q0, sum, e), inv, q0);
-      sc_s[k * chunk + s] = a;
-      alpha[(row0 + k) * S + lo + s] = a;
+    if (lane < C) {
+      *to(xm + k * kMaxCluster + rank, lane) = m;
+      *to(xl + k * kMaxCluster + rank, lane) = sum;
     }
   }
 
-  // ---- context: thread (pg, d4) takes a float4 of D over positions pg,
-  // pg + NPG, ... of each enc tile, for every beam
+  // ---- context, unnormalised: thread (pg, d4) takes a float4 of D over
+  // positions pg, pg + NPG, ... of the enc rows, for every beam
   const int NCD = D / 4;
   const int NPG = kThreads / NCD;
   const int d4 = tid % NCD, pg = tid / NCD;
   float acc[kMaxQ][4];
 #pragma unroll
   for (int k = 0; k < kMaxQ; ++k) acc[k][0] = acc[k][1] = acc[k][2] = acc[k][3] = 0.f;
-  for (int i = nt_p; i < n_stream; ++i) {
-    cp_async_wait(stages - 2);
-    __syncthreads();  // also orders the alpha writes above before the first tile
-    issue(i + stages - 1);
-    const unsigned char* buf = ring + (i % stages) * L.stage;
-    const int p0 = (i - nt_p) * tile;
-    const int np = min(tile, n_cx - p0);
+  auto accumulate = [&](const unsigned char* rows, int p0, int np) {
     for (int r = pg; r < np; r += NPG) {
-      const float4 v = load4<T>(buf + r * RSD + d4 * 4 * ELEM);
+      const float4 v = load4<T>(rows + r * RSD + d4 * 4 * ELEM);
       const float* a = sc_s + p0 + r;
       // beams in groups of G (Kz is a multiple of G): one test a group
 #pragma unroll
@@ -697,11 +774,28 @@ attention_step_kernel(const T* __restrict__ enc, const T* __restrict__ enc_proj,
         }
       }
     }
+  };
+  if (full) {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");  // enc's group
+    __syncthreads();  // also orders p above before its reads
+    accumulate(smem + L.enc, 0, n_cx);
+  } else {
+    for (int i = nt_p; i < n_stream; ++i) {
+      cp_async_wait(stages - 2);
+      __syncthreads();  // also orders p above before the first tile
+      issue(i + stages - 1);
+      const int p0 = (i - nt_p) * tile;
+      accumulate(tile_buf(i), p0, min(tile, n_cx - p0));
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
   }
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
   // the position groups' sums meet in red, KB beams at a time (NPG * D =
-  // 4 * kThreads whatever D)
+  // 4 * kThreads whatever D); each sum is pushed to the rank that writes
+  // its output: rank c owns outputs [c * share, (c + 1) * share) of the Kz
+  // x D and takes rank r's part of them at o_blk[r * share, ...)
+  const int n_out = Kz * D;
+  const int share = (n_out + C - 1) / C;
   constexpr int KB = kRedFloats / (4 * kThreads);
   for (int k0 = 0; k0 < Kz; k0 += KB) {
 #pragma unroll
@@ -721,27 +815,56 @@ attention_step_kernel(const T* __restrict__ enc, const T* __restrict__ enc_proj,
       } else {
         for (int p = 0; p < NPG; ++p) x += red[(p * KB + kk) * D + d];
       }
-      o_blk[(k0 + kk) * D + d] = x;
+      const int jo = (k0 + kk) * D + d, c = jo / share;
+      *to(o_blk + rank * share + jo - c * share, c) = x;
     }
     __syncthreads();
   }
-  // the cluster's blocks' sums, in rank order; rank r writes the r-th share
-  cluster_sync();
-  const int n_out = Kz * D;
-  const int share = (n_out + C - 1) / C;
-  for (int j = rank * share + tid; j < min(n_out, (rank + 1) * share); j += kThreads) {
-    float v[kMaxCluster];
-#pragma unroll
-    for (int c = 0; c < kMaxCluster; ++c) {
-      v[c] = c >= C ? 0.f : C == 1 ? o_blk[j] : *cluster.map_shared_rank(o_blk + j, c);
-    }
-    float x = 0.f;
-#pragma unroll
-    for (int c = 0; c < kMaxCluster; ++c) x += v[c];  // in rank order
-    if constexpr (kQ8) x *= __ldg(enc_scale + b);
-    ctx[(row0 + j / D) * D + j % D] = x;
+
+  // ---- the one exchange: every rank's (m_r, l_r) and its part of this
+  // rank's outputs have been pushed here; after one cluster barrier every
+  // read is local, and no rank reads another's shared memory again
+  if (C > 1) {
+    cluster_arrive();
+    cluster_wait();
   }
-  cluster_sync();  // no block leaves while another reads its shared memory
+  if (tid < Kz * C) {  // thread (k, c): exp(m_c - m) of beam k
+    const int k = tid / C, c = tid % C;
+    float m = xm[k * kMaxCluster];
+    for (int c2 = 1; c2 < C; ++c2) m = fmaxf(m, xm[k * kMaxCluster + c2]);
+    gfac[k * kMaxCluster + c] = expf(xm[k * kMaxCluster + c] - m);
+  }
+  __syncthreads();
+  if (tid < Kz) {
+    float l = 0.f;
+    for (int c = 0; c < C; ++c) {  // in rank order
+      l = fmaf(xl[tid * kMaxCluster + c], gfac[tid * kMaxCluster + c], l);
+    }
+    gsum[tid] = l;
+  }
+  __syncthreads();
+  // this rank's share of the outputs: sum_c c_c exp(m_c - m) in rank order,
+  // over l
+  for (int jj = tid; jj < min(share, n_out - rank * share); jj += kThreads) {
+    const int j = rank * share + jj, k = j / D;
+    float x = 0.f;
+    for (int c = 0; c < C; ++c) x = fmaf(o_blk[c * share + jj], gfac[k * kMaxCluster + c], x);
+    x = x / gsum[k];
+    if constexpr (kQ8) x *= escale;
+    ctx[(row0 + k) * D + j % D] = x;
+  }
+  // alpha = p exp(m_r - m) / l, correctly rounded in the normal range: q0 =
+  // x * (1/l) and one FMA step on its remainder
+  for (int k = 0; k < Kz; ++k) {
+    const float g = gfac[k * kMaxCluster + rank];
+    const float l = gsum[k];
+    const float inv = 1.f / l;
+    for (int s = tid; s < n_local; s += kThreads) {
+      const float x = sc_s[k * chunk + s] * g;
+      const float q0 = x * inv;
+      alpha[(row0 + k) * S + lo + s] = fmaf(fmaf(-q0, l, x), inv, q0);
+    }
+  }
 }
 
 template <typename T, typename RT, int H, int DT, int G, int FORM>
@@ -818,8 +941,9 @@ int launch(const void* enc, const void* enc_proj, const void* q, const void* loc
       zsplit <= 0 ||
       zsplit > 65535 || K % zsplit != 0 || Kz > kMaxQ || cluster <= 0 ||
       cluster > kMaxCluster || chunk <= 0 || (long)cluster * chunk < S ||
-      (long)(cluster - 1) * chunk >= S || (tile != 16 && tile != 32) || stages < 2 ||
-      stages > kMaxStages || smem_bytes > kMaxSmem ||
+      (long)(cluster - 1) * chunk >= S || (tile != 16 && tile != 32) ||
+      (stages == 0 ? FORM == kFeature : stages < 2 || stages > kMaxStages) ||
+      smem_bytes > kMaxSmem ||
       smem_bytes < make_layout(FORM, Kz, chunk, tile, stages, D, H, Kl, elem).total) {
     return (int)cudaErrorInvalidValue;
   }
@@ -852,13 +976,44 @@ int launch(const void* enc, const void* enc_proj, const void* q, const void* loc
   return (int)cudaGetLastError();
 }
 
+// The launch floor: an empty kernel on the grid, cluster and dynamic shared
+// memory of a plan, what a launch of the step costs before any work
+__global__ void __launch_bounds__(kThreads) floor_kernel() {}
+
 }  // namespace
+
+// (cluster, Bs, zsplit, smem_bytes) as a plan of the step gives them
+extern "C" int d2t_attention_step_floor(int cluster, int Bs, int zsplit, int smem_bytes,
+                                        void* stream) {
+  if (cluster <= 0 || cluster > kMaxCluster || Bs <= 0 || Bs > 65535 || zsplit <= 0 ||
+      zsplit > 65535 || smem_bytes < 0 || smem_bytes > kMaxSmem) {
+    return (int)cudaErrorInvalidValue;
+  }
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(floor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (attr != cudaSuccess) return (int)attr;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, Bs, zsplit);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem_bytes;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = cluster;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  const cudaError_t rc = cudaLaunchKernelEx(&cfg, floor_kernel);
+  return rc != cudaSuccess ? (int)rc : (int)cudaGetLastError();
+}
 
 // valid < 0 means no mask.  K = beams per sample (rows of q / Bs).
 // (cluster, chunk, zsplit, tile, stages, smem_bytes) is the wrapper's
 // launch plan: blocks per cluster along S, positions per block, beam groups
-// per sample, positions per ring tile (16 or 32), ring tiles, and dynamic
-// shared memory per block.  Returns 0, or the CUDA error of the launch, or
+// per sample, positions per tile (16 or 32), ring tiles (0: the whole
+// chunk in shared memory; coverage and content forms), and dynamic shared
+// memory per block.  Returns 0, or the CUDA error of the launch, or
 // cudaErrorInvalidValue for what the kernel does not take.
 
 // feature form: loc_feat (Bs*K, S, Kl), Kl a multiple of 4; dtype of enc

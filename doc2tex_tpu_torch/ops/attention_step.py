@@ -79,31 +79,64 @@ _FORMS = (FEATURE, COVERAGE, CONTENT)
 
 # The kernel's grid (csrc/attention_step.cu): per sample, `zsplit` groups of
 # K / zsplit beams, each a cluster of up to MAX_CLUSTER blocks splitting S
-# into chunks; a block streams its chunk's enc_proj, then enc, rows through
-# a ring of `stages` tiles of `tile` positions.
+# into chunks; a block takes its chunk's enc_proj, then enc, rows in tiles
+# of `tile` positions, either through a ring of `stages` tiles or (stages
+# FULL, the coverage and content forms) with the whole chunk in shared
+# memory, every tile issued at once.
 MAX_BEAM = 16             # beams a block holds (K / zsplit)
 MAX_CLUSTER = 8           # portable cluster size
 MAX_TAPS = 5              # the widest location conv: kernel_size 2
-TILES = (32, 16)          # positions per ring tile, the first that fits
+TILES = (32, 16)          # positions per tile, the first that fits
 RED_FLOATS = 6144         # the kernel's scratch of partial sums
+MISC_FLOATS = MAX_BEAM + 3 * MAX_BEAM * MAX_CLUSTER   # sums, rank factors, pushed (m, l)
 CHUNK_ALIGN = 8           # a chunk is a multiple of this many positions
 SMEM_LIMIT = 232_448      # dynamic shared memory a block may use on sm_90 (227 KB)
 SMEM_PER_SM = 233_472     # an SM's shared memory; each block also takes 1 KB
 SMS = 132                 # H100 SXM
-# launch_plan's model of a plan's time, fitted to the coverage form's bf16
-# device times over every plan at the synthetic slice's and the release
-# shapes on an H100 (tools/bench_attention_step.py --sweep; PERF.md §6):
-# a block takes FIXED_US (prologue, softmax exchanges, output) plus
-# CLUSTER_US for each block of its cluster, plus US_PER_BEAM_POSITION for
-# each of its beams x positions (H 128; twice that at H 256, and G1_FACTOR
-# times that when its beams are not in fives).  Blocks run in waves of SMS;
-# two waves of clusters of at most 2 blocks share the SMs at CO_RESIDENT of
-# the time.  More than BIG_CLUSTERS clusters of 7 or 8 blocks took
-# BIG_CLUSTER_US longer.
-FIXED_US, CLUSTER_US, US_PER_BEAM_POSITION = 9.4, 0.2, 0.0216
-G1_FACTOR, CO_RESIDENT = 2, 0.72
-BIG_CLUSTERS, BIG_CLUSTER_US = 12, 4.0
+FULL = 0                  # stages: the whole chunk in shared memory
+# a whole-chunk plan leaves room for two blocks an SM: at one block an SM,
+# clusters of 8 of the D = H = 256 int8 form at S 2525 did not all fit the
+# card at once and took 1.46 times the ring's time (PERF.md §6)
+FULL_LIMIT = SMEM_PER_SM // 2 - 1024
 STAGES = 2                # ring tiles: deeper rings measured no faster
+
+
+class PlanModel(NamedTuple):
+    """launch_plan's model of a plan's time, one per row of PERF.md §6 (a
+    form and memory type), fitted to its device times over every plan
+    (tools/bench_attention_step.py --sweep; PERF.md §6): a block takes
+    ``fixed_us`` (prologue, memory latency, cluster barrier, output) plus
+    ``cluster_us`` for each block of its cluster, plus ``us_per_beam_position``
+    for each of its beams x positions (H 128; H / 128 times that, and
+    ``g1_factor`` times that when its beams are not in fives).  Blocks run
+    in waves of SMS; two waves of clusters of at most 2 blocks share the
+    SMs at ``co_resident`` of the time.  More than BIG_CLUSTERS clusters of
+    7 or 8 blocks took ``big_cluster_us`` longer.  ``full``: plans may keep
+    the whole chunk in shared memory where it fits; a ring of STAGES then
+    costs ``ring_us`` more for each tile of the chunk (a memory round trip
+    each)."""
+
+    fixed_us: float
+    cluster_us: float
+    us_per_beam_position: float
+    g1_factor: float
+    co_resident: float
+    full: bool
+    ring_us: float = 0.0
+    big_cluster_us: float = 4.0
+
+
+BIG_CLUSTERS = 12
+# the coverage form on float memory (bf16, H 128; fitted to its first sweep): a ring
+COVERAGE_MODEL = PlanModel(9.4, 0.2, 0.0216, 2, 0.72, False)
+# the content form on float memory (the bahdanau head: D 512, H 256, bf16):
+# the least squares over its 184 plans at the zoo's launches
+# (bench_attention_step --content --sweep, then --fit; PERF.md §6)
+CONTENT_MODEL = PlanModel(7.6151, 0.1311, 0.0211, 1.0797, 0.72, True, 0.3524)
+# the int8 memory form, coverage and content (bf16 compute): the best picks
+# over its 404 plans at int8_full's launches, the release shape and D = H =
+# 256 (--int8 --sweep, then --fit)
+INT8_MODEL = PlanModel(7.2874, 0.1917, 0.0265, 2.0683, 0.6066, True, 0.5613, 6.0713)
 
 
 class LaunchPlan(NamedTuple):
@@ -114,7 +147,7 @@ class LaunchPlan(NamedTuple):
     chunk: int       # positions per block, a multiple of CHUNK_ALIGN
     zsplit: int      # beam groups per sample
     tile: int        # positions per ring tile
-    stages: int      # ring tiles
+    stages: int      # ring tiles, or FULL: the whole chunk
     smem_bytes: int  # dynamic shared memory per block
 
 
@@ -125,21 +158,49 @@ def _up16(x: int) -> int:
 def smem_bytes(form: str, Kz: int, chunk: int, tile: int, stages: int, H: int, Kl: int,
                elem: int, D: int | None = None) -> int:
     """Dynamic shared memory of one block: ``make_layout`` of the kernel
-    (D defaults to H)."""
+    (D defaults to H; ``stages`` FULL: the whole chunk)."""
     D = H if D is None else D
     cov = form == COVERAGE
     feat = form == FEATURE
-    stage = _up16(tile * (max(D, H) * elem + 16)) + (Kz * tile * (Kl * 4 + 16) if feat else 0)
+    if stages == FULL:   # the padded enc_proj rows, then the padded enc rows
+        memory = _up16(chunk * (H * elem + 16)) + _up16(chunk * (D * elem + 16))
+    else:
+        memory = stages * (_up16(tile * (max(D, H) * elem + 16))
+                           + (Kz * tile * (Kl * 4 + 16) if feat else 0))
     return (_up16((MAX_TAPS if cov else Kl if feat else 0) * H * 4)  # W' or w_loc
             + _up16((MAX_TAPS + 1) * Kl * 4 if cov else 0)       # conv_w, conv_b
             + _up16(Kz * H * 4)                                  # q + b'
             + _up16(H * 4)                                       # w_score
             + _up16(Kz * (chunk + MAX_TAPS - 1) * 4 if cov else 0)  # coverage and halo
-            + _up16(Kz * chunk * 4)                              # f32 scores
-            + _up16(max(Kz * D, H) * 4)                          # b_loc, the block's context
+            + _up16(Kz * chunk * 4)                              # f32 scores, then p
+            + _up16((max(Kz * D, H) + MAX_CLUSTER) * 4)          # b_loc, then pushed context
             + RED_FLOATS * 4                                     # partial sums
-            + _up16((4 * 16 + 4) * 4)                            # row max and sum
-            + stages * stage)                                    # the ring
+            + _up16(MISC_FLOATS * 4)                             # sums, factors, (m, l)
+            + memory)                                            # the ring or the chunk
+
+
+def plan_model(form: str, dtype: torch.dtype) -> PlanModel:
+    """The model ``launch_plan`` prices a call's plans with: int8 memory's,
+    the content form's, else the coverage form's (the feature form too)."""
+    if dtype == torch.int8:
+        return INT8_MODEL
+    return CONTENT_MODEL if form == CONTENT else COVERAGE_MODEL
+
+
+def plan_cost(model: PlanModel, Bs: int, K: int, H: int, plan: LaunchPlan) -> float:
+    """``model``'s µs for a plan (see PlanModel)."""
+    cluster, chunk, zsplit, tile, stages, smem = plan
+    Kz = K // zsplit
+    waves = -(-Bs * zsplit * cluster // SMS)
+    work = Kz * chunk * (H / 128) * (1 if Kz % 5 == 0 else model.g1_factor)
+    block = model.fixed_us + model.cluster_us * cluster
+    if stages != FULL:
+        block += model.ring_us * 2 * -(-chunk // tile)
+    if cluster >= 7 and Bs * zsplit > BIG_CLUSTERS:
+        block += model.big_cluster_us
+    if waves == 2 and cluster <= 2 and 2 * (smem + 1024) <= SMEM_PER_SM:
+        return block + 2 * work * model.us_per_beam_position * model.co_resident
+    return waves * (block + work * model.us_per_beam_position)
 
 
 @functools.lru_cache(maxsize=None)
@@ -147,13 +208,16 @@ def launch_plan(Bs: int, K: int, S: int, D: int, H: int, Kl: int, dtype: torch.d
                 form: str = COVERAGE, taps: int = MAX_TAPS) -> LaunchPlan:
     """The kernel's grid for one call.  Over beam groups (zsplit dividing
     K, at most MAX_BEAM beams a block) and clusters of 1..MAX_CLUSTER
-    blocks, with a ring of STAGES tiles of the first size in TILES that fits
-    shared memory, the plan of least modelled time (see FIXED_US); ties go
-    to the smaller cluster, then the fewer groups.  Raises on what the
-    kernel does not take: H outside WIDTHS, D outside D_WIDTHS, taps (2 *
-    kernel_size + 1) above MAX_TAPS, Kl not a multiple of 4 in the feature
-    form (and not 0 in the content form, which has no location term), and
-    an S that MAX_CLUSTER blocks cannot hold."""
+    blocks, each with the whole chunk in shared memory (stages FULL, tiles
+    of 32) where its model allows it and two such blocks fit an SM
+    (FULL_LIMIT), or a ring of STAGES tiles
+    of the first size in TILES that fits, the plan of least modelled time
+    (``plan_model``'s; see PlanModel); ties go to the smaller cluster, then
+    the fewer groups, then the whole chunk.  Raises on what the kernel does not
+    take: H outside WIDTHS, D outside D_WIDTHS, taps (2 * kernel_size + 1)
+    above MAX_TAPS, Kl not a multiple of 4 in the feature form (and not 0
+    in the content form, which has no location term), and an S that
+    MAX_CLUSTER blocks cannot hold."""
     if dtype not in _DTYPE_CODE and not (dtype == torch.int8 and form != FEATURE):
         raise TypeError(f"kernel takes float32/bfloat16 memory (or int8 in the coverage "
                         f"and content forms); got {dtype}")
@@ -170,6 +234,7 @@ def launch_plan(Bs: int, K: int, S: int, D: int, H: int, Kl: int, dtype: torch.d
     if Bs <= 0 or K <= 0 or S <= 0:
         raise ValueError(f"kernel takes samples, beams and S > 0; got {Bs}, {K}, {S}")
     elem = dtype.itemsize
+    model = plan_model(form, dtype)
     best = None
     for zsplit in (z for z in range(1, K + 1) if K % z == 0 and K // z <= MAX_BEAM):
         Kz = K // zsplit
@@ -177,24 +242,16 @@ def launch_plan(Bs: int, K: int, S: int, D: int, H: int, Kl: int, dtype: torch.d
             chunk = -(-(-(-S // cluster)) // CHUNK_ALIGN) * CHUNK_ALIGN
             if -(-S // chunk) != cluster:
                 continue  # the same chunks as a smaller cluster
-            fit = next(((tile, smem) for tile in TILES
-                        if (smem := smem_bytes(form, Kz, chunk, tile, STAGES, H, Kl, elem, D))
-                        <= SMEM_LIMIT), None)
-            if fit is None:
-                continue
-            tile, smem = fit
-            waves = -(-Bs * zsplit * cluster // SMS)
-            work = Kz * chunk * (H // 128) * (1 if Kz % 5 == 0 else G1_FACTOR)
-            block = FIXED_US + CLUSTER_US * cluster
-            if cluster >= 7 and Bs * zsplit > BIG_CLUSTERS:
-                block += BIG_CLUSTER_US
-            if waves == 2 and cluster <= 2 and 2 * (smem + 1024) <= SMEM_PER_SM:
-                cost = block + 2 * work * US_PER_BEAM_POSITION * CO_RESIDENT
-            else:
-                cost = waves * (block + work * US_PER_BEAM_POSITION)
-            key = (cost, cluster, zsplit)
-            if best is None or key < best[0]:
-                best = (key, LaunchPlan(cluster, chunk, zsplit, tile, STAGES, smem))
+            ring = next(((t, STAGES, b) for t in TILES
+                         if (b := smem_bytes(form, Kz, chunk, t, STAGES, H, Kl, elem, D))
+                         <= SMEM_LIMIT), None)
+            whole = smem_bytes(form, Kz, chunk, TILES[0], FULL, H, Kl, elem, D)
+            for fit in ([(TILES[0], FULL, whole)] if model.full and whole <= FULL_LIMIT
+                        else []) + ([ring] if ring else []):
+                plan = LaunchPlan(cluster, chunk, zsplit, *fit)
+                key = (plan_cost(model, Bs, K, H, plan), cluster, zsplit, plan.stages)
+                if best is None or key < best[0]:
+                    best = (key, plan)
     if best is None:
         raise ValueError(f"S={S} does not fit {MAX_CLUSTER} blocks of {SMEM_LIMIT} bytes "
                          f"({form} form, K={K}, D={D}, Kl={Kl}, {dtype})")
@@ -400,6 +457,23 @@ def build() -> dict:
 def build_wide() -> dict:
     """Build (if needed) and load the wide build (D != H, the content form)."""
     return _kernels(wide=True)[1]
+
+
+def launch_floor(plan: LaunchPlan, Bs: int, device=None) -> None:
+    """An empty kernel on ``plan``'s grid for ``Bs`` samples, with its
+    cluster and dynamic shared memory, on the current stream: what a launch
+    of the step costs before any of its work (the tools time it beside the
+    kernel).  Not a step: nothing is computed or counted."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    lib, _ = load_library(SOURCE, (WIDE_DEFINE,))
+    fn = lib.d2t_attention_step_floor
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    with torch.cuda.device(device):
+        rc = fn(plan.cluster, Bs, plan.zsplit, plan.smem_bytes,
+                torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"attention_step floor kernel launch failed with {plan}: CUDA error {rc}")
 
 
 def _same_device(tensors):

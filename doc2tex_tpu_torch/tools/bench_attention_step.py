@@ -4,6 +4,9 @@
         [--against OTHER_CHECKOUT]
     python -m doc2tex_tpu_torch.tools.bench_attention_step --backward [--sweep] [--phases]
         [--against OTHER_CHECKOUT]
+    python -m doc2tex_tpu_torch.tools.bench_attention_step --content|--int8 [--sweep]
+        [--phases] [--against OTHER_CHECKOUT]
+    python -m doc2tex_tpu_torch.tools.bench_attention_step --fit chiprun_out/b2_sweep_int8.json
 
 Times both forms of the kernel in bf16 at the shapes of the ``synthetic``
 main path (the batches of 8 and 1 samples at beam 10 that its golden crops
@@ -38,7 +41,28 @@ beside the number of such clusters the card holds at once; with
 ``--phases`` the mean of each phase of the main pass over its blocks.  ``--against`` times another checkout's
 coverage-form backward in this same process (its package loaded under
 another name, its kernel built from its own sources) on the same inputs,
-in the order other, this, this, other.  Needs a card; fails without one.
+in the order other, this, this, other.
+
+``--content`` times B2's content form (the bahdanau head of
+``zoo_vgg_bahdanau``: D 512, H 256, bf16 memory, no location term) at the
+zoo's launched shapes (``CONTENT_SHAPES``: 1 sample x beam 10, S 47-207)
+and at training's forward (8 samples, K = 1, S 207).  ``--int8`` times the
+int8 memory form (bf16 compute, coverage form) at the ``synthetic``
+``int8_full`` launches, the release shape and D = H = 256 (``INT8_SHAPES``;
+Kl 64, 128), the bf16-memory coverage form at the same inputs beside it,
+and the content form on int8 memory at the zoo's largest shape.  In both
+modes every time is a call's share of a CUDA graph of 20 calls, printed
+beside the plan, the bound of the work and the launch floor: an empty
+kernel on the same grid, cluster and dynamic shared memory in a graph of
+20 (``attention_step.launch_floor``), what no kernel on that plan can go
+under.  ``--sweep`` times every plan (whole chunk and ring, every cluster
+and beam split) and writes them to ``chiprun_out/b2_sweep_<mode>.json``;
+``--phases`` prints each phase's mean over the blocks; ``--against`` times
+the other checkout's step on the same inputs in this process (other, this,
+this, other).  ``--fit SWEEP_JSON`` fits ``launch_plan``'s model of each
+row in a sweep's file (``fit_plan_model``) and says how far its picks are
+from the fastest plans; it needs no card.  The rest needs a card and fails
+without one.
 """
 
 from __future__ import annotations
@@ -50,6 +74,7 @@ import json
 import os
 import subprocess
 import sys
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -65,14 +90,30 @@ SHAPES = (  # (samples, K, S): the synthetic slice's launches, then the release 
 D, KL, STEP = 128, 64, 150
 # --against: (samples, K, S, D = H, Kl)
 AGAINST_SHAPES = tuple((Bs, K, S, D, KL) for Bs, K, S in SHAPES) + ((8, 10, 241, 256, 128),)
-PHASES = ("prologue", "scores", "softmax and exchanges", "context", "context sums and output")
+PHASES = ("prologue issue", "prologue wait and staging", "scores", "block softmax", "context",
+          "context sums and pushes", "exchange barrier", "output", "alpha")
 # phase boundaries in csrc/attention_step.cu: (text, stamp after it)
 HOOKS = (("  extern __shared__ __align__(16) unsigned char smem[];\n", True),
-         ("  // ---- scores, a ring tile at a time", False),
-         ("  // ---- softmax over S, in f32", False),
-         ("  // ---- context: thread (pg, d4)", False),
+         ("  cp_async_wait(pro_pending);  // the prologue's group", False),
+         ("  // ---- scores, a tile at a time", False),
+         ("  // ---- the block's softmax", False),
+         ("  // ---- context, unnormalised", False),
          ("  // the position groups' sums meet in red", False),
-         ("  cluster_sync();  // no block leaves", False))
+         ("  // ---- the one exchange", False),
+         ("  if (tid < Kz * C) {  // thread (k, c)", False),
+         ("  // alpha = p exp(m_r - m) / l", False),
+         ("      alpha[(row0 + k) * S + lo + s] = fmaf(fmaf(-q0, l, x), inv, q0);\n    }\n  }\n",
+          True))
+STAMP_SLOTS = 12   # stamps a block keeps (the most any HOOKS has)
+# --content: the zoo's bahdanau launches (samples, K, S), D 512, H 256, then
+# training's forward (K = 1)
+CONTENT_SHAPES = ((1, 10, 47), (1, 10, 63), (1, 10, 95), (1, 10, 143), (1, 10, 207),
+                  (8, 1, 207))
+CONTENT_D, CONTENT_H = 512, 256
+# --int8: (samples, K, S, D = H, Kl): synthetic's int8_full launches, the
+# release shape, the reference widths
+INT8_SHAPES = tuple((Bs, K, S, 128, 64) for Bs, K, S in SHAPES) + (
+    (8, 10, 623, 256, 128), (8, 10, 2525, 256, 128))
 
 
 def inputs(Bs, K, S, D=128, Kl=64, step=150, seed=7):
@@ -123,21 +164,21 @@ def time_other(checkout: str) -> dict:
 
 def plans(Bs, K, S):
     """Every coverage-form plan that fits (the plan's grid with every
-    cluster size and beam split; its tile and ring rule)."""
+    cluster size and beam split; tiles of 32, the whole chunk or a ring)."""
     for zsplit in (z for z in range(1, K + 1) if K % z == 0 and K // z <= b2.MAX_BEAM):
         for cluster in range(1, b2.MAX_CLUSTER + 1):
             chunk = -(-(-(-S // cluster)) // b2.CHUNK_ALIGN) * b2.CHUNK_ALIGN
             if -(-S // chunk) != cluster:
                 continue
-            for stages in (2, 4, 8):
+            for stages in (b2.FULL, 2, 4, 8):
                 smem = b2.smem_bytes(b2.COVERAGE, K // zsplit, chunk, 32, stages, D, KL, 2)
                 if smem <= b2.SMEM_LIMIT:
                     yield b2.LaunchPlan(cluster, chunk, zsplit, 32, stages, smem)
 
 
-def _stamped_library(source, hooks, stem):
+def _stamped_library(source, hooks, stem, defines=()):
     """A copy of ``source`` with a %globaltimer stamp at each of ``hooks``
-    (thread 0 of every block), built into build/."""
+    (thread 0 of every block), built into build/ with ``defines``."""
     with open(os.path.join(_build.CSRC, source)) as f:
         src = f.read()
     for text, after in hooks:
@@ -145,7 +186,7 @@ def _stamped_library(source, hooks, stem):
             raise RuntimeError(f"phase boundary not found in the kernel: {text!r}")
     for i, (text, after) in enumerate(hooks):
         src = src.replace(text, text + f"  STAMP({i});\n" if after else f"  STAMP({i});\n" + text, 1)
-    src = src.replace("namespace {\n", r'''__device__ unsigned long long d2t_stamps[16384][8];
+    src = src.replace("namespace {\n", f"#define D2T_STAMP_SLOTS {STAMP_SLOTS}\n" + r'''__device__ unsigned long long d2t_stamps[16384][D2T_STAMP_SLOTS];
 #define STAMP(i) do { if (threadIdx.x == 0) { unsigned long long t_; \
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_)); \
   const unsigned b_ = (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x; \
@@ -161,6 +202,7 @@ extern "C" int d2t_read_stamps(void* host) {
     with open(path + ".cu", "w") as f:
         f.write(src)
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    flags += [f"-D{d}" for d in defines]
     proc = subprocess.run([_build._nvcc(), *flags, "-o", path + ".so", path + ".cu"],
                           capture_output=True, text=True, timeout=_build.NVCC_TIMEOUT_S)
     if proc.returncode:
@@ -168,13 +210,19 @@ extern "C" int d2t_read_stamps(void* host) {
     return ctypes.CDLL(path + ".so")
 
 
-def timed_library():
-    """A copy of the kernel with a %globaltimer stamp at each phase
-    boundary (thread 0 of every block), built into build/."""
-    lib = _stamped_library(b2.SOURCE, HOOKS, "attention_step_phases")
+def timed_library(wide=False):
+    """A copy of the kernel (the wide build with ``wide``) with a
+    %globaltimer stamp at each phase boundary (thread 0 of every block),
+    built into build/."""
+    lib = _stamped_library(b2.SOURCE, HOOKS, "attention_step_phases" + "_wide" * wide,
+                           (b2.WIDE_DEFINE,) if wide else ())
     fn = lib.d2t_attention_step_coverage
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 16 + [ctypes.c_void_p]
+    if wide:
+        fn = lib.d2t_attention_step_content
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
     return lib
 
 
@@ -183,7 +231,7 @@ def _phase_text(lib, call, n_blocks, names) -> str:
     for _ in range(3):
         call()
     torch.cuda.synchronize()
-    stamps = np.zeros((16384, 8), dtype=np.uint64)
+    stamps = np.zeros((16384, STAMP_SLOTS), dtype=np.uint64)
     if lib.d2t_read_stamps(ctypes.c_void_p(stamps.ctypes.data)):
         raise RuntimeError("reading the stamps failed")
     n = len(names) + 1
@@ -214,6 +262,254 @@ def ptxas_summary(info: dict) -> str:
         elif name and ("spill" in line or "registers" in line):
             lines.append(f"{name}: {line.split(':', 1)[-1].strip()}")
     return "ptxas:\n  " + "\n  ".join(lines)
+
+
+# ---- the content form and the int8 memory form ----------------------------------
+
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3
+F32_FLOPS = 67e12            # H100 SXM float32 rate outside the tensor cores
+
+
+def floor_us(plan, Bs) -> float:
+    """µs per launch of an empty kernel on ``plan``'s grid, cluster and
+    shared memory, in a CUDA graph of 20."""
+    return graph_ms(lambda: b2.launch_floor(plan, Bs)) * 1e3
+
+
+def bound_us(nbytes, flops) -> tuple[float, str]:
+    """The least time of the work: its bytes at HBM's rate or its float32
+    operations at the card's rate, the larger, and which."""
+    by, op = nbytes / HBM_BYTES_PER_S * 1e6, flops / F32_FLOPS * 1e6
+    return (by, "bytes") if by >= op else (op, "operations")
+
+
+class Case(NamedTuple):
+    """One timed row: the form, the step's keywords (int8 ones included),
+    the arguments of ``b2.launch`` after the plan, and the plan's sizes."""
+
+    form: str
+    kw: dict
+    launch_args: tuple
+    launch_kw: dict
+    Bs: int
+    K: int
+    S: int
+    D: int
+    H: int
+    Kl: int
+    dtype: torch.dtype
+    nbytes: int
+    flops: int
+
+    def step(self, module=b2):
+        fn = (module.content_attention_step if self.form == b2.CONTENT
+              else module.coverage_attention_step)
+        return lambda: fn(**self.kw)
+
+    def plan(self):
+        return b2.launch_plan(self.Bs, self.K, self.S, self.D, self.H, self.Kl, self.dtype,
+                              self.form, 5 if self.form == b2.COVERAGE else 0)
+
+    def with_plan(self, plan, kernel=None):
+        return lambda: b2.launch(self.form, plan, *self.launch_args, kernel=kernel,
+                                 **self.launch_kw)
+
+
+def content_case(Bs, K, S, D=CONTENT_D, H=CONTENT_H, int8=False, seed=7) -> Case:
+    """The content form's inputs (those of ``inputs`` at D != H, bf16 memory;
+    with ``int8`` quantized per sample as the decoder stores it, bf16
+    compute)."""
+    kw = inputs(Bs, K, S, D, seed=seed)
+    g = torch.Generator().manual_seed(seed + 2)
+    proj = (torch.randn(Bs, S, H, generator=g) * 1.5).bfloat16().cuda()
+    q = (torch.randn(Bs * K, H, generator=g) * 1.5).cuda()
+    w_score = (torch.randn(H, 1, generator=g) * 0.4).cuda()
+    step = dict(enc=kw["enc"], enc_proj=proj, q=q, w_score=w_score)
+    return _case(b2.CONTENT, step, (q, w_score), Bs, K, S, D, H, 0, int8,
+                 flops=Bs * K * S * (5 * H + 3 + 2 * D))
+
+
+def coverage_case(Bs, K, S, D=128, Kl=64, int8=False, seed=7) -> Case:
+    """The coverage form's inputs of ``inputs`` (D = H; with ``int8`` the
+    memory quantized per sample, bf16 compute)."""
+    kw = inputs(Bs, K, S, D, Kl, seed=seed)
+    rest = tuple(kw[k] for k in ("q", "mem", "loc_conv_w", "loc_conv_b", "w_loc", "b_loc",
+                                 "w_score"))
+    return _case(b2.COVERAGE, kw, rest, Bs, K, S, D, D, Kl, int8,
+                 flops=Bs * K * S * (2 * 5 * D + 5 * D + 3 + 2 * D))
+
+
+def _case(form, kw, rest, Bs, K, S, D, H, Kl, int8, flops) -> Case:
+    from ..ops.quant import quantize_memory
+
+    launch_kw = {}
+    dtype = kw["enc"].dtype
+    if int8:
+        enc, es = quantize_memory(kw["enc"])
+        proj, ps = quantize_memory(kw["enc_proj"])
+        kw = dict(kw, enc=enc, enc_proj=proj, enc_scale=es, proj_scale=ps,
+                  compute_dtype=torch.bfloat16)
+        launch_kw = dict(scales=(es.reshape(Bs).contiguous(), ps.reshape(Bs).contiguous()),
+                         compute_dtype=torch.bfloat16)
+        dtype = torch.int8
+    nbytes = sum(t.numel() * t.element_size() for t in kw.values() if torch.is_tensor(t))
+    nbytes += Bs * K * (D + S) * 4
+    return Case(form, kw, (kw["enc"], kw["enc_proj"]) + rest, launch_kw, Bs, K, S, D, H, Kl,
+                dtype, nbytes, flops)
+
+
+def all_plans(case: Case):
+    """Every plan of the case's form: each beam split and cluster size,
+    the whole chunk where it fits and a ring of 2 and 4 tiles."""
+    elem = case.dtype.itemsize
+    for zsplit in (z for z in range(1, case.K + 1) if case.K % z == 0
+                   and case.K // z <= b2.MAX_BEAM):
+        Kz = case.K // zsplit
+        for cluster in range(1, b2.MAX_CLUSTER + 1):
+            chunk = -(-(-(-case.S // cluster)) // b2.CHUNK_ALIGN) * b2.CHUNK_ALIGN
+            if -(-case.S // chunk) != cluster:
+                continue
+            for stages in (b2.FULL, 2, 4):
+                smem = b2.smem_bytes(case.form, Kz, chunk, 32, stages, case.H, case.Kl, elem,
+                                     case.D)
+                if smem <= b2.SMEM_LIMIT:
+                    yield b2.LaunchPlan(cluster, chunk, zsplit, 32, stages, smem)
+
+
+def pick_quality(model, rows) -> tuple:
+    """How well ``model`` picks among swept plans: (the mean and the largest
+    ratio of its pick's time to the fastest over the shapes, the shape of
+    the largest)."""
+    ratios = {}
+    for shape in {tuple(r["shape"]) for r in rows}:
+        rs = [r for r in rows if tuple(r["shape"]) == shape]
+        pick = min(rs, key=lambda r: (b2.plan_cost(model, shape[0], shape[1], shape[4],
+                                                   b2.LaunchPlan(*r["plan"])),
+                                      r["plan"][0], r["plan"][2], r["plan"][4]))
+        ratios[shape] = pick["us"] / min(r["us"] for r in rs)
+    worst = max(ratios, key=ratios.get)
+    return sum(ratios.values()) / len(ratios), ratios[worst], worst
+
+
+def fit_plan_model(rows, start, tries=1500, seed=0) -> tuple:
+    """A PlanModel fitted to swept plans (``--sweep``'s JSON rows of one
+    row: form and memory type): the least squares of the model's relative
+    error over every plan (Nelder-Mead from ``start``), then a random
+    search around the better of that and ``start`` for the model whose
+    picks come nearest the fastest plans (the mean ratio of pick to fastest
+    over the shapes, plus a quarter of the largest's excess).  Returns (the
+    model, ``pick_quality``)."""
+    from scipy.optimize import minimize
+
+    def model_of(x):
+        return b2.PlanModel(*x[:5], start.full, *x[5:])
+
+    def cost(x):
+        if min(x) < 0:
+            return 1e9
+        m = model_of(x)
+        return sum(((b2.plan_cost(m, r["shape"][0], r["shape"][1], r["shape"][4],
+                                  b2.LaunchPlan(*r["plan"])) - r["us"]) / r["us"]) ** 2
+                   for r in rows)
+
+    def score(x):
+        mean, worst, _ = pick_quality(model_of(x), rows)
+        return mean + 0.25 * (worst - 1)
+
+    x0 = np.array([start.fixed_us, start.cluster_us, start.us_per_beam_position,
+                   start.g1_factor, start.co_resident, start.ring_us, start.big_cluster_us])
+    ls = minimize(cost, x0, method="Nelder-Mead",
+                  options={"maxiter": 4000, "xatol": 1e-5, "fatol": 1e-7}).x
+    best = min((x0, np.maximum(ls, 0)), key=score)
+    best_score = score(best)
+    rng = np.random.default_rng(seed)
+    for i in range(tries):
+        x = best * np.exp(rng.normal(0, 0.3 * (1 - i / tries) + 0.02, best.shape))
+        if (sc := score(x)) < best_score:
+            best, best_score = x, sc
+    model = model_of([round(float(v), 4) for v in best])
+    return (model, *pick_quality(model, rows))
+
+
+def fit_main(path) -> None:
+    """--fit: a model for each row (form, memory type) in a sweep's JSON."""
+    with open(path) as f:
+        rows = json.load(f)
+    for form, dtype in sorted({(r["form"], r["dtype"]) for r in rows}):
+        # the plans launch_plan may pick: rings of STAGES, whole chunks within FULL_LIMIT
+        sub = [r for r in rows if (r["form"], r["dtype"]) == (form, dtype) and (
+            r["plan"][4] == b2.STAGES or (r["plan"][4] == b2.FULL
+                                          and r["plan"][5] <= b2.FULL_LIMIT))]
+        start = b2.plan_model(form, getattr(torch, dtype))
+        mean0, worst0, where0 = pick_quality(start, sub)
+        model, mean, worst, where = fit_plan_model(sub, start)
+        print(f"{form} form, {dtype} memory, {len(sub)} plans over "
+              f"{len({tuple(r['shape']) for r in sub})} shapes: launch_plan's model {start} picks "
+              f"{mean0 - 1:.1%} off the fastest on average, {worst0:.2f}x at {where0}; fitted "
+              f"here: {model}, {mean - 1:.1%} off on average, {worst:.2f}x at {where}",
+              flush=True)
+
+
+def _kernel_of(lib, form):
+    return lib.d2t_attention_step_content if form == b2.CONTENT else \
+        lib.d2t_attention_step_coverage
+
+
+def forward_main(args, mode) -> None:
+    """--content or --int8 (see the module docstring)."""
+    wide = mode == "content"
+    print(ptxas_summary(b2.build_wide() if wide else b2.build()), flush=True)
+    libs = {}   # the stamped builds, plain and wide, as the cases need them
+    other = load_other(args.against) if args.against else None
+    if mode == "content":
+        cases = [content_case(Bs, K, S) for Bs, K, S in CONTENT_SHAPES]
+    else:
+        cases = [coverage_case(Bs, K, S, D, Kl, int8=True) for Bs, K, S, D, Kl in INT8_SHAPES]
+        cases.append(content_case(1, 10, 207, int8=True))
+    sweep = []
+    for case in cases:
+        plan = case.plan()
+        call = case.step()
+        us = graph_ms(call) * 1e3
+        bound, by = bound_us(case.nbytes, case.flops)
+        line = (f"{mode}: {case.form} form, {case.Bs} samples x K {case.K}, S {case.S}, D "
+                f"{case.D} H {case.H}{f' Kl {case.Kl}' if case.Kl else ''}, "
+                f"{str(case.dtype)[6:]} memory: {us:.2f} µs with {plan}; launch floor "
+                f"{floor_us(plan, case.Bs):.2f} µs; bound {bound:.2f} µs ({by}, "
+                f"{case.nbytes / 1e6:.2f} MB)")
+        if mode == "int8" and case.form == b2.COVERAGE:
+            bf16 = coverage_case(case.Bs, case.K, case.S, case.D, case.Kl)
+            line += f"; the bf16-memory coverage form {graph_ms(bf16.step()) * 1e3:.2f} µs"
+        if other is not None:
+            theirs = case.step(other)
+            runs = [graph_ms(f) * 1e3 for f in (theirs, call, call, theirs)]
+            line += "; µs per call (other, this, this, other): " + ", ".join(
+                f"{x:.2f}" for x in runs)
+        if args.sweep:
+            model = b2.plan_model(case.form, case.dtype)
+            times = {p: graph_ms(case.with_plan(p)) * 1e3 for p in all_plans(case)}
+            fast = sorted(times, key=times.get)
+            line += "; fastest " + ", ".join(f"{times[p]:.2f} µs with {tuple(p)}"
+                                             for p in fast[:3])
+            line += f"; the plan's {times.get(plan, float('nan')):.2f} µs"
+            sweep += [{"mode": mode, "form": case.form, "dtype": str(case.dtype)[6:],
+                       "shape": [case.Bs, case.K, case.S, case.D, case.H, case.Kl],
+                       "plan": list(p), "us": t, "chosen": p == plan,
+                       "model_us": b2.plan_cost(model, case.Bs, case.K, case.H, p)}
+                      for p, t in times.items()]
+        print(line, flush=True)
+        if args.phases:
+            wide_case = case.form == b2.CONTENT or case.D != case.H
+            lib = libs.get(wide_case) or libs.setdefault(wide_case, timed_library(wide_case))
+            call = case.with_plan(plan, _kernel_of(lib, case.form))
+            print(_phase_text(lib, call, case.Bs * plan.zsplit * plan.cluster, PHASES),
+                  flush=True)
+    if sweep:
+        os.makedirs("chiprun_out", exist_ok=True)
+        path = os.path.join("chiprun_out", f"b2_sweep_{mode}.json")
+        with open(path, "w") as f:
+            json.dump(sweep, f)
+        print(f"every plan's time: {path}", flush=True)
 
 
 # ---- B2's backward ------------------------------------------------------------
@@ -386,8 +682,18 @@ def main() -> None:
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--phases", action="store_true")
     ap.add_argument("--against", default=None, metavar="OTHER_CHECKOUT")
-    ap.add_argument("--backward", action="store_true", help="time B2's backward instead")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--backward", action="store_true", help="time B2's backward instead")
+    mode.add_argument("--content", action="store_true",
+                      help="time the content form at the zoo's launches")
+    mode.add_argument("--int8", action="store_true",
+                      help="time the int8 memory form at int8_full's launches")
+    ap.add_argument("--fit", default=None, metavar="SWEEP_JSON",
+                    help="fit launch_plan's models to a --sweep's plans (no card needed)")
     args = ap.parse_args()
+    if args.fit:
+        fit_main(args.fit)
+        return
     if not torch.cuda.is_available():
         raise SystemExit("bench_attention_step needs a CUDA card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -395,6 +701,9 @@ def main() -> None:
     print(f"{torch.cuda.get_device_name(0)}; nvidia-smi: {smi}", flush=True)
     if args.backward:
         backward_main(args)
+        return
+    if args.content or args.int8:
+        forward_main(args, "content" if args.content else "int8")
         return
     print(ptxas_summary(b2.build()), flush=True)
     lib = timed_library() if args.phases else None

@@ -3,6 +3,7 @@
     python -m doc2tex_tpu_torch.tools.profile_slice [--version synthetic_tfm_big]
         [--crops 16] [--beam 10] [--dtype bfloat16] [--quantize int8|int8_full|int8_kv]
         [--against OTHER_CHECKOUT] [--out result.json]
+    python -m doc2tex_tpu_torch.tools.profile_slice --zoo zoo_vgg_bahdanau [--crops 8] ...
 
 Runs MathRecognition with the released weights of ``--version``
 (``synthetic_tfm_big``, ``synthetic_tfm`` or ``synthetic_long``, the TFM
@@ -20,11 +21,14 @@ the encoder's time on the batches the main path builds (mean of 20
 passes), the head's hand-written kernel's device time and launches (and
 those of its int8 form, which reads decode memory in int8), and the
 kernels that took the most device time (as JSON, also to ``--out`` when
-given).  ``--against`` (TFM head) then profiles the same call with another
-checkout's ``decode_attention`` in place of this one's (loaded into this
-process as ``bench_decode_attention --against`` loads it; everything else
-this checkout's), in the order other, this, this, other, under
-``"against"``.  Needs a card; fails without one.
+given).  ``--zoo BLOCK`` profiles a block of ``tests/torch_port_zoo.yaml``
+instead (no weights ship: every leaf drawn from numpy's seed 0, as
+``chip_smoke.py``'s zoo phase draws them).  ``--against`` then profiles the
+same call with another checkout's head kernel in place of this one's (B1's
+``decode_attention``, or B2's coverage or content step for the LSTM head;
+loaded into this process as the bench tools' ``--against`` loads it;
+everything else this checkout's), in the order other, this, this, other,
+under ``"against"``.  Needs a card; fails without one.
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ import numpy as np
 import torch
 
 from ..data.synthetic import seeded_crops, synth_long_sample
-from ..ops.attention_step import coverage_attention_step
+from ..ops.attention_step import content_attention_step, coverage_attention_step
 from ..ops.decode_attention import decode_attention
 from ..ops.quant import NAMED_PARTS
 from ..recognition import MathRecognition, load_recog_config
@@ -48,6 +52,8 @@ from ..transforms.augment import normalize
 
 
 ENCODE_REPS = 20  # the encoder's time is the mean of this many passes over the batches
+ZOO_CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "tests", "torch_port_zoo.yaml")
 
 
 def _device_us(evt) -> float:
@@ -76,17 +82,27 @@ def profiled_call(rec, crops, kernel_name):
 
 
 def against(rec, crops, checkout: str) -> list:
-    """The call profiled with ``checkout``'s decode_attention and with this
-    one's, in the order other, this, this, other: wall of an unprofiled
-    call, device busy, B1's device time and launches, of them its int8
-    form's."""
-    from ..models import decoder_tfm
-    from .bench_decode_attention import load_other
+    """The call profiled with ``checkout``'s head kernel and with this
+    one's (B1's ``decode_attention`` for the TFM head; B2's coverage or
+    content step for the LSTM head), in the order other, this, this,
+    other: wall of an unprofiled call, device busy, the kernel's device
+    time and launches, of them its int8 form's."""
+    if rec.model.head == "TFM":
+        from ..models import decoder_tfm as module
+        from .bench_decode_attention import load_other
 
-    theirs, mine = load_other(checkout).decode_attention, decoder_tfm.decode_attention
+        name, kernel_name = "decode_attention", "decode_attention"
+    else:
+        from ..models import decoder_lstm as module
+        from .bench_attention_step import load_other
+
+        content = getattr(rec.model.predicter, "attn_type", None) == "bahdanau"
+        name = "content_attention_step" if content else "coverage_attention_step"
+        kernel_name = "attention_step"
+    theirs, mine = getattr(load_other(checkout), name), getattr(module, name)
     rows = []
     for tree, fn in (("other", theirs), ("this", mine), ("this", mine), ("other", theirs)):
-        decoder_tfm.decode_attention = fn
+        setattr(module, name, fn)
         try:
             rec(crops)
             torch.cuda.synchronize()
@@ -96,9 +112,9 @@ def against(rec, crops, checkout: str) -> list:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
             launches, int8_launches = fn.launches + fn.int8_launches, fn.int8_launches
-            prof_wall, kernels, kernel_us, int8_us = profiled_call(rec, crops, "decode_attention")
+            prof_wall, kernels, kernel_us, int8_us = profiled_call(rec, crops, kernel_name)
         finally:
-            decoder_tfm.decode_attention = mine
+            setattr(module, name, mine)
         rows.append({"tree": tree, "wall_s": wall, "profiled_wall_s": prof_wall,
                      "device_busy_s": sum(_device_us(e) for e in kernels) / 1e6,
                      "kernel_launches": launches, "kernel_device_s": kernel_us / 1e6,
@@ -107,15 +123,25 @@ def against(rec, crops, checkout: str) -> list:
 
 
 def profile(version: str, n_crops: int, beam: int, dtype: str, quantize=None,
-            other: str | None = None) -> dict:
+            other: str | None = None, zoo: str | None = None) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg, weights = load_recog_config(version=version)
+    if zoo:
+        from ..weights import load_variables, random_variables, to_variables
+
+        cfg, weights = load_recog_config(ZOO_CONFIG, version=zoo)
+        version = zoo
+    else:
+        cfg, weights = load_recog_config(version=version)
     cfg["dtype"] = dtype
     cfg["quantize"] = "int8_full" if quantize in NAMED_PARTS else quantize
     rec = MathRecognition(cfg, weights, beam_size=beam, device="cuda")
+    if zoo:
+        load_variables(rec.model, random_variables(to_variables(rec.model),
+                                                   np.random.default_rng(0)))
+        rec.model.to("cuda")
     if quantize in NAMED_PARTS:
         rec.model.set_quantize(NAMED_PARTS[quantize])
     if version == "synthetic_long":     # its 448x960 regime: the long generator's seeds 0, 1, ...
@@ -126,9 +152,12 @@ def profile(version: str, n_crops: int, beam: int, dtype: str, quantize=None,
     torch.cuda.synchronize()
 
     tfm = rec.model.head == "TFM"
-    # the LSTM head's kernel: B2 in its coverage form (one launch a step)
+    # the LSTM head's kernel: B2 in its coverage form, or its content form
+    # for the bahdanau head (one launch a step)
+    content = getattr(rec.model.predicter, "attn_type", None) == "bahdanau"
     kernel, kernel_name = ((decode_attention, "decode_attention") if tfm
-                           else (coverage_attention_step, "attention_step"))
+                           else (content_attention_step if content else coverage_attention_step,
+                                 "attention_step"))
     kernel.launches = kernel.int8_launches = 0
     t = time.perf_counter()
     rec(crops)
@@ -173,7 +202,7 @@ def profile(version: str, n_crops: int, beam: int, dtype: str, quantize=None,
         "kernel_int8_launches": int8_launches, "kernel_int8_device_s": int8_us / 1e6,
         "top_kernels": [{"name": e.key[:120], "device_s": _device_us(e) / 1e6,
                          "count": e.count} for e in top],
-        "against": against(rec, crops, other) if other and tfm else None,
+        "against": against(rec, crops, other) if other else None,
     }
 
 
@@ -186,11 +215,13 @@ def main() -> None:
     ap.add_argument("--beam", type=int, default=10)
     ap.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
     ap.add_argument("--quantize", default=None, choices=["int8", "int8_full", "int8_kv"])
+    ap.add_argument("--zoo", default=None, metavar="BLOCK",
+                    help="a block of tests/torch_port_zoo.yaml (numpy-drawn weights)")
     ap.add_argument("--against", default=None, metavar="OTHER_CHECKOUT")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     result = profile(args.version, args.crops, args.beam, args.dtype, args.quantize,
-                     args.against)
+                     args.against, args.zoo)
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:

@@ -28,8 +28,8 @@ import torch
 
 from doc2tex_tpu.ops.attention_step import attention_step_reference as jax_step_reference
 from doc2tex_tpu_torch.ops.attention_step import (
-    CONTENT, COVERAGE, FEATURE, MAX_BEAM, MAX_CLUSTER, SMEM_LIMIT, TILES, coverage_attention_step,
-    coverage_attention_step_reference, launch_plan, smem_bytes)
+    CONTENT, COVERAGE, FEATURE, FULL, FULL_LIMIT, MAX_BEAM, MAX_CLUSTER, SMEM_LIMIT, STAGES, TILES,
+    coverage_attention_step, coverage_attention_step_reference, launch_plan, smem_bytes)
 from doc2tex_tpu_torch.tools.bench_attention_step import SHAPES as BENCH_SHAPES
 from torch_port_threads import one_torch_thread  # noqa: F401
 
@@ -196,6 +196,99 @@ def test_launch_plan_raises_on_what_the_kernel_does_not_take():
     # the feature form's widest instance fits: w_loc alone takes 128 KB
     wide = plan(1, 1, 2525, 256, 256, 128, torch.float32, FEATURE)
     assert wide.smem_bytes <= SMEM_LIMIT and wide.tile == 16, wide
+
+
+# the rows with plan models of their own: (form, memory type, (D, H, Kl))
+OWN_ROWS = [(CONTENT, torch.bfloat16, (512, 256, 0)), (CONTENT, torch.float32, (512, 256, 0)),
+            (CONTENT, torch.int8, (512, 256, 0)), (COVERAGE, torch.int8, (128, 128, 64)),
+            (COVERAGE, torch.int8, (256, 256, 128)), (CONTENT, torch.int8, (128, 128, 0))]
+
+
+@pytest.mark.parametrize("form,dtype,widths", OWN_ROWS)
+def test_launch_plan_of_the_content_and_int8_rows(form, dtype, widths):
+    """The content form's and the int8 form's plans over the shipped and
+    zoo shapes cover S once with at most 8 blocks a cluster and 16 beams a
+    block, within 227 KB; a whole-chunk plan (stages FULL) leaves room for
+    two blocks an SM and its layout is the kernel's; a ring holds STAGES
+    tiles."""
+    D, H, Kl = widths
+    for Bs, K, S in SHIPPED + [(1, 10, S) for S in (47, 63, 95, 143, 207)] + [(8, 1, 207)]:
+        plan = launch_plan(Bs, K, S, D, H, Kl, dtype, form)
+        Kz = K // plan.zsplit
+        assert K % plan.zsplit == 0 and 1 <= Kz <= MAX_BEAM, plan
+        assert 1 <= plan.cluster <= MAX_CLUSTER and plan.chunk % 8 == 0, plan
+        assert (plan.cluster - 1) * plan.chunk < S <= plan.cluster * plan.chunk, plan
+        assert plan.smem_bytes == smem_bytes(form, Kz, plan.chunk, plan.tile, plan.stages, H,
+                                             Kl, dtype.itemsize, D) <= SMEM_LIMIT, plan
+        if plan.stages == FULL:
+            assert plan.tile == 32 and plan.smem_bytes <= FULL_LIMIT, plan
+        else:
+            assert plan.tile in TILES and plan.stages == STAGES, plan
+
+
+# (form, dtype, Bs, K, S, D, H, Kl) -> (cluster, chunk, zsplit, tile, stages):
+# the plans PERF.md §6 records for the zoo's bahdanau launches, training's
+# forward, int8_full's launches of synthetic, the release shape and D = H =
+# 256 (the whole chunk in shared memory: stages FULL = 0)
+RECORDED_PLANS = {
+    **{(CONTENT, torch.bfloat16, 1, 10, S, 512, 256, 0): plan for S, plan in (
+        (47, (3, 16, 10, 32, 0)), (63, (4, 16, 10, 32, 0)), (95, (6, 16, 10, 32, 0)),
+        (143, (6, 24, 10, 32, 0)), (207, (7, 32, 10, 32, 0)))},
+    (CONTENT, torch.bfloat16, 8, 1, 207, 512, 256, 0): (7, 32, 1, 32, 0),
+    (CONTENT, torch.int8, 1, 10, 207, 512, 256, 0): (7, 32, 10, 32, 0),
+    **{(COVERAGE, torch.int8, Bs, 10, S, 128, 128, 64): plan for Bs, S, plan in (
+        (1, 623, (8, 80, 10, 32, 0)), (8, 135, (6, 24, 2, 32, 0)), (8, 225, (6, 40, 2, 32, 0)),
+        (8, 267, (6, 48, 2, 32, 0)), (8, 445, (6, 80, 2, 32, 0)),
+        (64, 623, (2, 312, 2, 32, 2)))},
+    (COVERAGE, torch.int8, 8, 10, 623, 256, 256, 128): (6, 104, 2, 32, 0),
+    (COVERAGE, torch.int8, 8, 10, 2525, 256, 256, 128): (8, 320, 2, 32, 2),
+}
+
+
+@pytest.mark.parametrize("key", list(RECORDED_PLANS),
+                         ids=lambda k: f"{k[0]}-{str(k[1])[6:]}-{k[2]}x{k[3]}-S{k[4]}-D{k[5]}")
+def test_launch_plan_at_the_launched_shapes_is_the_recorded_one(key):
+    form, dtype, Bs, K, S, D, H, Kl = key
+    assert tuple(launch_plan(Bs, K, S, D, H, Kl, dtype, form))[:5] == RECORDED_PLANS[key]
+
+
+def test_smem_bytes_is_the_kernels_make_layout(tmp_path):
+    """The layout code of the kernel's source (its constants, ``Layout`` and
+    ``make_layout``), compiled for the host, against ``smem_bytes`` for the
+    three forms over beams, chunks, tiles, rings and the whole chunk,
+    widths and memory types."""
+    import os
+    import subprocess
+
+    from doc2tex_tpu_torch._build import CSRC
+    from doc2tex_tpu_torch.ops.attention_step import SOURCE
+
+    with open(os.path.join(CSRC, SOURCE)) as f:
+        src = f.read()
+    start = src.index("constexpr int kWarps")
+    end = src.index("// 4 consecutive elements of T")
+    codes = {FEATURE: 0, COVERAGE: 1, CONTENT: 2}
+    grid = [(form, Kz, chunk, tile, stages, D, H, Kl, elem)
+            for form, Kl in ((FEATURE, 64), (COVERAGE, 64), (CONTENT, 0))
+            for Kz in (1, 5, 10) for chunk in (8, 80, 312) for tile in TILES
+            for stages in ((2, 4) if form == FEATURE else (FULL, 2, 4))
+            for D, H in ((128, 128), (512, 256)) for elem in (1, 2, 4)
+            if not (form == FEATURE and elem == 1)]
+    calls = "\n".join(
+        f"  std::printf(\"%d\\n\", make_layout({codes[g[0]]}, {', '.join(map(str, g[1:]))}).total);"
+        for g in grid)
+    code = ("#include <cstdio>\n#define __host__\n#define __device__\nnamespace {\n"
+            + src[start:end] + "}\nint main() {\n" + calls + "\n}\n")
+    cpp = tmp_path / "layout.cpp"
+    cpp.write_text(code)
+    exe = tmp_path / "layout"
+    subprocess.run(["g++", "-std=c++17", "-o", str(exe), str(cpp)], check=True,
+                   capture_output=True, timeout=120)
+    got = [int(x) for x in subprocess.run([str(exe)], check=True, capture_output=True,
+                                          text=True).stdout.split()]
+    want = [smem_bytes(form, Kz, chunk, tile, stages, H, Kl, elem, D)
+            for form, Kz, chunk, tile, stages, D, H, Kl, elem in grid]
+    assert got == want
 
 
 def test_bench_shapes_are_the_slice_shapes():

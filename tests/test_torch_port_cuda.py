@@ -335,6 +335,47 @@ def test_d_not_h_and_content_kernels_match_plain_version(dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mem,compute", [("bfloat16", None), ("float32", None),
+                                         ("int8", "bfloat16"), ("int8", "float32")])
+def test_content_and_int8_forms_match_plain_version_at_launched_shapes(mem, compute):
+    """The content form (float and int8 memory) at the zoo's launched
+    shapes (1 sample x beam 10, S 47-207, D 512, H 256, and training's K =
+    1, 8 x S 207) and the int8 coverage form at ``synthetic``'s int8_full
+    launches, the release shape and D = H = 256, through the wrappers (each
+    call one counted launch of its form), valid_len None and S - 17, within
+    B2_TOL; then (once, in the int8/bf16 case) every form at forced plans
+    of a cluster of 1 and of 8 (``chip_smoke.check_b2_plans``, uncounted
+    launches) and the int8 form's P bits on rounding-point inputs."""
+    _need_card()
+    from doc2tex_tpu_torch.ops import attention_step as b2
+    from doc2tex_tpu_torch.tools.bench_attention_step import CONTENT_SHAPES, INT8_SHAPES
+
+    cases = [("content", (Bs, K, S, 512, 256, 0)) for Bs, K, S in CONTENT_SHAPES]
+    if mem == "int8":
+        cases += [("coverage", (Bs, K, S, D, D, Kl)) for Bs, K, S, D, Kl in INT8_SHAPES]
+    for n, (form, shape) in enumerate(cases):
+        kw, q8, ref = chip_smoke.b2_case_inputs(form, mem, compute, *shape, 150, seed=n)
+        step = b2.content_attention_step if form == "content" else b2.coverage_attention_step
+        for valid in (None, shape[2] - 17):
+            before = step.launches, step.int8_launches
+            got = step(**kw, **q8, valid_len=valid)
+            assert (step.launches, step.int8_launches) == (
+                before[0] + (not q8), before[1] + bool(q8))
+            torch.cuda.synchronize()
+            chip_smoke._check_b2(f"{form} {mem}", got, ref(valid), (shape, valid))
+    if (mem, compute) != ("int8", "bfloat16"):
+        return
+    counts = b2.content_attention_step.launches, b2.coverage_attention_step.int8_launches
+    n, plans, _ = chip_smoke.check_b2_plans()
+    assert n >= 2 * len(chip_smoke.B2_PLAN_CASES) * 4 and {p[2] for p in plans} == {1, 8}
+    assert {p[4] for p in plans} == {b2.FULL, 2}
+    assert [r[0] for r in chip_smoke.b2_int8_rounding_point_check()] == ["coverage", "content"]
+    # the checks add no main-path launch
+    assert (b2.content_attention_step.launches,
+            b2.coverage_attention_step.int8_launches) == counts
+
+
+@pytest.mark.cuda
 def test_zoo_heads_refuse_a_gradient_on_the_card(monkeypatch):
     """(Named for what it checked before B2's backward took these forms.)
     A gradient through the content form (the bahdanau head, D 512, H 256)

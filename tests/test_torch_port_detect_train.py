@@ -325,6 +325,28 @@ def test_gtdb_dataset_equals_jax(tmp_path):
 
 # ---- the train step -------------------------------------------------------------
 
+def _jax_detector(weights_path: str, **kwargs):
+    """JAX's ``MathDetector`` on ``weights_path``, its variables loaded as
+    its ``weights_path`` argument loads them but into a template of zeros
+    from ``jax.eval_shape`` (its own init compiles the SSD's init, ~13 s
+    here); every leaf must come from the file, so the template's values
+    never show."""
+    from doc2tex_tpu.detection.flow import MathDetector as JaxDetector
+    from doc2tex_tpu.detection.ssd import SSD512
+    from doc2tex_tpu.train.checkpoint import load_pretrained_variables
+
+    shapes = jax.eval_shape(SSD512(num_classes=2, dtype=jnp.float32).init,
+                            jax.random.PRNGKey(0), jnp.zeros((1, 512, 512, 3), jnp.float32))
+    template = jax.tree_util.tree_map(lambda t: np.zeros(t.shape, t.dtype), dict(shapes))
+    params, stats, info = load_pretrained_variables(weights_path, template["params"],
+                                                    template.get("batch_stats"))
+    assert info["skipped"] == 0 and info["loaded"] > 0, info
+    variables = dict(template, params=params)
+    if stats is not None:
+        variables["batch_stats"] = stats
+    return JaxDetector(variables=variables, **kwargs)
+
+
 def _grads_from_mu(mu: dict) -> dict:
     """Adam's first moment after one step is (1 - b1) g = 0.1 g."""
     return {k: np.asarray(v, np.float32) / np.float32(0.1) for k, v in mu.items()}
@@ -350,7 +372,6 @@ def test_train_step_equals_jax():
     its loss within 1e-4 relative of JAX's."""
     import optax
     from doc2tex_tpu.detection.data import make_detection_train_step as jax_step
-    from doc2tex_tpu.detection.flow import MathDetector as JaxDetector
 
     from doc2tex_tpu_torch.tools.detection_soak import window_sample
     from doc2tex_tpu_torch.train.optim import adam
@@ -362,7 +383,7 @@ def test_train_step_equals_jax():
     second = (wins[k2:k2 + 1, ..., None], gts[k2:k2 + 1], valids[k2:k2 + 1])
     priors = make_priors()
 
-    jdet = JaxDetector(weights_path=SHIPPED_WEIGHTS)
+    jdet = _jax_detector(SHIPPED_WEIGHTS)
     tx = optax.adam(1e-4)
     params = jdet.variables["params"]
     step = jax_step(jdet.model, priors, tx)
@@ -472,7 +493,6 @@ def test_soak_checkpoint_loads_in_jax_and_back(tmp_path, monkeypatch):
     port's ``MathDetector`` and in ``--init_from``."""
     from types import SimpleNamespace
 
-    from doc2tex_tpu.detection.flow import MathDetector as JaxDetector
     from doc2tex_tpu.train.checkpoint import save_checkpoint as jax_save
 
     from doc2tex_tpu_torch.tools import detection_soak as tsoak
@@ -489,7 +509,7 @@ def test_soak_checkpoint_loads_in_jax_and_back(tmp_path, monkeypatch):
     window = tsoak.window_sample(np.random.default_rng(2))[0][:1, ..., None]
     tdet = MathDetector(path, conf_thresh=0.3, device="cpu")
     tdet.model = out["model"].eval()                          # the in-memory model
-    jdet = JaxDetector(weights_path=path, conf_thresh=0.3)
+    jdet = _jax_detector(path, conf_thresh=0.3)
     tb, ts = tdet.detect_windows(torch.from_numpy(window))
     jb, js = jdet._detect(jdet.variables, jnp.asarray(window))
     np.testing.assert_allclose(ts.numpy(), np.asarray(js), atol=1e-4)
@@ -502,8 +522,10 @@ def test_soak_checkpoint_loads_in_jax_and_back(tmp_path, monkeypatch):
     jparams = jax.tree_util.tree_map(lambda p: p * 0.98, jdet.variables["params"])
     jax_save(jpath, SimpleNamespace(step=3, params=jparams, batch_stats={}, opt_state={}),
              {"iter": 3})
-    jdet2 = JaxDetector(weights_path=jpath, conf_thresh=0.3)
-    jb2, js2 = jdet2._detect(jdet2.variables, jnp.asarray(window))
+    jdet2 = _jax_detector(jpath, conf_thresh=0.3)
+    # jdet's compiled detection (the variables are its argument) on jdet2's
+    # variables: one compile of the SSD forward for both checkpoints
+    jb2, js2 = jdet._detect(jdet2.variables, jnp.asarray(window))
     tdet2 = MathDetector(jpath, conf_thresh=0.3, device="cpu")
     tb2, ts2 = tdet2.detect_windows(torch.from_numpy(window))
     np.testing.assert_allclose(ts2.numpy(), np.asarray(js2), atol=1e-4)

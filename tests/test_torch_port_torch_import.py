@@ -50,14 +50,26 @@ def vit_config(pred="TFM", fix_embed=True, gcb=False, width=32):
         Prediction={"name": pred, "params": head})
 
 
+_JAX_VARIABLES = {}   # repr(cfg) -> the JAX model's initial variables (one init a config)
+
+
+def _jax_variables(cfg):
+    """The JAX model's initial variables of ``cfg``, initialised once per
+    config (JAX compiles the init) and handed out in fresh containers."""
+    key = repr(cfg)
+    if key not in _JAX_VARIABLES:
+        jmodel = jax_build_model(jax_make_config(cfg), V)
+        bucket = tuple(cfg["min_dimension"])
+        _JAX_VARIABLES[key] = jax.jit(lambda: jmodel.init(
+            jax.random.PRNGKey(0), jnp.zeros((1, *bucket, 1)), jnp.zeros((1, 3), jnp.int32),
+            train=False))()
+    return jax.tree_util.tree_map(lambda x: x, _JAX_VARIABLES[key])
+
+
 def _both(cfg, sd):
     """(JAX's import carried into a port model, the port's import, both
     missing lists)."""
-    jmodel = jax_build_model(jax_make_config(cfg), V)
-    bucket = tuple(cfg["min_dimension"])
-    variables = jax.jit(lambda: jmodel.init(
-        jax.random.PRNGKey(0), jnp.zeros((1, *bucket, 1)), jnp.zeros((1, 3), jnp.int32),
-        train=False))()
+    variables = _jax_variables(cfg)
     params, stats, jmissing = jax_import(sd, cfg, variables["params"],
                                          variables["batch_stats"])
     via_jax = build_model(make_config(cfg), V)
