@@ -259,7 +259,41 @@ Needs one CUDA card; exits non-zero without one.  Phases, one line each:
    in those steps; (d) the forward against its plain version at every
    shape (a) and (b) launched (the content form's timed there beside its
    launch floor), and the backward against its plain version and itself at
-   every shape (a) and (b) launched, timed at (b)'s.
+   every shape (a) and (b) launched, timed at (b)'s;
+21. coalesce — the coalescing gate's twin (``tools/coalesce_eval.py``'s
+   ``evaluate``) on the first ``COALESCE_N`` crops of its seed-34 set in one
+   chunk: (a) ``synthetic_tfm_big`` float32, beam 10, coalescing off and at
+   ratio 8: the strings equal the JAX package's
+   (``tests/torch_port_golden_coalesce.json``) on >= 15/16 of the crops in
+   each pass and the decode invocations equal JAX's; (b) the shipped
+   setting (bf16, int8 encoder) at ratio 8: mean character match >=
+   ``INT8_MIN_CHAR_MATCH`` with (a)'s JAX strings (int8 strings follow
+   every float op's last bit); B1 launching in every pass;
+22. stitch_pdf — the PDF stitch driver's live mode (``python -m
+   doc2tex_tpu_torch.tools.stitch_pdf --pages ...`` in this process) on the
+   3 golden pages as PNG files with the shipped detector: every stitched
+   region within ``STITCH_TOL_PX`` of the JAX package's
+   (``tests/torch_port_golden_stitch.json``), its wall time printed;
+23. interpretation — ``synthetic``'s decoder maps (float32, the first
+   golden crop, 24 steps) on the card, where each step's alpha comes from
+   B2, against the same maps on the CPU (the plain step) within
+   ``B2_TOL``; ``synthetic_tfm_big``'s attention rollout (mean, max, min)
+   on the card against the CPU's within 1e-4, and no decoder maps from its
+   TFM head; B2 launching;
+24. release_tools — ``tools/e2e_demo.py``'s twin for ``E2E_STEPS`` steps
+   (B2's forward and backward launching in training, B2 in the beam
+   evaluation of the reloaded checkpoint) and ``tools/train_resizer.py``'s
+   for ``RESIZER_STEPS`` steps on a small set with its A/B on 16 crops
+   (B1 launching through ``synthetic_tfm_big``); everything they write goes
+   to a temporary directory;
+25. jpeg — the committed fixtures (``tests/torch_port_jpeg/``: gray, 4:4:4,
+   4:2:2 with restart markers, 4:2:0 with optimised tables, a 1,700 x 2,200
+   4:2:0 page) decode to the sha256 of PIL's ``convert("L")`` and
+   ``convert("RGB")`` bytes; the page's decode timed (host) beside the same
+   pixels through ``decode_png``.
+
+Each of phases 21-25 prints B1's, B2's and B2's backward's launch counts
+and fails unless each kernel its path needs launched.
 
 Then a JSON line with the kernels' numbers (B2's backward: its launches
 in (c), timed at the recipe's largest launch; the int8 forms: 8b's; B1 at
@@ -449,6 +483,24 @@ DETECT_SOAK_STEPS = 50
 DETECT_SOAK_LOSS_FACTOR = 1.5
 DETECT_STEPS_RTOL = 1e-3
 STITCH_TOL_PX = 1
+# the coalesce phase (21): the first COALESCE_N crops of the coalescing
+# gate's set (tools/coalesce_eval.py: synth_hard_dataset(n, seed=34)),
+# synthetic_tfm_big float32 beam 10 in one chunk, coalescing off and at the
+# shipped ratio 8, against the JAX package's strings and invocations
+# (tests/torch_port_golden_coalesce.json, tests/torch_port_coalesce_golden.py);
+# the card's strings equal them on the crop goldens' share (15 of 16), then
+# the shipped setting (bf16, int8 encoder) at ratio 8 by INT8_MIN_CHAR_MATCH
+GOLDEN_COALESCE = os.path.join(ROOT, "tests", "torch_port_golden_coalesce.json")
+COALESCE_N = 32
+COALESCE_BEAM = 10
+COALESCE_RATIOS = (0, 8)
+COALESCE_MIN_SHARE = 15 / 16
+# the JPEG phase (25): committed fixtures written by PIL and the sha256 of
+# PIL's convert("L") and convert("RGB") bytes (tests/test_torch_port_jpeg.py)
+JPEG_FIXTURES = os.path.join(ROOT, "tests", "torch_port_jpeg")
+# the e2e_demo and train_resizer phase (24): steps of each
+E2E_STEPS = 16
+RESIZER_STEPS = 20
 # the int8 strings' gates (see check_int8_strings)
 INT8_MIN_CHAR_MATCH = 0.85
 INT8_MIN_CHANGED = 2
@@ -2194,6 +2246,31 @@ def detect_train_phase(t0, device="cuda", n=None, soak_steps=DETECT_SOAK_STEPS, 
     stitch_check(t0, device, n_pages)
 
 
+def pair_stitched(want, got, where) -> tuple[float, int]:
+    """Pair each stitched box of ``want`` (the JAX package's) one to one
+    with a box of ``got`` within STITCH_TOL_PX a coordinate, none left over;
+    (the worst distance, the count of equal boxes)."""
+    import numpy as np
+
+    want = np.asarray(want, np.float64).reshape(-1, 4)
+    got = np.asarray(got, np.float64).reshape(-1, 4)
+    taken = np.zeros(len(got), bool)
+    worst, exact = 0.0, 0
+    for box in want:
+        dist = np.abs(got - box).max(axis=1) if len(got) else np.zeros(0)
+        dist[taken] = np.inf
+        j = int(np.argmin(dist)) if len(dist) else -1
+        if j < 0 or dist[j] > STITCH_TOL_PX:
+            raise AssertionError(f"{where} stitched box {box.tolist()} has no box of ours within "
+                                 f"{STITCH_TOL_PX} px: {got.tolist()}")
+        taken[j] = True
+        worst = max(worst, float(dist[j]))
+        exact += int(dist[j] == 0)
+    if not taken.all():
+        raise AssertionError(f"{where} extra stitched boxes {got[~taken].tolist()}")
+    return worst, exact
+
+
 def stitch_check(t0, device="cuda", n_pages=None):
     """detect_train (e): ``detect_page(raw=True)`` + ``stitch_page`` on the
     golden pages against the JAX package's stitched boxes, then
@@ -2224,22 +2301,9 @@ def stitch_check(t0, device="cuda", n_pages=None):
         label_components(_to_ink_mask(page))
         label_ms.append(1e3 * (time.perf_counter() - t))
         n_raw.append(len(raw_boxes))
-        want = np.asarray(g["boxes"], np.float64).reshape(-1, 4)
-        got = np.asarray(boxes, np.float64).reshape(-1, 4)
-        taken = np.zeros(len(got), bool)
-        for box in want:
-            dist = np.abs(got - box).max(axis=1) if len(got) else np.zeros(0)
-            dist[taken] = np.inf
-            j = int(np.argmin(dist)) if len(dist) else -1
-            if j < 0 or dist[j] > STITCH_TOL_PX:
-                raise AssertionError(f"(e) stitched box {box.tolist()} has no box of ours within "
-                                     f"{STITCH_TOL_PX} px: {got.tolist()}")
-            taken[j] = True
-            worst = max(worst, float(dist[j]))
-            exact += int(dist[j] == 0)
-        if not taken.all():
-            raise AssertionError(f"(e) extra stitched boxes {got[~taken].tolist()}")
-        n_boxes += len(want)
+        page_worst, page_exact = pair_stitched(g["boxes"], boxes, "(e)")
+        worst, exact = max(worst, page_worst), exact + page_exact
+        n_boxes += len(g["boxes"])
     log("detect_train", t0, f"(e) voting stitch (equal votes >= {golden['thresh_votes']}, fit to "
         f"the ink) on {len(pages)} golden pages, {n_raw} raw boxes: {n_boxes} stitched boxes "
         f"paired with the JAX package's, {exact} exactly equal, worst {worst:.0f} px (tol "
@@ -3932,6 +3996,275 @@ def zoo_train_phase(t0, device="cuda", blocks=ZOO_TRAIN_BLOCKS, n=ZOO_TRAIN_N,
     return records
 
 
+# ---- phases 21-25: the reference's gates and tools -------------------------------
+
+def kernel_launches() -> dict:
+    """B1's, B2's (every forward form) and B2's backward's launch counts as
+    they stand."""
+    from doc2tex_tpu_torch.ops import attention_step as b2
+
+    counts = launch_counts()
+    return {"B1": counts["decode_attention"] + counts["decode_attention_int8"],
+            "B2": sum(v for k, v in counts.items() if k.startswith("attention_step"))
+            + b2.fused_attention_step.launches,
+            "B2_backward": b2.coverage_attention_step_backward.launches
+            + b2.content_attention_step_backward.launches}
+
+
+def reset_all_launches() -> None:
+    from doc2tex_tpu_torch.ops import attention_step as b2
+
+    reset_launches()
+    b2.coverage_attention_step_backward.launches = 0
+    b2.content_attention_step_backward.launches = 0
+
+
+def require_launches(phase, t0, counts, needed, device) -> None:
+    """Print the launch counts; on the card, fail unless each kernel of
+    ``needed`` launched."""
+    log(phase, t0, f"launches: B1 {counts['B1']}, B2 {counts['B2']}, B2 backward "
+        f"{counts['B2_backward']} (this path needs {', '.join(needed) or 'none of them'})")
+    missing = [k for k in needed if counts[k] <= 0]
+    if device != "cpu" and missing:
+        raise AssertionError(f"{phase}: {missing} launched 0 times ({counts})")
+
+
+def coalesce_phase(t0, device="cuda", n=COALESCE_N, golden_path=GOLDEN_COALESCE):
+    """Phase 21 (see the module docstring).  Returns the rows of (a) and
+    (b).  A test passes ``device="cpu"`` and a smaller ``n`` to rehearse it."""
+    import hashlib
+
+    from doc2tex_tpu_torch.data.synthetic import synth_hard_dataset
+    from doc2tex_tpu_torch.eval.metrics import get_single_ED
+    from doc2tex_tpu_torch.recognition import MathRecognition, load_recog_config
+    from doc2tex_tpu_torch.tools.coalesce_eval import EVAL_SEED, evaluate
+    from doc2tex_tpu_torch.tools.release_eval import GENERATOR
+
+    with open(golden_path) as f:
+        golden = json.load(f)
+    images, labels = synth_hard_dataset(n, seed=EVAL_SEED, **GENERATOR)
+    if [hashlib.sha256(im.tobytes()).hexdigest() for im in images] != golden["sha256"][:n]:
+        raise AssertionError("coalesce: the seed-34 crops differ from the golden's")
+    ratios = [r for r in COALESCE_RATIOS if r]
+    cfg, weights = load_recog_config(version="synthetic_tfm_big")
+    shipped = (cfg["dtype"], cfg["quantize"], cfg["coalesce_ratio"])
+    cfg["dtype"], cfg["quantize"] = "float32", None
+    rec = MathRecognition(cfg, weights, beam_size=COALESCE_BEAM, device=device)
+    reset_all_launches()
+    rows, preds = evaluate(rec, images, labels, ratios, chunk=n, warmup=False)
+    counts = kernel_launches()
+    for key, row in rows.items():
+        want = golden["rows"][key]
+        same = sum(a == b for a, b in zip(preds[key], want["strings"]))
+        log("coalesce", t0, f"(a) synthetic_tfm_big float32 beam {COALESCE_BEAM}, {n} crops in "
+            f"one chunk, {key}: {same}/{n} strings equal the JAX package's, invocations "
+            f"{row['invocations']} (JAX's {want['invocations']}), EM {row['em']} (JAX's "
+            f"{want['em']:.4f}), identity {row['identity']}, B1 launches {row['b1_launches']}, "
+            f"{row['wall_s']:.3f} s")
+        if same < COALESCE_MIN_SHARE * n or row["invocations"] != want["invocations"]:
+            raise AssertionError(f"coalesce (a) {key}: {same}/{n} strings, invocations "
+                                 f"{row['invocations']} against JAX's {want['invocations']}")
+    cfg, weights = load_recog_config(version="synthetic_tfm_big")
+    rec = MathRecognition(cfg, weights, beam_size=COALESCE_BEAM, device=device)
+    ratio = int(shipped[2])
+    int8_rows, int8_preds = evaluate(rec, images, labels, [ratio], chunk=n, warmup=False)
+    key = f"ratio_{ratio}"
+    want = golden["rows"][key]["strings"]
+    chars = sum(get_single_ED(b, a) for a, b in zip(int8_preds[key], want)) / n
+    row = int8_rows[key]
+    log("coalesce", t0, f"(b) as shipped ({shipped[0]}, quantize {shipped[1]}, coalesce_ratio "
+        f"{ratio}): character match {chars:.4f} with the JAX package's float32 strings at ratio "
+        f"{ratio} (need {INT8_MIN_CHAR_MATCH}), {sum(a == b for a, b in zip(int8_preds[key], want))}"
+        f"/{n} equal; EM {row['em']}, identity {row['identity']} against its own off pass, "
+        f"invocations {row['invocations']}, B1 launches {row['b1_launches']}, {row['wall_s']:.3f} s")
+    if chars < INT8_MIN_CHAR_MATCH:
+        raise AssertionError(f"coalesce (b): character match {chars:.4f}")
+    require_launches("coalesce", t0, kernel_launches(), ("B1",), device)
+    if device != "cpu" and not all(r["b1_launches"] > 0 for r in (*rows.values(), row)):
+        raise AssertionError(f"coalesce: a pass launched no B1 ({rows}, {row})")
+    return rows, int8_rows
+
+
+def stitch_pdf_phase(t0, device="cuda", n_pages=None):
+    """Phase 22 (see the module docstring)."""
+    import glob
+    import tempfile
+
+    import numpy as np
+
+    from doc2tex_tpu_torch.detection.flow import SHIPPED_WEIGHTS
+    from doc2tex_tpu_torch.tools import stitch_pdf
+    from doc2tex_tpu_torch.utils.png import encode_png
+
+    with open(GOLDEN_STITCH) as f:
+        golden = json.load(f)
+    _, pages = golden_pages()
+    pages = pages[:n_pages]
+    reset_all_launches()
+    with tempfile.TemporaryDirectory() as d:
+        for i, page in enumerate(pages):
+            with open(os.path.join(d, f"page{i}.png"), "wb") as f:
+                f.write(encode_png(page))
+        t = time.perf_counter()
+        stitch_pdf.main(["--pages", os.path.join(d, "page*.png"), "--output_dir",
+                         os.path.join(d, "out"), "--thresh_votes", str(golden["thresh_votes"]),
+                         "--conf_thresh", str(golden["conf_thresh"]), "--detect_weights",
+                         SHIPPED_WEIGHTS, "--device", device])
+        seconds = time.perf_counter() - t
+        rows = np.genfromtxt(glob.glob(os.path.join(d, "out", "*.csv"))[0], delimiter=",",
+                             ndmin=2)
+    worst, exact, n_boxes = 0.0, 0, 0
+    for i, g in enumerate(golden["pages"][:len(pages)]):
+        page_worst, page_exact = pair_stitched(g["boxes"], rows[rows[:, 0] == i][:, 1:],
+                                               f"stitch_pdf page {i}")
+        worst, exact, n_boxes = max(worst, page_worst), exact + page_exact, n_boxes + len(g["boxes"])
+    log("stitch_pdf", t0, f"live mode (--pages, the shipped detector, votes >= "
+        f"{golden['thresh_votes']}) on {len(pages)} golden pages as PNG files: {n_boxes} "
+        f"regions paired with the JAX package's stitch, {exact} equal, worst {worst:.0f} px "
+        f"(tol {STITCH_TOL_PX}); wall {seconds:.3f} s with the detector's set-up "
+        f"({seconds / len(pages):.3f} s a page)")
+    require_launches("stitch_pdf", t0, kernel_launches(), (), device)
+    return seconds
+
+
+def interpretation_phase(t0, device="cuda", steps=24, versions=("synthetic", "synthetic_tfm_big")):
+    """Phase 23 (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from doc2tex_tpu_torch.decode.runner import token_ids_for
+    from doc2tex_tpu_torch.recognition import MathRecognition, load_recog_config
+    from doc2tex_tpu_torch.tools import interpretation as interp
+    from doc2tex_tpu_torch.transforms.augment import normalize
+
+    _, crops = golden_crops(versions[0])
+
+    def model_input(rec, crop):
+        prepped = [rec._preprocess(crop)]
+        (bucket, _), = rec.group(prepped).items()
+        batch = torch.from_numpy(rec.make_batch(prepped, bucket))[:1]
+        return normalize(batch, rec.config.get("mean", 0.5), rec.config.get("std", 0.5)).float()
+
+    recs = {}
+    for dev in dict.fromkeys((device, "cpu")):
+        cfg, weights = load_recog_config(version=versions[0])
+        cfg["dtype"], cfg["quantize"] = "float32", None
+        recs[dev] = MathRecognition(cfg, weights, beam_size=1, device=dev)
+    rec = recs["cpu"]
+    x = model_input(rec, crops[0]).numpy()
+    prepped = [rec._preprocess(crops[0])]
+    (bucket, _), = rec.group(prepped).items()
+    tokens, _ = rec._decode(rec.make_batch(prepped, bucket))
+    feed = np.concatenate([[token_ids_for("Attnv2").start], tokens[0].numpy()[:steps - 1]])
+    S = recs["cpu"].model.encode(torch.from_numpy(x)).shape[1]
+    reset_all_launches()
+    # the head attends over the memory without its class token: S - 1 positions
+    maps = {dev: interp.decoder_attention_maps(r.model, x, feed, (1, S - 1))
+            for dev, r in recs.items()}
+    counts = kernel_launches()
+    err = max(float(np.abs(a - b).max()) for a, b in zip(maps[device], maps["cpu"]))
+    worst = max(float((np.abs(a - b) - B2_TOL[1] * np.abs(b)).max())
+                for a, b in zip(maps[device], maps["cpu"]))
+    log("interpretation", t0, f"{versions[0]} float32: {len(maps[device])} decoder maps (S {S}, "
+        f"fed [GO] + the CPU's greedy tokens) on the card, alpha from B2, against the CPU's plain "
+        f"step: max abs err {err:.3e} (B2_TOL {B2_TOL}), the maps sum to "
+        f"{float(np.mean([m.sum() for m in maps[device]])):.6f}")
+    if len(maps[device]) != len(feed) or worst > B2_TOL[0]:
+        raise AssertionError(f"interpretation: decoder maps {err:.3e} apart (B2_TOL {B2_TOL})")
+    require_launches("interpretation", t0, counts, ("B2",), device)
+
+    recs = {}
+    for dev in dict.fromkeys((device, "cpu")):
+        cfg, weights = load_recog_config(version=versions[1])
+        cfg["dtype"], cfg["quantize"] = "float32", None
+        recs[dev] = MathRecognition(cfg, weights, beam_size=1, device=dev)
+    x = model_input(recs["cpu"], crops[0]).numpy()
+    attn = {dev: interp.collect_vit_attention(r.model, x) for dev, r in recs.items()}
+    worst = {}
+    for fusion in ("mean", "max", "min"):
+        roll = {dev: interp.attention_rollout(a, fusion) for dev, a in attn.items()}
+        worst[fusion] = float(np.abs(roll[device] - roll["cpu"]).max())
+    probs = max(float(np.abs(a - b).max()) for a, b in zip(attn[device], attn["cpu"]))
+    none = interp.decoder_attention_maps(recs[device].model, x, feed[:4], (1, 1))
+    log("interpretation", t0, f"{versions[1]} float32: {len(attn[device])} blocks of attention "
+        f"{attn[device][0].shape}, card - CPU max {probs:.3e}; rollout card - CPU max "
+        f"{worst} (tol 1e-4); the TFM head's decoder maps: {none}")
+    if max(worst.values()) > 1e-4 or none != []:
+        raise AssertionError(f"interpretation: rollout {worst} apart, TFM maps {none}")
+
+
+def release_tools_phase(t0, device="cuda", e2e_steps=E2E_STEPS, resizer_steps=RESIZER_STEPS):
+    """Phase 24 (see the module docstring).  A test passes ``device="cpu"``
+    and fewer steps to rehearse it."""
+    import tempfile
+
+    from doc2tex_tpu_torch.tools import e2e_demo, train_resizer
+
+    with tempfile.TemporaryDirectory() as d:
+        reset_all_launches()
+        t = time.perf_counter()
+        out = e2e_demo.run(steps=e2e_steps, n_train=256, n_eval=16, device=device,
+                           log_dir=os.path.join(d, "e2e"))
+        seconds = time.perf_counter() - t
+        log("release_tools", t0, f"e2e_demo: {out['steps']} steps ({out['steps_per_s']} steps/s), "
+            f"held-out beam-5 EM {out['em']} BLEU {out['bleu']} char {out['char']}, "
+            f"{out['crops_per_s']} crops/s, B2 launches in training {out['b2_forward_launches_train']}"
+            f" forward / {out['b2_backward_launches_train']} backward, "
+            f"{out['b2_launches_beam_eval']} in the beam evaluation; {seconds:.1f} s")
+        require_launches("release_tools", t0, kernel_launches(), ("B2", "B2_backward"), device)
+        if device != "cpu" and min(out["b2_forward_launches_train"],
+                                   out["b2_backward_launches_train"],
+                                   out["b2_launches_beam_eval"]) <= 0:
+            raise AssertionError(f"e2e_demo: B2 launches {out}")
+        reset_all_launches()
+        t = time.perf_counter()
+        res = train_resizer.main(["--steps", str(resizer_steps), "--n_train", "256", "--n_eval",
+                                  "64", "--batch", "64", "--ab_n", "16", "--out",
+                                  os.path.join(d, "resizer", "w.msgpack"), "--result",
+                                  os.path.join(d, "resizer.json"), "--device", device])
+        seconds = time.perf_counter() - t
+        log("release_tools", t0, f"train_resizer: {resizer_steps} steps, losses {res['losses']}, "
+            f"bucket acc at 2x {res['bucket_acc_2x']}, A/B on {res['n']} crops: native "
+            f"{res['em_native']}, 2x plain {res['em_2x_plain']}, 2x + resizer "
+            f"{res['em_2x_resizer']}; {seconds:.1f} s")
+        require_launches("release_tools", t0, kernel_launches(), ("B1",), device)
+
+
+def jpeg_phase(t0, device="cuda"):
+    """Phase 25 (see the module docstring)."""
+    import hashlib
+
+    from doc2tex_tpu_torch.utils.jpeg import decode_jpeg
+    from doc2tex_tpu_torch.utils.png import decode_png, encode_png
+
+    with open(os.path.join(JPEG_FIXTURES, "sha256.json")) as f:
+        want = json.load(f)
+    reset_all_launches()
+    for name, entry in sorted(want.items()):
+        with open(os.path.join(JPEG_FIXTURES, f"{name}.jpg"), "rb") as f:
+            data = f.read()
+        if hashlib.sha256(data).hexdigest() != entry["file"]:
+            raise AssertionError(f"jpeg: {name}.jpg is not the committed file")
+        for rgb, key in ((False, "L"), (True, "RGB")):
+            got = decode_jpeg(data, rgb=rgb)
+            if hashlib.sha256(got.tobytes()).hexdigest() != entry[key]:
+                raise AssertionError(f"jpeg: {name} {key} differs from PIL's bytes")
+    with open(os.path.join(JPEG_FIXTURES, "page_2200x1700.jpg"), "rb") as f:
+        page = f.read()
+    png = encode_png(decode_jpeg(page))
+    times = {}
+    for name, fn in (("jpeg", lambda: decode_jpeg(page)), ("png", lambda: decode_png(png))):
+        t = time.perf_counter()
+        for _ in range(3):
+            fn()
+        times[name] = (time.perf_counter() - t) / 3
+    log("jpeg", t0, f"{len(want)} fixtures ({', '.join(sorted(want))}) decode to the sha256 of "
+        f"PIL's convert('L') and convert('RGB') bytes; the 2200x1700 page to grey in "
+        f"{times['jpeg'] * 1e3:.1f} ms (host, the native library), the same pixels as a PNG "
+        f"{times['png'] * 1e3:.1f} ms")
+    require_launches("jpeg", t0, kernel_launches(), (), device)
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(TIME_LIMIT_S, exit=True)
     t0 = time.perf_counter()
@@ -3983,6 +4316,11 @@ def main() -> int:
     realdata_phase(t0)
     records += zoo_phase(t0)
     records += zoo_train_phase(t0)
+    coalesce_phase(t0)
+    stitch_pdf_phase(t0)
+    interpretation_phase(t0)
+    release_tools_phase(t0)
+    jpeg_phase(t0)
     print(json.dumps({"kernels": records}), flush=True)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -17,11 +17,12 @@ CLI (``data.loader.BucketLoader``, every batch decoded as it is), so
 ``--int8-full`` (``quantize: int8_full``) also keeps the decode attention
 memory in int8, through the int8 forms of B1 and B2 on the card.
 
-Images are PNGs, read by ``utils.png.decode_png`` (PIL's ``convert("L")``
-bytes; the card's machine has no PIL).  ``--resizer`` runs each manifest
-image through the learned width resizer first (``make_resizer_hook``).  What
-is not ported raises, naming its ROADMAP item: JPEG images (A11) and
-``--platform`` (a JAX switch; the port takes ``--device``).
+Images are PNGs or baseline JPEGs, read by
+``data.lmdb_reader.decode_image`` (PIL's ``convert("L")`` bytes; the card's
+machine has no PIL).  ``--resizer`` runs each manifest image through the
+learned width resizer first (``make_resizer_hook``).  What
+is not ported raises, naming its ROADMAP item: other image formats (A12)
+and ``--platform`` (a JAX switch; the port takes ``--device``).
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ import numpy as np
 import torch
 
 from ..config import load_config
+from ..data.lmdb_reader import decode_image
 from ..data.loader import ArrayDataset, BucketLoader, LmdbDataset
 from ..decode.runner import make_decode_fn
 from ..engine.inferencing import validation
@@ -47,7 +49,6 @@ from ..tokenizer.converters import create_converter
 from ..train.checkpoint import load_pretrained_variables
 from ..train.trainer import param_count
 from ..transforms.preprocess import _resize_area, learned_resize, resize_for_inference
-from ..utils.png import decode_png
 from ..weights import load_variables, random_variables, to_variables
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -103,7 +104,7 @@ def load_csv_dataset(csv_dir: str, data_dir: str, config, resize_hook=None) -> A
         if not os.path.exists(path):
             continue
         with open(path, "rb") as f:
-            img = decode_png(f.read())
+            img = decode_image(f.read(), what=path)
         if resize_hook is not None:
             img = resize_hook(img)
         images.append(resize_for_inference(img, config))

@@ -9,10 +9,12 @@ Keys (``doc2tex/data/lmdb_dataset.py:12-101``, writer
 
 The store is read and written by the pure-Python MDB code of
 ``pylmdb.py`` (the ``lmdb`` package is not used), and images are decoded
-by ``utils.png.decode_png``, which gives PIL's ``convert("L")`` (or
-``convert("RGB")``) bytes.  An image that PIL could not open either
-becomes the JAX package's 32x32 dummy; JPEG bytes (and GIF, BMP,
-TIFF or WebP bytes), which PIL reads, raise instead (ROADMAP A11).
+by ``utils.png.decode_png`` or, for JPEG bytes, ``utils.jpeg.decode_jpeg``,
+which give PIL's ``convert("L")`` (or ``convert("RGB")``) bytes.  An image
+that PIL could not open either becomes the JAX package's 32x32 dummy; GIF,
+BMP, TIFF or WebP bytes, and JPEG variants the decoder does not take
+(progressive, arithmetic-coded, CMYK), which PIL reads, raise instead
+(ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Sequence
 
 import numpy as np
 
+from ..utils.jpeg import SOI, decode_jpeg
 from ..utils.png import decode_png, encode_png
 from .pylmdb import PyLmdbReader, write_pylmdb
 
@@ -31,19 +34,23 @@ KEY_HEIGHT = "height-%09d"
 KEY_WIDTH = "width-%09d"
 KEY_NUM_SAMPLES = "num-samples"
 
-# formats PIL opens that decode_png does not: (magic, offset, name)
-_OTHER_FORMATS = ((b"\xff\xd8\xff", 0, "JPEG"), (b"GIF8", 0, "GIF"), (b"BM", 0, "BMP"),
+# formats PIL opens that neither decoder takes: (magic, offset, name)
+_OTHER_FORMATS = ((b"GIF8", 0, "GIF"), (b"BM", 0, "BMP"),
                   (b"II*\x00", 0, "TIFF"), (b"MM\x00*", 0, "TIFF"), (b"WEBP", 8, "WebP"))
 
 
 def decode_image(raw: bytes, rgb: bool = False, what: str = "image") -> np.ndarray:
-    """Encoded image bytes -> (H, W) or (H, W, 3) uint8.  A JPEG (or
-    another format PIL reads) raises ``NotImplementedError``; anything
-    else ``decode_png`` refuses raises its ``ValueError``."""
+    """Encoded image bytes -> (H, W) or (H, W, 3) uint8: a JPEG (by its
+    magic) through ``decode_jpeg``, anything else through ``decode_png``.
+    GIF, BMP, TIFF or WebP bytes (formats PIL reads) raise
+    ``NotImplementedError``, as do the JPEG variants ``decode_jpeg``
+    refuses; bytes neither decoder takes raise its ``ValueError``."""
     for magic, at, fmt in _OTHER_FORMATS:
         if raw[at:at + len(magic)] == magic:
-            raise NotImplementedError(f"{what} is a {fmt}; only PNG is decoded, {fmt} "
-                                      "decoding is not ported yet (ROADMAP A11)")
+            raise NotImplementedError(f"{what} is a {fmt}; only PNG and JPEG are decoded, "
+                                      f"{fmt} decoding is not ported yet (ROADMAP A12)")
+    if raw[:3] == SOI + b"\xff":
+        return decode_jpeg(raw, rgb=rgb)
     return decode_png(raw, rgb=rgb)
 
 

@@ -4,9 +4,9 @@
 Page images with ``.pmath`` box annotations (one ``x1,y1,x2,y2`` per
 line) are cut into 512x512 training windows whose targets are the
 window-normalized math boxes that overlap each window enough
-(ScanSSD's ``gtdb_new.py``).  Pages are PNGs read by ``utils/png.py`` as
-PIL's ``convert("L")`` reads them; ``.jpg``/``.jpeg`` pages raise naming
-ROADMAP A11 (there is no JPEG decoder without PIL).
+(ScanSSD's ``gtdb_new.py``).  Pages are PNGs read by ``utils/png.py``, or
+``.jpg``/``.jpeg`` pages read by ``utils/jpeg.py``, as PIL's
+``convert("L")`` reads them.
 
 ``make_detection_train_step`` is ScanSSD's ``train.py`` loop body: uint8
 windows to float32, grey repeated to 3 channels, the mean pixel taken off,
@@ -22,6 +22,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..utils.jpeg import decode_jpeg
 from ..utils.png import decode_png
 from .loss import focal_loss, multibox_loss
 from .priors import MATH_GTDB_512
@@ -79,12 +80,16 @@ def window_targets(
 
 
 def read_page(path: str) -> np.ndarray:
-    """A page image -> (H, W) uint8 grey, as PIL's ``convert("L")``."""
-    if os.path.splitext(path)[1].lower() != ".png":
-        raise NotImplementedError(f"{path}: only PNG pages are read without PIL; JPEG pages "
-                                  "are not ported yet (ROADMAP A11)")
+    """A ``.png``, ``.jpg`` or ``.jpeg`` page image -> (H, W) uint8 grey,
+    as PIL's ``convert("L")``; another extension raises
+    ``NotImplementedError``."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext not in (".png", ".jpg", ".jpeg"):
+        raise NotImplementedError(f"{path}: only PNG and JPEG pages are read without PIL "
+                                  "(ROADMAP A12)")
     with open(path, "rb") as f:
-        return decode_png(f.read())
+        data = f.read()
+    return decode_png(data) if ext == ".png" else decode_jpeg(data)
 
 
 class GTDBDetectionDataset:

@@ -270,7 +270,12 @@ class Mlp(nn.Module):
 
 class SelfAttention(nn.Module):
     """Fused-qkv multi-head self-attention: plain matmul + float32 softmax,
-    as the JAX module writes it (no fused attention call)."""
+    as the JAX module writes it (no fused attention call).  ``capture`` is
+    off (None) unless a caller sets it to a list
+    (``tools.interpretation.capture_attention``): then each forward appends
+    its attention probabilities, as the JAX module sows ``attn_probs``."""
+
+    capture = None
 
     def __init__(self, dim: int, num_heads: int, dtype: torch.dtype,
                  attn_drop: float = 0.0, proj_drop: float = 0.0):
@@ -288,6 +293,8 @@ class SelfAttention(nn.Module):
         q, k, v = qkv.unbind(dim=2)  # (B, N, H, hd)
         attn = torch.einsum("bnhd,bmhd->bhnm", q, k) * scalar(hd ** -0.5, self.dtype)
         attn = torch.softmax(attn.float(), dim=-1).to(self.dtype)
+        if self.capture is not None:
+            self.capture.append(attn.detach())
         attn = dropout(attn, self.attn_drop, train, generator)
         out = torch.einsum("bhnm,bmhd->bnhd", attn, v).reshape(B, N, C)
         return dropout(self.Dense_1(out), self.proj_drop, train, generator)

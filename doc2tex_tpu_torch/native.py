@@ -1,19 +1,20 @@
 """ctypes bindings for the repository's native C++ host code (counterpart of
 ``doc2tex_tpu.native``): the edit distance, the LaTeX tokenizer, normalizer
-and validator, and the PNG row unfilter of ``utils.png``.
+and validator, the PNG row unfilter of ``utils.png`` and the JPEG scan
+decoder, upsampling and colour conversion of ``utils.jpeg``.
 
 The first three are the shared sources at the repository root (``native/
 levenshtein.cpp``, ``native/latex_tokenizer.cpp`` and its table
-``native/katex_tables.h``); the unfilter is the port's own
-``csrc/png_unfilter.cpp``.  The first call builds them with ``g++ -O3
--shared -fPIC -std=c++17`` into one library in ``build/`` at the repository
-root, named by the hash of the sources and the flags, so an edited source
-is rebuilt and an unchanged one is loaded as it is; the JAX package's own
-library in ``native/`` is never read or written.  This is host code, not a
-kernel.  A failed build raises: callers get no silent Python stand-in (the
-plain versions, ``eval.metrics._lev_py``, ``latex.pytok``,
-``latex.validate`` and ``utils.png._unfilter_py``, are what the tests hold
-this library to).
+``native/katex_tables.h``); the unfilter and the JPEG code are the port's
+own ``csrc/png_unfilter.cpp`` and ``csrc/jpeg_decode.cpp``.  The first call
+builds them with ``g++ -O3 -shared -fPIC -std=c++17`` into one library in
+``build/`` at the repository root, named by the hash of the sources and the
+flags, so an edited source is rebuilt and an unchanged one is loaded as it
+is; the JAX package's own library in ``native/`` is never read or written.
+This is host code, not a kernel.  A failed build raises: callers get no
+silent Python stand-in (the plain versions, ``eval.metrics._lev_py``,
+``latex.pytok``, ``latex.validate``, ``utils.png._unfilter_py`` and
+``utils.jpeg.decode_jpeg_py``, are what the tests hold this library to).
 """
 
 from __future__ import annotations
@@ -30,8 +31,9 @@ import numpy as np
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SHARED = os.path.join(_ROOT, "native")
 BUILD_DIR = os.path.join(_ROOT, "build")
+_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 SOURCES = (os.path.join(_SHARED, "levenshtein.cpp"), os.path.join(_SHARED, "latex_tokenizer.cpp"),
-           os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "png_unfilter.cpp"))
+           os.path.join(_CSRC, "png_unfilter.cpp"), os.path.join(_CSRC, "jpeg_decode.cpp"))
 HEADERS = (os.path.join(_SHARED, "katex_tables.h"),)
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 BUILD_TIMEOUT_S = 300
@@ -85,6 +87,17 @@ def load():
         u8 = ctypes.POINTER(ctypes.c_uint8)
         lib.d2t_png_unfilter.restype = ctypes.c_int
         lib.d2t_png_unfilter.argtypes = [u8, ctypes.c_int, ctypes.c_int, ctypes.c_int, u8]
+        i32 = ctypes.POINTER(ctypes.c_int)
+        lib.d2t_jpeg_scan.restype = ctypes.c_int
+        lib.d2t_jpeg_scan.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int, i32, u8, u8, u8,
+                                      ctypes.POINTER(ctypes.c_uint16), ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_int, u8]
+        lib.d2t_jpeg_upsample.restype = ctypes.c_int
+        lib.d2t_jpeg_upsample.argtypes = [u8, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                          ctypes.c_int, ctypes.c_int, u8, ctypes.c_int,
+                                          ctypes.c_int]
+        lib.d2t_jpeg_ycc.restype = None
+        lib.d2t_jpeg_ycc.argtypes = [u8, u8, u8, ctypes.c_long, ctypes.c_int, u8]
         _lib = lib
         return lib
 

@@ -5,8 +5,8 @@ Reference ``createDataset``
 manifest (id<TAB>label, an optional header row) and an image folder -> an
 LMDB store with PNG image bytes, labels, names, int32 h/w sidecars and the
 ``num-samples`` key (``data.lmdb_reader.write_lmdb``).  Images are read as
-PIL's ``convert("L")`` would read them (``utils.png.decode_png``); a JPEG
-raises (ROADMAP A11).
+PIL's ``convert("L")`` would read them (``data.lmdb_reader.decode_image``:
+PNG and baseline JPEG); other formats raise (ROADMAP A12).
 
 Usage:
     python -m doc2tex_tpu_torch.tools.lmdb_builder --csv labels.tsv \\

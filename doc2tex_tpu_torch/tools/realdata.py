@@ -16,7 +16,9 @@ reports whether it ran, or what blocks it:
 - ``mine``: ``.tex`` sources -> demacro -> ``find_math`` ->
   normalize/validate -> ``formulas.norm.lst`` (``latex.normalize`` with the
   native tokenizer; ``tools/data/sample_paper.tex`` by default).
-- ``render`` (TeX to PNG) is not ported (ROADMAP A11) and raises.
+- ``render``: ``formulas.norm.lst`` -> ``imgs/`` + ``labels.tsv`` through
+  pdflatex and convert (``tools.render.render_dataset``, batches of 50);
+  without TeX it reports BLOCKED, as the JAX tool does.
 - ``package`` converts the im2markup lists (``--im2markup_dir``) to
   ``labels_<split>.tsv``, or with ``--synthetic_fallback`` writes
   ``--n`` hard-benchmark synthetic PNGs (seed 77) and ``labels.tsv``:
@@ -97,9 +99,25 @@ def stage_mine(work: str, tex_glob: str) -> str:
     return out
 
 
-def stage_render(work: str, formulas_path: str) -> None:
-    raise NotImplementedError("render: TeX rendering (tools/render.py) is not ported yet "
-                              "(ROADMAP A11); package --synthetic_fallback or --im2markup_dir")
+def stage_render(work: str, formulas_path: str) -> bool:
+    """Render the formulas to ``imgs/`` and write ``labels.tsv`` (name TAB
+    formula) of those that rendered; False, after saying so, without TeX."""
+    from . import render
+
+    if not render.HAS_TEX:
+        print("render BLOCKED: pdflatex/convert absent. Validate the install with: python -m "
+              "doc2tex_tpu_torch.tools.render --selftest (renders 10 formulas against "
+              "structural goldens), then re-run this stage.")
+        return False
+    with open(formulas_path) as f:
+        formulas = [line.strip() for line in f if line.strip()]
+    img_dir = os.path.join(work, "imgs")
+    got = render.render_dataset(formulas, img_dir, batch_size=50)
+    with open(os.path.join(work, "labels.tsv"), "w") as f:
+        for idx, path in sorted(got.items()):
+            f.write(f"{os.path.basename(path)}\t{formulas[idx]}\n")
+    print(f"render: {len(got)}/{len(formulas)} formulas -> {img_dir}")
+    return len(got) > 0
 
 
 def stage_package_im2markup(work: str, im2markup_dir: str) -> None:
@@ -345,10 +363,9 @@ def main(argv=None) -> dict:
     if stage in ("all", "mine"):
         stage_mine(w, args.tex_glob)
         report["mine"] = "ran"
-    if stage == "render":
-        stage_render(w, os.path.join(w, "formulas.norm.lst"))
-    if stage == "all":
-        report["render"] = "not ported (ROADMAP A11)"
+    if stage in ("all", "render"):
+        rendered = stage_render(w, os.path.join(w, "formulas.norm.lst"))
+        report["render"] = "ran" if rendered else "BLOCKED(pdflatex)"
     if stage in ("all", "package"):
         if args.im2markup_dir:
             stage_package_im2markup(w, args.im2markup_dir)

@@ -16,7 +16,9 @@
   entry within 1e-5 of the gradient's largest magnitude;
 - ``read_pmath``, ``window_targets`` and ``GTDBDetectionDataset`` on a
   temporary directory of PNG pages (grey and RGB, written by PIL): equal
-  samples and batch order; JPEG pages raise naming ROADMAP A11;
+  samples and batch order; a ``.jpg`` page reads as PIL reads it, and
+  equal samples again with it in the directory; a progressive JPEG page
+  raises naming ROADMAP A12;
 - one float32 train step at batch 1 from the shipped detector against
   JAX's ``make_detection_train_step`` with ``optax.adam(1e-4)``, at the
   gates of ``chip_smoke.py``'s detect_train phase (a): the loss within
@@ -317,9 +319,19 @@ def test_gtdb_dataset_equals_jax(tmp_path):
         for a, b in zip(tdata.window_targets(boxes, info, **kw),
                         jdata.window_targets(boxes, info, **kw)):
             np.testing.assert_array_equal(a, b)
-    Image.fromarray(np.full((600, 600), 255, np.uint8)).save(img_dir / "p5.jpg")
+    page, _, _ = synth_labelled_page(rng, n_regions=2, style="structured")
+    Image.fromarray(page[:600, :600]).save(img_dir / "p5.jpg", quality=80)
     (anno_dir / "p5.pmath").write_text("1,2,30,40\n")
-    with pytest.raises(NotImplementedError, match="A11"):
+    assert np.array_equal(tdata.read_page(str(img_dir / "p5.jpg")),
+                          np.asarray(Image.open(img_dir / "p5.jpg").convert("L")))
+    want = jdata.GTDBDetectionDataset(str(img_dir), str(anno_dir))
+    got = tdata.GTDBDetectionDataset(str(img_dir), str(anno_dir))
+    assert len(got) == len(want)
+    for a, b in zip(got.samples, want.samples):
+        assert all(np.array_equal(x, y) for x, y in zip(a, b))
+    Image.fromarray(page[:600, :600]).save(img_dir / "p6.jpeg", progressive=True)
+    (anno_dir / "p6.pmath").write_text("1,2,30,40\n")
+    with pytest.raises(NotImplementedError, match="A12"):
         tdata.GTDBDetectionDataset(str(img_dir), str(anno_dir))
 
 

@@ -7,7 +7,8 @@
   ``tests/test_tools.py`` (multilevel tree with overflow pages, empty store,
   meta chosen by txnid, torn meta 0, both metas torn) run on the port's
   writer, read by both packages' readers.  Undecodable bytes give JAX's
-  32x32 dummy; JPEG bytes (which PIL reads) raise naming ROADMAP A11.
+  32x32 dummy; JPEG bytes read as PIL reads them, and a progressive JPEG
+  (which PIL reads too) raises naming ROADMAP A12.
 - PNG: ``utils.png.decode_png`` equals PIL's ``convert("L")`` and
   ``convert("RGB")`` on every colour type and bit depth PNG allows, plain
   and Adam7-interlaced, over all five row filters (the test writes the
@@ -279,17 +280,20 @@ def test_store_cases(case, tmp_path):
 
 def test_corrupt_image_dummy_and_jpeg_raise(tmp_path):
     """Bytes PIL cannot open give both packages' 32x32 dummy (white in
-    gray, PIL's ``color=255`` red in RGB); JPEG
-    bytes, which PIL opens, raise in the port naming ROADMAP A11."""
+    gray, PIL's ``color=255`` red in RGB); baseline JPEG bytes read equal
+    to JAX's (PIL's); progressive JPEG bytes, which PIL opens, raise in the
+    port naming ROADMAP A12."""
     from PIL import Image
 
     from doc2tex_tpu.data import lmdb_reader as jax_lmdb
 
-    jpeg = io.BytesIO()
-    Image.fromarray(np.full((8, 8), 90, np.uint8)).save(jpeg, format="JPEG")
-    pairs = [(b"num-samples", b"2"), (b"image-000000001", b"\x00garbage"),
-             (b"image-000000002", jpeg.getvalue())]
-    for i in (1, 2):
+    jpeg, progressive = io.BytesIO(), io.BytesIO()
+    rgb_img = np.random.default_rng(0).integers(0, 256, (8, 8, 3)).astype(np.uint8)
+    Image.fromarray(rgb_img).save(jpeg, format="JPEG")
+    Image.fromarray(rgb_img).save(progressive, format="JPEG", progressive=True)
+    pairs = [(b"num-samples", b"3"), (b"image-000000001", b"\x00garbage"),
+             (b"image-000000002", jpeg.getvalue()), (b"image-000000003", progressive.getvalue())]
+    for i in (1, 2, 3):
         pairs += [(b"label-%09d" % i, b"x"), (b"height-%09d" % i, np.int32(8).tobytes()),
                   (b"width-%09d" % i, np.int32(8).tobytes())]
     root = str(tmp_path / "db")
@@ -299,8 +303,10 @@ def test_corrupt_image_dummy_and_jpeg_raise(tmp_path):
         np.testing.assert_array_equal(port.image(1), jax.image(1))
         assert port.image(1).shape[:2] == (32, 32) and (port.image(1)[..., 0] == 255).all()
         assert jax.image(2).shape[:2] == (8, 8)       # PIL reads the JPEG
-        with pytest.raises(NotImplementedError, match="A11"):
-            port.image(2)
+        np.testing.assert_array_equal(port.image(2), jax.image(2))
+        assert jax.image(3).shape[:2] == (8, 8)
+        with pytest.raises(NotImplementedError, match="A12"):
+            port.image(3)
 
 
 # ----------------------------------------------------------------- loader

@@ -3,8 +3,10 @@
 - the port and ``chip_smoke.py`` import with jax, flax, yaml, msgpack, PIL,
   cv2, lmdb, scipy and the JAX package blocked (none is on the GPU
   machine), the int8, serving, release-eval, detection, page-app,
-  page-eval, training, eval-CLI, detector-training, stitch, int8-eval and
-  data-chain modules among them;
+  page-eval, training, eval-CLI, detector-training, stitch, int8-eval,
+  data-chain modules, the JPEG decoder and the reference's gates and tools
+  (coalescing, PDF stitch, image metrics, interpretation, rendering,
+  weight export, the end-to-end demo, the resizer's trainer) among them;
 - ``chip_smoke.py`` exits non-zero, and never prints ``"ok": true``, on a
   machine without a card and from a directory without the repository;
 - chip_smoke's slice phase runs end to end on the CPU at a tiny size, for
@@ -50,7 +52,10 @@ REQUIRED = ("ops.quant", "serving", "api.serve", "utils.png", "data.loader", "ev
             "latex.validate", "latex.normalize", "latex.demacro", "latex.extract",
             "tools.vocab_tools", "tools.label_tools", "tools.lmdb_builder", "tools.arxiv",
             "tools.realdata", "models.vgg", "models.bilstm", "models.extras",
-            "tools.torch_import")
+            "tools.torch_import", "utils.jpeg", "tools.coalesce_eval", "tools.stitch_pdf",
+            "tools.image_eval", "tools.evaluate_images", "tools.inspect_images",
+            "tools.interpretation", "tools.render", "tools.export_demo_weights",
+            "tools.e2e_demo", "tools.train_resizer", "tools.bench_host_tools")
 
 GUARD = textwrap.dedent(f"""
     import importlib, pkgutil, sys
@@ -90,7 +95,7 @@ def test_port_imports_nothing_the_gpu_machine_lacks():
     out = subprocess.run([sys.executable, "-c", GUARD], cwd=ROOT, env=_env(),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 73
+    assert int(out.stdout.split()[-1]) >= 85
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
