@@ -290,7 +290,29 @@ Needs one CUDA card; exits non-zero without one.  Phases, one line each:
    4:2:2 with restart markers, 4:2:0 with optimised tables, a 1,700 x 2,200
    4:2:0 page) decode to the sha256 of PIL's ``convert("L")`` and
    ``convert("RGB")`` bytes; the page's decode timed (host) beside the same
-   pixels through ``decode_png``.
+   pixels through ``decode_png``;
+26. mesh — the port's mesh (``parallel/mesh.py``): ``MESH_RANKS`` ranks on
+   the one card (gloo, the ranks spawned with ``parallel.mesh.spawn``), and
+   again one rank a card over NCCL when the machine has that many cards.
+   Rank 0 drives ``MathRecognition(mesh=...)`` and ``MathDetector(mesh=...)``,
+   the other rank follows; each gate against this process's one-process
+   run on the same card: (a) float32 ``synthetic_tfm_big`` and ``synthetic``
+   strings on the golden crops, >= 15/16 equal; (b) both as shipped (int8):
+   every int8 layer's activation scale bit-equal across the ranks, the
+   first int8 layer's scale of each call bit-equal to the one-process
+   call's on the same batch, and the strings' character match >=
+   ``INT8_MIN_CHAR_MATCH``; (c) a float32 train step of each recipe
+   (``train_hard_tfm_big``, ``train_synth``) on ``MESH_TRAIN_N`` hard crops
+   padded to ``MESH_RANKS`` rows (the TFM recipe's labels rolled by one
+   crop, so that its loss is far from 0) within ``TRAIN_TOL`` (the
+   ResNet's leaves within 4 times the card's own spread), the weights after
+   the step bit-equal on every rank, every rank launching B1 and B2
+   in (a)/(b) and B2's forward and backward in (c), each held against its
+   plain version at the shapes it launched there; (d) the detector's boxes
+   on the golden pages, float32 within the detect phase's limits and int8
+   within the int8 detection limits (its scales checked in (b)); (e)
+   ``tools/dryrun_multichip.py 4 --device cuda`` (4 ranks sharing the card).
+   Each rank's launches and the phase's wall time are printed.
 
 Each of phases 21-25 prints B1's, B2's and B2's backward's launch counts
 and fails unless each kernel its path needs launched.
@@ -4265,6 +4287,368 @@ def jpeg_phase(t0, device="cuda"):
     require_launches("jpeg", t0, kernel_launches(), (), device)
 
 
+# ---- phase 26: the mesh ------------------------------------------------------
+
+MESH_RANKS = 2
+MESH_TRAIN_N = 7            # the (c) global batch: padded to 8, one pad row
+MESH_LIMIT_S = 600          # a rank group's time limit
+MESH_VERSIONS = ("synthetic_tfm_big", "synthetic")
+MESH_DRYRUN_N = 4
+
+
+def mesh_recognizers(version, mesh, device, shipped):
+    """``version``'s released recognizer on ``device`` (over ``mesh``):
+    float32 and not quantized, or (``shipped``) as the block ships it."""
+    from doc2tex_tpu_torch.recognition import MathRecognition, load_recog_config
+
+    cfg, weights = load_recog_config(version=version)
+    if not shipped:
+        cfg.update(dtype="float32", quantize=None)
+    return MathRecognition(cfg, weights, beam_size=10, device=device, mesh=mesh)
+
+
+def mesh_detector(mesh, device, quantize):
+    from doc2tex_tpu_torch.detection.flow import SHIPPED_WEIGHTS, MathDetector
+
+    with open(GOLDEN_PAGES) as f:
+        golden = json.load(f)
+    return MathDetector(SHIPPED_WEIGHTS, conf_thresh=golden["conf_thresh"],
+                        iou_thresh=golden["nms_iou"], expand_frac=golden["expand_frac"],
+                        quantize=quantize, device=device, mesh=mesh)
+
+
+def mesh_train_case(recipe, device, mesh=None):
+    """(c)'s float32 step of ``recipe`` ("tfm": ``train_hard_tfm_big`` from
+    the shipped ``synthetic_tfm_big`` at 96x352; "lstm": the ``synthetic``
+    recipe from its shipped weights at 224x704) on the fixed global batch of
+    MESH_TRAIN_N hard crops padded to the data axis of MESH_RANKS: the step's gradient
+    (``loss_and_grads``, this rank's rows over ``mesh``), then the step;
+    dropout and the augmentation off.  Without a mesh (one process) also
+    the gradient with the weights scaled by (1 + WEIGHT_NOISE N(0, 1)), the
+    card's own spread."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from doc2tex_tpu_torch.config import load_config
+    from doc2tex_tpu_torch.engine.training import init_training
+    from doc2tex_tpu_torch.parallel import mesh as meshlib
+    from doc2tex_tpu_torch.train.trainer import loss_and_grads, make_train_step, pad_batch
+    from doc2tex_tpu_torch.transforms.augment import normalize
+
+    if recipe == "tfm":   # the train phase's (a): its ViT's table fits 96x352
+        cfg, weights, bucket = train_config(), TFM_BIG_WEIGHTS, (96, 352)
+    else:                 # the train_lstm phase's (a)
+        cfg, weights, bucket = lstm_recipe_config(), SYNTHETIC_WEIGHTS, TRAIN_FIXED_BUCKET
+    cfg.update(dtype="float32", warmup_epochs=0, pretrained_weight=weights, augment=False)
+    head = cfg["Prediction"]["params"]
+    head["droprate" if cfg["Prediction"]["name"].startswith("Attn") else "dropout"] = 0.0
+    batch, text = fixed_batch(cfg, MESH_TRAIN_N, bucket)
+    if recipe == "tfm":
+        # each crop takes the next crop's label: the shipped weights fit the
+        # crops' own labels to a loss near 1e-4, where a step barely moves
+        text = np.roll(text, 1, axis=0)
+    go = 0 if cfg["Prediction"]["name"].startswith("Attn") else 1
+    batch, text = pad_batch(batch, text, MESH_RANKS, go)
+    b = init_training(copy.deepcopy(cfg), device=device)
+    images, tokens = (batch, text) if mesh is None else meshlib.shard_batch((batch, text), mesh)
+    x = normalize(torch.from_numpy(images).to(device))
+    tokens = torch.from_numpy(tokens).to(device).long()
+    with meshlib.activation_mesh(mesh):
+        _, _, grads = loss_and_grads(copy.deepcopy(b.model), b.criterion, x, tokens, None, mesh)
+    out = {"grads": {k: g.cpu() for k, g in grads.items()}}
+    if mesh is None:
+        noisy = copy.deepcopy(b.model)
+        gen = torch.Generator().manual_seed(17)
+        with torch.no_grad():
+            for p in noisy.parameters():
+                p.mul_(1 + WEIGHT_NOISE * torch.randn(p.shape, generator=gen).to(p.device))
+        out["noisy"] = {k: g.cpu() for k, g in loss_and_grads(noisy, b.criterion, x, tokens)[2]
+                        .items()}
+        del noisy
+    step = make_train_step(b.model, b.criterion, b.tx, cfg, mesh=mesh)
+    m = step(b.state, batch, text, torch.Generator().manual_seed(5))
+    out.update(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+               params={k: v.cpu() for k, v in b.model.state_dict().items()})
+    return out
+
+
+def single_scales(rec, crops, multiple):
+    """``rec(crops)``'s strings with each batch rounded up to ``multiple``
+    rows, as a mesh's data axis rounds it, and every int8 layer's
+    activation scale of those calls (one process)."""
+    from doc2tex_tpu_torch.ops.quant import recorded_scales
+
+    prepped = [rec._preprocess(c) for c in crops]
+    out = [""] * len(crops)
+    sep = " " if rec.config.get("token_level", "word") == "word" else ""
+    with recorded_scales() as scales:
+        for bucket, idxs in rec.group(prepped).items():
+            tokens, _ = rec._decode(rec.make_batch([prepped[i] for i in idxs], bucket, multiple))
+            for i, row in zip(idxs, tokens[:len(idxs)].cpu().numpy()):
+                out[i] = postprocess(rec, sep, row)
+    return out, list(scales)
+
+
+def postprocess(rec, sep, row):
+    from doc2tex_tpu_torch.latex.postprocess import postprocess_prediction
+
+    return postprocess_prediction(sep.join(rec.converter.detokenize(row[None])[0]))
+
+
+def mesh_rank(devices, out_dir):
+    """One rank of the mesh phase (MESH_RANKS ranks, {"data": MESH_RANKS}).
+    Single controller: rank 0 decodes (a) and (b) and detects (d), the
+    others follow; then (c) SPMD.  Each rank records the shapes its B1 and
+    B2 launches had and holds the kernels against their plain versions
+    there, and writes its results to ``out_dir``."""
+    import pickle
+
+    import torch
+
+    from doc2tex_tpu_torch.ops.quant import recorded_scales
+    from doc2tex_tpu_torch.parallel import mesh as meshlib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    mesh = meshlib.make_mesh({"data": MESH_RANKS})
+    device = str(meshlib.rank_device())
+    tag = f"mesh rank {mesh.rank} ({device}, {mesh.backend})"
+    out = {"rank": mesh.rank, "backend": mesh.backend, "device": device, "launches": {}}
+    _, pages = golden_pages()
+    crops = {v: golden_crops(v)[1] for v in MESH_VERSIONS}
+    recs = {(v, shipped): mesh_recognizers(v, mesh, device, shipped)
+            for v in MESH_VERSIONS for shipped in (False, True)}
+    dets = {q: mesh_detector(mesh, device, q) for q in (None, "int8")}
+    reset_all_launches()
+    with recorded_launches() as shapes:
+        with recorded_scales() as scales:
+            if mesh.rank == 0:
+                for (v, shipped), rec in recs.items():
+                    out["strings", v, shipped] = rec(crops[v])
+                for q, det in dets.items():
+                    out["det", q] = [det.detect_page(p) for p in pages]
+                mesh.stop_followers()
+            else:
+                mesh.follow()
+        torch.cuda.synchronize()
+        out["scales"] = list(scales)
+        out["launches"]["inference"] = kernel_launches()
+        reset_all_launches()
+        for recipe in ("tfm", "lstm"):
+            res = mesh_train_case(recipe, device, mesh)
+            if mesh.rank == 0:
+                out["train", recipe] = res
+            else:   # held bit-equal to rank 0's: the ranks apply one gradient
+                out["train_params", recipe] = res["params"]
+            torch.cuda.synchronize()
+            out["launches"][recipe] = kernel_launches()
+            reset_all_launches()
+    check_b1_shapes(t0, tag, shapes["b1"], 8, 32)
+    n, text = check_coverage_shapes(sorted(shapes["b2"]))
+    log(tag, t0, f"B2 (coverage form) matches its plain version at the {len(shapes['b2'])} "
+        f"shapes launched ({n} checks): {text}")
+    worst = [check_backward(args, f"{shape}") for shape, args in
+             shapes["b2_bwd_inputs"].items()]
+    log(tag, t0, f"B2's backward matches its plain version and itself at the "
+        f"{len(worst)} shapes launched: worst {max(w[1] for w in worst):.2f} of its tolerance")
+    out["shapes"] = {k: sorted(map(str, shapes[k])) for k in ("b1", "b2", "b2_bwd")}
+    log(tag, t0, f"launches {out['launches']}")
+    with open(os.path.join(out_dir, f"mesh_rank{mesh.rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    return mesh.rank
+
+
+def char_match(got, want) -> float:
+    from doc2tex_tpu_torch.eval.metrics import get_single_ED
+
+    return sum(get_single_ED(b, a) for a, b in zip(got, want)) / len(want)
+
+
+def mesh_checks(t0, phase, ranks, single, n_layers):
+    """Gates (a)-(d) of the mesh phase: ``ranks`` (each rank's results),
+    ``single`` (the one-process run's on the same card)."""
+    r0 = ranks[0]
+    for v in MESH_VERSIONS:
+        got, want = r0["strings", v, False], single["strings", v, False]
+        match = sum(a == b for a, b in zip(got, want))
+        log(phase, t0, f"(a) {v} float32 beam 10: {match}/16 strings equal to the one-process "
+            f"card's")
+        if match < MIN_GOLDEN_MATCH:
+            raise AssertionError(f"(a) {v}: {match}/16 < {MIN_GOLDEN_MATCH}")
+        got, (want, want_scales) = r0["strings", v, True], single["strings", v, True]
+        chars = char_match(got, want)
+        log(phase, t0, f"(b) {v} as shipped (int8): {sum(a == b for a, b in zip(got, want))}/16 "
+            f"strings equal, character match {chars:.4f} (need {INT8_MIN_CHAR_MATCH})")
+        if chars < INT8_MIN_CHAR_MATCH:
+            raise AssertionError(f"(b) {v}: character match {chars:.4f}")
+    scales = [r["scales"] for r in ranks]
+    if any(s != scales[0] for s in scales):
+        raise AssertionError("(b)/(d) the ranks' int8 activation scales differ")
+    firsts = [single[key][1][i] for key, n in n_layers
+              for i in range(0, len(single[key][1]), n)]
+    got_firsts = [scales[0][i] for i in first_offsets(n_layers, single)]
+    every = [x for key, _ in n_layers for x in single[key][1]]
+    log(phase, t0, f"(b)/(d) every int8 scale bit-equal across the {len(ranks)} ranks "
+        f"({len(scales[0])} scales); first quantized layer's scale of each call against the "
+        f"one-process call's on the same batch: {sum(a == b for a, b in zip(got_firsts, firsts))}"
+        f"/{len(firsts)} bit-equal (every layer's, printed: "
+        f"{sum(a == b for a, b in zip(scales[0], every))}/{len(every)}; a rank's smaller "
+        "batch may take other cuDNN and cuBLAS algorithms, whose last bits move later scales)")
+    if got_firsts != firsts:
+        raise AssertionError(f"(b)/(d) first int8 layer's scales {got_firsts} != {firsts}")
+    for recipe in ("tfm", "lstm"):
+        got, want = r0["train", recipe], single["train", recipe]
+        loss_err = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+        norm_err = abs(got["grad_norm"] - want["grad_norm"]) / want["grad_norm"]
+        norm = float(sum((g.double() ** 2).sum() for g in want["grads"].values()) ** 0.5)
+        worst = _worst_leaves(got["grads"], want["grads"], norm)
+        own = _worst_leaves(want["noisy"], want["grads"], norm)[True]
+        resnet_tol = max(TRAIN_TOL["grad_rtol"], SPREAD_FACTOR * own[0])
+        import torch
+
+        diffs = torch.cat([(got["params"][k].float() - want["params"][k].float()).abs().flatten()
+                           for k in want["params"]])
+        far = (diffs > 1e-6).float().mean().item()
+        log(phase, t0, f"(c) {recipe} float32 step over {MESH_RANKS} ranks against one process, "
+            f"global batch {MESH_TRAIN_N} padded to {MESH_TRAIN_N + 1}: loss {got['loss']:.7f} / "
+            f"{want['loss']:.7f} (rel {loss_err:.2e}), grad_norm rel {norm_err:.2e}, worst leaf "
+            f"{worst[False][0]:.2e} ({worst[False][1]}; ResNet {worst[True][0]:.2e}, tol "
+            f"{resnet_tol:.2e}: 4x the card's own spread {own[0]:.2e}), weights further than "
+            f"1e-6 apart {far:.4%} (TRAIN_TOL {TRAIN_TOL})")
+        if not (loss_err <= TRAIN_TOL["loss_rtol"] and norm_err <= TRAIN_TOL["grad_norm_rtol"]
+                and worst[False][0] <= TRAIN_TOL["grad_rtol"] and worst[True][0] <= resnet_tol
+                and far <= TRAIN_TOL["param_far_share"]):
+            raise AssertionError(f"(c) the {recipe} step over the mesh disagrees")
+        for r in ranks[1:]:
+            if not all(torch.equal(r["train_params", recipe][k], v)
+                       for k, v in got["params"].items()):
+                raise AssertionError(f"(c) {recipe}: rank {r['rank']}'s weights after the step "
+                                     "differ from rank 0's")
+        log(phase, t0, f"(c) {recipe}: the weights after the step bit-equal on all "
+            f"{len(ranks)} ranks")
+    with open(GOLDEN_PAGES) as f:
+        conf = json.load(f)["conf_thresh"]
+    for q, tol in ((None, None), ("int8", DETECT_QUANT_TOL["int8"])):
+        want = single["det", q]
+        pseudo = {"pages": [{"boxes": b.tolist(), "scores": s.tolist()} for b, s in want[0]]}
+        n_pairs, px, ds, unmatched = check_detections(pseudo, r0["det", q], conf, tol)
+        log(phase, t0, f"(d) detector {q or 'float32'}: {n_pairs} boxes paired with the "
+            f"one-process card's within {px:.4f} px and scores within {ds:.2e}; unmatched "
+            f"{unmatched}")
+
+
+def first_offsets(n_layers, single):
+    """Offsets in a rank's flat scale list of each call's first scale (the
+    calls run in the order of ``n_layers``)."""
+    offsets, at = [], 0
+    for key, n in n_layers:
+        for _ in range(len(single[key][1]) // n):
+            offsets.append(at)
+            at += n
+    return offsets
+
+
+def mesh_single(t0):
+    """The one-process references on this card: (a) and (b)'s strings (the
+    int8 ones with each batch rounded up to MESH_RANKS rows, and their
+    scales), (c)'s steps, (d)'s boxes (int8 with its scales on the window
+    batch padded to MESH_RANKS)."""
+    import torch
+
+    from doc2tex_tpu_torch.ops.quant import recorded_scales
+    from doc2tex_tpu_torch.parallel.mesh import pad_rows
+
+    single, n_layers = {}, []
+    for v in MESH_VERSIONS:
+        crops = golden_crops(v)[1]
+        single["strings", v, False] = mesh_recognizers(v, None, "cuda", False)(crops)
+        rec = mesh_recognizers(v, None, "cuda", True)
+        single["strings", v, True] = single_scales(rec, crops, MESH_RANKS)
+        n_layers.append((("strings", v, True), len(rec.model.int8_layers)))
+    _, pages = golden_pages()
+    for q in (None, "int8"):
+        det = mesh_detector(None, "cuda", q)
+        results, scales = [], []
+        for page in pages:
+            with recorded_scales() as s:
+                windows, _ = det.page_windows(page)
+                det.detect_windows(pad_rows(windows, MESH_RANKS, 255))
+            scales += s
+            results.append(det.detect_page(page))
+        single["det", q] = (results, scales)
+        if q:
+            n_layers.append((("det", q), len(det.int8_layers)))
+    for recipe in ("tfm", "lstm"):
+        single["train", recipe] = mesh_train_case(recipe, "cuda")
+    torch.cuda.synchronize()
+    log("mesh", t0, "one-process references done")
+    return single, n_layers
+
+
+def mesh_group(t0, devices, single, n_layers):
+    """One rank group of the mesh phase on ``devices``: (a)-(d) against
+    ``single`` (``mesh_single``), each rank's kernels launching."""
+    import pickle
+    import tempfile
+
+    from doc2tex_tpu_torch.parallel import mesh as meshlib
+
+    phase = f"mesh {meshlib.pick_backend(devices)}"
+    with tempfile.TemporaryDirectory() as d:
+        t = time.perf_counter()
+        meshlib.spawn(mesh_rank, devices, (devices, d), time_limit=MESH_LIMIT_S)
+        ranks = []
+        for r in range(len(devices)):
+            with open(os.path.join(d, f"mesh_rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    log(phase, t0, f"{len(devices)} ranks on {devices} over {ranks[0]['backend']}: "
+        f"{time.perf_counter() - t:.1f} s; launches by rank: "
+        + "; ".join(f"rank {r['rank']} {r['launches']}" for r in ranks))
+    need = {"inference": ("B1", "B2"), "tfm": (), "lstm": ("B2", "B2_backward")}
+    for r in ranks:
+        for part, kernels in need.items():
+            missing = [k for k in kernels if r["launches"][part][k] <= 0]
+            if missing:
+                raise AssertionError(f"{phase} rank {r['rank']} {part}: {missing} launched "
+                                     f"0 times ({r['launches'][part]})")
+    mesh_checks(t0, phase, ranks, single, n_layers)
+
+
+def mesh_dryrun(t0, device):
+    """(e): ``tools/dryrun_multichip.py MESH_DRYRUN_N --device cuda``."""
+    from doc2tex_tpu_torch.tools import dryrun_multichip
+
+    t = time.perf_counter()
+    results = dryrun_multichip.dryrun_multichip(MESH_DRYRUN_N, device, time_limit=MESH_LIMIT_S)
+    log("mesh", t0, f"(e) tools/dryrun_multichip.py {MESH_DRYRUN_N} --device {device}: "
+        f"{time.perf_counter() - t:.1f} s, ranks on {[r['device'] for r in results]} over "
+        f"{results[0]['backend']}")
+    if not all(r["launches"]["B2"] > 0 and r["launches"]["B2_backward"] > 0 for r in results):
+        raise AssertionError(f"(e) B2 or its backward launched 0 times on a rank: "
+                             f"{[r['launches'] for r in results]}")
+
+
+def mesh_phase(t0):
+    """Phase 26 (see the module's docstring)."""
+    import torch
+
+    start = time.perf_counter()
+    single, n_layers = mesh_single(t0)
+    mesh_group(t0, ["cuda:0"] * MESH_RANKS, single, n_layers)
+    n_cards = torch.cuda.device_count()
+    if n_cards >= MESH_RANKS:
+        mesh_group(t0, [f"cuda:{i}" for i in range(MESH_RANKS)], single, n_layers)
+    else:
+        log("mesh", t0, f"{n_cards} card: NCCL across cards not run (it runs with >= "
+            f"{MESH_RANKS} cards)")
+    mesh_dryrun(t0, "cuda")
+    log("mesh", t0, f"phase wall {time.perf_counter() - start:.1f} s; nvidia-smi: "
+        f"{nvidia_smi()}; ranks sharing one card measure no scaling")
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(TIME_LIMIT_S, exit=True)
     t0 = time.perf_counter()
@@ -4321,6 +4705,7 @@ def main() -> int:
     interpretation_phase(t0)
     release_tools_phase(t0)
     jpeg_phase(t0)
+    mesh_phase(t0)
     print(json.dumps({"kernels": records}), flush=True)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -17,6 +17,11 @@ CLI (``data.loader.BucketLoader``, every batch decoded as it is), so
 ``--int8-full`` (``quantize: int8_full``) also keeps the decode attention
 memory in int8, through the int8 forms of B1 and B2 on the card.
 
+On a host with more than one card every card is on the data axis, as the
+JAX CLI puts every chip there: this process is rank 0, one follower process
+a further card decodes its rows of each batch (``parallel.mesh.lead``),
+and a batch's tail is padded with white rows to the card count and trimmed.
+
 Images are PNGs or baseline JPEGs, read by
 ``data.lmdb_reader.decode_image`` (PIL's ``convert("L")`` bytes; the card's
 machine has no PIL).  ``--resizer`` runs each manifest image through the
@@ -45,6 +50,7 @@ from ..engine.inferencing import validation
 from ..models import build_model
 from ..models.extras import LearnedResizer
 from ..ops.quant import parts_for_mode
+from ..parallel import mesh as meshlib
 from ..tokenizer.converters import create_converter
 from ..train.checkpoint import load_pretrained_variables
 from ..train.trainer import param_count
@@ -113,29 +119,70 @@ def load_csv_dataset(csv_dir: str, data_dir: str, config, resize_hook=None) -> A
     return ArrayDataset(images, labels, names)
 
 
-def run_infer(config, dataset, log_path: str | None = None, device="cuda") -> dict:
-    """Decode ``dataset`` with the config's model on ``device`` and return
-    ``validation``'s metrics with the run's time, images per second,
-    parameter count (millions) and peak host memory."""
-    parts_for_mode(config.get("quantize"))      # refuses an unknown mode, early
-    converter = create_converter(config)
-    config["num_class"] = converter.num_classes
+def _infer_model(config, device):
+    """The config's model (a seeded init, then ``saved_model``) on
+    ``device``, in eval mode."""
     with torch.random.fork_rng(devices=[]):     # a seeded init that leaves the caller's RNG
         torch.manual_seed(0)
-        model = build_model(config, converter.num_classes)
+        model = build_model(config, config["num_class"])
     if config.get("saved_model"):
         info = load_pretrained_variables(config["saved_model"], model)
         print(f"loaded weights: {info}")
-    model.to(device).eval()
-    loader = BucketLoader(dataset, config, converter=converter,
-                          prefetch=int(config.get("prefetch", 2)))
-    decode_fn = make_decode_fn(model, config, beam_size=int(config.get("beam_size", 1)),
-                               device=device)
-    t0 = time.time()
-    result = validation(decode_fn, converter, loader, config,
-                        export_csv=(os.path.join(log_path, "predictions.csv")
-                                    if log_path else None))
-    elapsed = time.time() - t0
+    return model.to(device).eval()
+
+
+def _infer_decode(model, config, device, mesh):
+    decode = make_decode_fn(model, config, beam_size=int(config.get("beam_size", 1)),
+                            device=device, mesh=mesh)
+    return decode if mesh is None else mesh.register("infer", decode)
+
+
+def _follow(mesh, config, device) -> None:
+    """A follower rank of ``run_infer``: the same model and decode, then
+    rank 0's calls."""
+    _infer_decode(_infer_model(config, device), config, device, mesh)
+    mesh.follow()
+
+
+def run_infer(config, dataset, log_path: str | None = None, device="cuda",
+              ranks: int | None = None) -> dict:
+    """Decode ``dataset`` with the config's model on ``device`` and return
+    ``validation``'s metrics with the run's time, images per second,
+    parameter count (millions) and peak host memory.  ``ranks`` (default:
+    the cards, on a CUDA ``device``) > 1 decodes over that many ranks, one a
+    card (on the CPU, CPU ranks)."""
+    parts_for_mode(config.get("quantize"))      # refuses an unknown mode, early
+    converter = create_converter(config)
+    config["num_class"] = converter.num_classes
+    cuda = torch.device(device).type == "cuda"
+    if ranks is None:
+        ranks = torch.cuda.device_count() if cuda and torch.cuda.is_available() else 1
+    mesh = None
+    if ranks > 1:
+        devices = [f"cuda:{i}" for i in range(ranks)] if cuda else [device] * ranks
+        mesh = meshlib.lead(devices, _follow, (dict(config), device))
+        print(f"sharding inference over {ranks} ranks ({mesh.backend})")
+    try:
+        model = _infer_model(config, device)
+        loader = BucketLoader(dataset, config, converter=converter,
+                              prefetch=int(config.get("prefetch", 2)))
+        decode_fn = _infer_decode(model, config, device, mesh)
+        if mesh is not None:
+            sharded = decode_fn
+
+            def decode_fn(images):
+                nb = images.shape[0]
+                tokens, aux = sharded(meshlib.pad_rows(images, mesh.nd))
+                return tokens[:nb], aux[:nb]
+
+        t0 = time.time()
+        result = validation(decode_fn, converter, loader, config,
+                            export_csv=(os.path.join(log_path, "predictions.csv")
+                                        if log_path else None))
+        elapsed = time.time() - t0
+    finally:
+        if mesh is not None:
+            mesh.shutdown()
     n = max(result["n_samples"], 1)
     result["total_time_s"] = elapsed
     result["avg_infer_time_s"] = elapsed / n

@@ -20,15 +20,21 @@ dispatcher as ``/recognize`` traffic; ``--stitch`` gives the page's regions
 by the voting stitch instead of the page NMS (``app.App(stitch=True)``).
 ``--selftest N`` pushes N synthetic crops through the dispatcher (no HTTP),
 with ``--detect`` also two white 640x1280 pages, and prints one JSON line of
-stats.  The models run on ``--device`` (default ``cuda``).  Data-parallel
-decode (``--data_parallel``) and ``--platform`` are not ported yet and raise.
+stats.  The models run on ``--device`` (default ``cuda``).
+``--data_parallel N`` shards every decode batch, and with ``--detect`` the
+detector's windows, over the first N cards (``--device cpu``: N CPU ranks):
+this process is rank 0 and runs the HTTP front and the dispatcher, and N-1
+follower processes decode their rows (``parallel.mesh.lead``).
+``--platform`` picks a JAX platform and raises.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
+import sys
 import time
 import zlib
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -153,11 +159,12 @@ def parse_args(argv=None):
                     help="detector msgpack (default: the released saved_models/math_detect)")
     ap.add_argument("--stitch", action="store_true",
                     help="with --detect: voting-stitch the page's regions instead of the page NMS")
-    ap.add_argument("--data_parallel", type=int, default=0, help="not ported yet (ROADMAP A10)")
+    ap.add_argument("--data_parallel", type=int, default=0, metavar="N",
+                    help="shard every decode batch (and, with --detect, the detector's "
+                    "windows) over the first N cards, or N CPU ranks with --device cpu "
+                    "(0 = one device)")
     ap.add_argument("--platform", default=None, help="a JAX platform; use --device")
     args = ap.parse_args(argv)
-    if args.data_parallel:
-        raise NotImplementedError("--data_parallel is not ported yet (ROADMAP A10)")
     for name in ("detect_weights", "stitch"):
         if getattr(args, name) and not args.detect:
             raise SystemExit(f"--{name} needs --detect")
@@ -167,15 +174,51 @@ def parse_args(argv=None):
     return args
 
 
-def build_server(args):
-    """(MathRecognition, RecognitionServer) for the parsed ``args``."""
+def start_mesh(args, argv):
+    """With ``--data_parallel N``: this process as rank 0 of N, the
+    followers started (each runs ``_follow(mesh, argv)``); else None."""
+    n = args.data_parallel
+    if n <= 1:
+        return None
+    if args.device.startswith("cuda"):
+        import torch
+
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if n > have:
+            raise SystemExit(f"--data_parallel {n}: {have} card(s) visible")
+        devices = [f"cuda:{i}" for i in range(n)]
+    else:
+        devices = [args.device] * n
+    from ..parallel.mesh import lead
+
+    mesh = lead(devices, _follow, (list(argv),), mesh_shape={"data": n, "model": 1})
+    print(f"data-parallel over {n} ranks ({mesh.backend})", file=sys.stderr, flush=True)
+    return mesh
+
+
+def _follow(mesh, argv) -> None:
+    """A follower rank: the same recognizer (and detector) as rank 0, then
+    the calls rank 0 makes."""
+    args = parse_args(argv)
+    recog = build_recognizer(args, mesh)
+    build_app(args, recog, mesh)
+    mesh.follow()
+
+
+def build_recognizer(args, mesh=None):
+    """The MathRecognition of the parsed ``args`` (sharded over ``mesh``)."""
     from ..recognition import MathRecognition, load_recog_config
 
     cfg, weights = load_recog_config(args.recog_config, args.model_version)
     if args.bf16:
         cfg["quantize"] = None
-    recog = MathRecognition(cfg, weights, beam_size=args.beam_size, device=args.device,
-                            coalesce_ratio=args.coalesce_ratio)
+    return MathRecognition(cfg, weights, beam_size=args.beam_size, device=args.device,
+                           coalesce_ratio=args.coalesce_ratio, mesh=mesh)
+
+
+def build_server(args, mesh=None):
+    """(MathRecognition, RecognitionServer) for the parsed ``args``."""
+    recog = build_recognizer(args, mesh)
     server = RecognitionServer(
         recog, max_batch=args.max_batch, batch_window_ms=args.window_ms,
         max_queue=args.max_queue,
@@ -184,16 +227,22 @@ def build_server(args):
     return recog, server
 
 
-def build_page_server(args, recog, server: RecognitionServer) -> PageServer | None:
-    """With ``--detect``: a PageServer whose App shares ``recog`` (one model
-    copy) and sends its crops through ``server``; else None."""
+def build_app(args, recog, mesh=None):
+    """With ``--detect``: the App that shares ``recog`` (one model copy),
+    its detector sharded over ``mesh``; else None."""
     if not args.detect:
         return None
     from ..app import App
 
-    app = App(detect_weights=args.detect_weights, stitch=args.stitch, recognizer=recog,
-              device=args.device)
-    return PageServer(app.detect_and_crop, server)
+    return App(detect_weights=args.detect_weights, stitch=args.stitch, recognizer=recog,
+               device=args.device, detect_mesh=mesh)
+
+
+def build_page_server(args, recog, server: RecognitionServer, mesh=None) -> PageServer | None:
+    """With ``--detect``: a PageServer whose App shares ``recog`` and sends
+    its crops through ``server``; else None."""
+    app = build_app(args, recog, mesh)
+    return None if app is None else PageServer(app.detect_and_crop, server)
 
 
 def selftest(server: RecognitionServer, n: int, rate: float = 0.0,
@@ -218,6 +267,7 @@ def selftest(server: RecognitionServer, n: int, rate: float = 0.0,
     if not all(isinstance(s, str) for s in out):
         raise RuntimeError("a selftest request returned no string")
     stats = {"selftest": n, "wall_s": round(wall, 3), "crops_per_s": round(n / wall, 3),
+             "answers_sha1": hashlib.sha1("\n".join(out).encode()).hexdigest(),
              **server.stats()}
     if page_server is not None:
         pages = [np.full((640, 1280), 255, np.uint8) for _ in range(2)]
@@ -228,9 +278,19 @@ def selftest(server: RecognitionServer, n: int, rate: float = 0.0,
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
-    recog, server = build_server(args)
-    page_server = build_page_server(args, recog, server)
+    mesh = start_mesh(args, argv)
+    try:
+        return _serve(args, mesh)
+    finally:
+        if mesh is not None:
+            mesh.shutdown()
+
+
+def _serve(args, mesh) -> int:
+    recog, server = build_server(args, mesh)
+    page_server = build_page_server(args, recog, server, mesh)
     if args.selftest:
         try:
             stats = selftest(server, args.selftest, args.selftest_rate, page_server)
@@ -239,7 +299,8 @@ def main(argv=None) -> int:
                 page_server.close()
             server.close()
         print(json.dumps({"model_version": args.model_version, "device": args.device,
-                          "quantize": recog.config.get("quantize"), **stats}), flush=True)
+                          "quantize": recog.config.get("quantize"),
+                          "data_parallel": args.data_parallel, **stats}), flush=True)
         return 0
     httpd = ThreadingHTTPServer(
         (args.host, args.port),

@@ -8,6 +8,11 @@ The run writes to ``--log_dir`` (default ``saved_models/<config stem>``):
 ``config.txt``, ``log_train.txt``, ``summary.csv`` and the checkpoints
 (``best_bleu``, ``best_accuracy``, ``last_checkpoint`` ``.msgpack`` with
 ``.json`` sidecars), which the JAX package's ``load_checkpoint`` reads.
+On a host with more than one card it trains data-parallel, one process a
+card (``use_dp``, on by default; ``mesh_shape`` and ``tp_min_size`` as in
+the JAX configs), or joins the ranks torchrun started
+(``torchrun --nproc_per_node N -m doc2tex_tpu_torch.api.train ...``); rank
+0 writes the logs and checkpoints.
 """
 
 from __future__ import annotations

@@ -51,6 +51,7 @@ class App:
         recognizer: Optional[MathRecognition] = None,
         detect_quantize: Optional[str] = None,
         device="cuda",
+        detect_mesh=None,
     ):
         """``detect_weights``: a detector msgpack; None gives the released
         weights when the file is there (else a random init).
@@ -58,7 +59,10 @@ class App:
         instead of building one from ``recog_config``/``recog_weights``.
         ``stitch``: the voting stitch (``equal`` votes, at least
         ``stitch_votes``) instead of the page NMS.  ``detect_quantize``:
-        the detector in ``bf16`` or ``int8`` (``MathDetector``)."""
+        the detector in ``bf16`` or ``int8`` (``MathDetector``).
+        ``detect_mesh``: shard the detector's window batches over a mesh's
+        data axis (``MathDetector(mesh=...)``; the other ranks build the
+        same ``App`` and follow)."""
         self.use_detect = use_detect
         self.stitch = stitch
         self.stitch_votes = stitch_votes
@@ -68,7 +72,8 @@ class App:
                 detect_weights = SHIPPED_WEIGHTS
             self.detector = MathDetector(
                 detect_weights, conf_thresh=conf_thresh, iou_thresh=nms_iou,
-                expand_frac=expand_frac, quantize=detect_quantize, device=device)
+                expand_frac=expand_frac, quantize=detect_quantize, device=device,
+                mesh=detect_mesh)
         self.recognizer = (recognizer if recognizer is not None
                            else MathRecognition(recog_config, recog_weights, device=device))
 

@@ -90,16 +90,26 @@ class Batch:
     names: list[str]
     text: Optional[np.ndarray] = None      # (B, L+2) int32 encoded labels
     lengths: Optional[np.ndarray] = None   # (B,) int32
+    rows_of: Optional[int] = None          # a shard's rows: of a global batch this size
 
 
 class BucketLoader:
     """Batches of ``dataset``: in the JAX package's deterministic order, or
     with ``train`` shuffled per epoch (``infinite`` loops the epochs), with
-    the prefetch thread of the JAX loader when ``prefetch`` > 0."""
+    the prefetch thread of the JAX loader when ``prefetch`` > 0.
+
+    ``shard`` = (n_data, data_index) gives a data rank of a mesh its rows of
+    each global batch and reads and decodes only those: the global batch is
+    padded to a multiple of n_data with white images whose text leads with
+    [GO] and is PAD after it (``train.trainer.pad_batch``'s rows), and
+    ``Batch.rows_of`` holds its padded size.  Every rank draws the global
+    batch's plan and augmentation seeds, so the ranks' rows make up the
+    batch the unsharded loader yields."""
 
     def __init__(self, dataset, config, converter=None, train: bool = False, seed: int = 0,
-                 prefetch: int = 0):
+                 prefetch: int = 0, shard: Optional[tuple[int, int]] = None):
         self.dataset = dataset
+        self.shard = shard
         self.config = config
         self.converter = converter
         self.train = train
@@ -156,17 +166,33 @@ class BucketLoader:
         augment = self.train and self.config.get("augment", False)
         seeds = ([int(self.rng.integers(2 ** 31)) for _ in idxs] if augment
                  else [None] * len(idxs))
+        rows_of, n_pad = None, 0
+        if self.shard is not None:
+            n_data, index = self.shard
+            rows_of = len(idxs) + (-len(idxs) % n_data)
+            per = rows_of // n_data
+            lo, hi = index * per, (index + 1) * per
+            n_pad = hi - max(lo, min(hi, len(idxs)))
+            idxs, seeds = idxs[lo:hi], seeds[lo:hi]
         if self._pool is not None and len(idxs) > 2:
             rows = list(self._pool.map(lambda a: self._prepare_one(a[0], bucket, a[1]),
                                        zip(idxs, seeds)))
         else:
             rows = [self._prepare_one(i, bucket, s) for i, s in zip(idxs, seeds)]
+        rows += [np.full(bucket, 255, np.uint8)] * n_pad
         images = np.stack(rows)[..., None]
         labels = [self.dataset.label(i) for i in idxs]
-        batch = Batch(bucket, images, labels, [self.dataset.name(i) for i in idxs])
+        batch = Batch(bucket, images, labels + [""] * n_pad,
+                      [self.dataset.name(i) for i in idxs] + [""] * n_pad, rows_of=rows_of)
         if self.converter is not None:
-            batch.text, batch.lengths = self.converter.encode(
-                [self._tokens(lb) for lb in labels], self.batch_max_length)
+            text, lengths = self.converter.encode([self._tokens(lb) for lb in labels],
+                                                  self.batch_max_length)
+            if n_pad:
+                pad = np.zeros((n_pad, text.shape[1]), text.dtype)
+                pad[:, 0] = type(self.converter).GO
+                text = np.concatenate([text, pad])
+                lengths = np.concatenate([lengths, np.zeros(n_pad, lengths.dtype)])
+            batch.text, batch.lengths = text, lengths
         return batch
 
     def batches_per_epoch(self) -> int:
@@ -219,8 +245,9 @@ class BucketLoader:
                     "max_dimension/batch_size/keep_smaller_batches against the data")
 
 
-def build_loader(config, converter, seed: int = 0):
-    """(train_loader, valid_loader).  ``train_data``/``valid_data`` name
+def build_loader(config, converter, seed: int = 0, shard: Optional[tuple[int, int]] = None):
+    """(train_loader, valid_loader); ``shard`` (``BucketLoader``'s) splits
+    the train loader's batches over a mesh's data ranks.  ``train_data``/``valid_data`` name
     LMDB roots (``LmdbDataset``); where the path is not a folder and
     ``synthetic_data: N`` is set, the split is N samples made in memory (N
     for training, max(N // 10, 4) for validation, from ``seed`` and
@@ -247,6 +274,6 @@ def build_loader(config, converter, seed: int = 0):
         else:
             raise FileNotFoundError(f"{key}: {path!r} not found")
         return BucketLoader(dataset, config, converter=converter, train=train, seed=seed,
-                            prefetch=2)
+                            prefetch=2, shard=shard if train else None)
 
     return split("train_data", True), split("valid_data", False)

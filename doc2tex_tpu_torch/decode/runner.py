@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from ..models.decoder_tfm import grow_decode_state
+from ..parallel.mesh import activation_mesh, shard_batch
 from ..transforms.augment import normalize
 from .beam import beam_decode, lstm_gather, tfm_gather
 from .greedy import greedy_decode
@@ -42,7 +43,7 @@ def _chunk_ends(max_steps: int, n_chunks: int) -> list[int]:
 DECODE_CHUNKS = 5
 
 
-def make_decode_fn(model, config, beam_size: int = 1, device="cuda") -> Callable:
+def make_decode_fn(model, config, beam_size: int = 1, device="cuda", mesh=None) -> Callable:
     """Build ``fn(images_u8) -> (tokens (B, T), aux (B,))``.
 
     ``images_u8``: (B, H, W, 1) uint8 bucket-padded pixels (numpy or
@@ -51,7 +52,15 @@ def make_decode_fn(model, config, beam_size: int = 1, device="cuda") -> Callable
     scores for beam.  The TFM head decodes in ``DECODE_CHUNKS`` chunks: the
     KV caches start at the first chunk's length and grow between chunks, so
     early steps read only the live prefix (token-exact).  The LSTM head's
-    state has no step-sized leaf, so it decodes in one chunk."""
+    state has no step-sized leaf, so it decodes in one chunk.
+
+    With ``mesh`` (``parallel.mesh``) the function is SPMD: every rank
+    passes the same global batch, whose size must divide over the data
+    axis (pad it first: ``MathRecognition`` repeats row 0, validation pads
+    white), decodes its rows inside the mesh's ``activation_mesh`` (the int8
+    encoder's scale is the global batch's) and returns every rank's tokens
+    and aux, gathered in row order.  Rows are independent, so the tokens
+    are the single-device ones."""
     pred_name = config["Prediction"]["name"]
     ids = token_ids_for(pred_name)
     mean, std = config.get("mean", 0.5), config.get("std", 0.5)
@@ -85,4 +94,13 @@ def make_decode_fn(model, config, beam_size: int = 1, device="cuda") -> Callable
             start_token=ids.start, end_token=ids.end, pad_token=ids.pad,
             chunk_schedule=schedule, device=device)
 
-    return run
+    if mesh is None:
+        return run
+
+    def sharded(images):
+        local = shard_batch(images, mesh)
+        with activation_mesh(mesh):
+            tokens, aux = run(local)
+        return mesh.gather_rows(tokens, fill=ids.pad), mesh.gather_rows(aux)
+
+    return sharded

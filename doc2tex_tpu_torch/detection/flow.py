@@ -16,6 +16,14 @@ white-padded up to a 256-pixel ladder (at least 512), and the windows are
 cut from it on the device; boxes are clipped back to the original page.
 Near the page's border this differs from the host path (``rolling_windows``
 center-pads the last windows), as it does in the JAX package.
+
+With a mesh (``parallel.mesh``, single controller) rank 0 detects: the
+window batch, its count padded with white windows to the data axis (the
+host path's ``batch_size`` rounded up to it), is broadcast, every rank runs
+SSD512 on its windows (int8's abs-max is the whole batch's, maxed over the
+ranks) and the boxes are gathered; white windows detect nothing and their
+rows are dropped, so the boxes are the single-device ones.  The other ranks
+build the same ``MathDetector`` and run ``mesh.follow()``.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..parallel.mesh import activation_mesh, pad_rows, shard_batch
 from ..weights import load_weights
 from .boxes import batched_detect, nms_fixed
 from .data import detection_input
@@ -60,9 +69,9 @@ class MathDetector:
         ``batch_size`` is the window chunk of the host path
         (``device_windows=False``; a short last chunk is padded with white
         windows, as in JAX, so int8's per-batch scale sees the same batch).
-        ``quantize``: None, ``bf16`` or ``int8`` (``SSD512.set_quantize``)."""
-        if mesh is not None:
-            raise NotImplementedError("multi-card detection is not ported yet (ROADMAP A10)")
+        ``quantize``: None, ``bf16`` or ``int8`` (``SSD512.set_quantize``).
+        ``mesh``: shard the window batch over the mesh's data axis (see the
+        module's docstring)."""
         with torch.random.fork_rng(devices=[]):  # seeds the init without touching the caller's RNG
             torch.manual_seed(seed)
             self.model = SSD512(num_classes=2)
@@ -80,6 +89,10 @@ class MathDetector:
         self.expand_frac = expand_frac
         self.window = window
         self.stride = stride
+        self.mesh = mesh
+        if mesh is not None:   # host-window chunks pad to batch_size, so it must divide
+            batch_size = -(-batch_size // mesh.nd) * mesh.nd
+            self._sharded = mesh.register("MathDetector", self._detect_sharded)
         self.batch_size = batch_size
         self.device_windows = device_windows
         self._nms_cap = 512
@@ -111,6 +124,23 @@ class MathDetector:
         loc, conf = loc.float(), conf.float()
         return batched_detect(loc, conf, self.priors, conf_thresh=self.conf_thresh,
                               iou_thresh=self.iou_thresh)
+
+    @torch.inference_mode()
+    def _detect_sharded(self, windows: torch.Tensor):
+        """Every rank of the mesh: the global window batch -> every rank's
+        (boxes, scores), gathered in window order."""
+        with activation_mesh(self.mesh):
+            boxes, scores = self.detect_windows(shard_batch(windows, self.mesh).to(self.device))
+        return self.mesh.gather_rows(boxes), self.mesh.gather_rows(scores)
+
+    def _detect(self, windows: torch.Tensor):
+        """``detect_windows``, over the mesh when there is one (the
+        window count padded with white windows to the data axis)."""
+        if self.mesh is None:
+            return self.detect_windows(windows)
+        n = windows.shape[0]
+        boxes, scores = self._sharded(pad_rows(windows, self.mesh.nd, 255))
+        return boxes[:n], scores[:n]
 
     def page_windows(self, page: np.ndarray) -> tuple[torch.Tensor, list]:
         """The device path's windows: the page white-padded up to the
@@ -148,7 +178,7 @@ class MathDetector:
         """(boxes (n, 200, 4), scores (n, 200), grid info) on the host."""
         if self.device_windows:
             windows, info = self.page_windows(page)
-            boxes, scores = self.detect_windows(windows)
+            boxes, scores = self._detect(windows)
             out = torch.cat([boxes, scores[..., None]], -1).cpu().numpy()
             return out[..., :4], out[..., 4], info
         windows, info = rolling_windows(page, self.stride, self.window)
@@ -159,7 +189,7 @@ class MathDetector:
             n = len(chunk)
             if n < B:   # white windows up to the chunk size; their rows are dropped
                 chunk = np.concatenate([chunk, np.full((B - n, *chunk.shape[1:]), 255, np.uint8)])
-            boxes, scores = self.detect_windows(torch.from_numpy(chunk).to(self.device))
+            boxes, scores = self._detect(torch.from_numpy(chunk).to(self.device))
             outs.append(torch.cat([boxes, scores[..., None]], -1)[:n].cpu().numpy())
         out = np.concatenate(outs)
         return out[..., :4], out[..., 4], info

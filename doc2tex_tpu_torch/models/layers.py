@@ -28,6 +28,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import quant
+from ..parallel.mesh import rand
 
 
 class Dense(nn.Module):
@@ -241,7 +242,7 @@ def dropout(x, rate: float, train: bool = False, generator=None):
     if rate == 1.0:
         return torch.zeros_like(x)
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = rand(x.shape, generator=generator, device=x.device) < keep
     return _keep(x, keep, mask)
 
 
@@ -252,7 +253,7 @@ def drop_path(x, rate: float, train: bool = False, generator=None):
         return x
     keep = 1.0 - rate
     shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    mask = rand(shape, generator=generator, device=x.device) < keep
     return _keep(x, keep, mask)
 
 

@@ -25,6 +25,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import quant
+from ..parallel.mesh import all_reduce_sum, data_size
 from .layers import Dense, LayerNorm
 
 
@@ -122,7 +123,9 @@ class BatchNorm(nn.Module):
     used to normalize and folded into the running statistics as
     ``0.9 * running + 0.1 * batch`` (torch would fold the unbiased variance,
     at momentum 0.1 of the other side).  One rounding to the input's type
-    at the end, as in eval."""
+    at the end, as in eval.  Under an active mesh the statistics are the
+    global batch's, as JAX's over a sharded batch: the sums of x and x^2
+    are summed over the data ranks (and their gradients summed back)."""
 
     def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
@@ -141,8 +144,16 @@ class BatchNorm(nn.Module):
             return F.batch_norm(x, self.mean, self.var, self.scale, self.bias,
                                 training=False, eps=self.eps)
         x32 = x.to(torch.promote_types(x.dtype, torch.float32))
-        mean = x32.mean(dim=(0, 2, 3))
-        var = torch.clamp((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        nd = data_size()
+        if nd == 1:
+            mean = x32.mean(dim=(0, 2, 3))
+            sq = (x32 * x32).mean(dim=(0, 2, 3))
+        else:
+            n = nd * x32.shape[0] * x32.shape[2] * x32.shape[3]
+            sums = all_reduce_sum(torch.stack([x32.sum(dim=(0, 2, 3)),
+                                               (x32 * x32).sum(dim=(0, 2, 3))]))
+            mean, sq = sums[0] / n, sums[1] / n
+        var = torch.clamp(sq - mean * mean, min=0.0)
         with torch.no_grad():
             m = self.momentum
             self.mean.copy_(m * self.mean + (1 - m) * mean)

@@ -28,6 +28,8 @@ import threading
 
 import numpy as np
 
+from ._build import build_lock
+
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SHARED = os.path.join(_ROOT, "native")
 BUILD_DIR = os.path.join(_ROOT, "build")
@@ -72,7 +74,9 @@ def load():
             return _lib
         path = library_path()
         if not os.path.exists(path):
-            _build(path)
+            with build_lock(path):   # a mesh's ranks build it once
+                if not os.path.exists(path):
+                    _build(path)
         lib = ctypes.CDLL(path)
         for name, item in (("d2t_lev_u8", ctypes.c_char_p), ("d2t_lev_u32", ctypes.c_uint32),
                            ("d2t_lev_u64", ctypes.c_uint64)):

@@ -5,7 +5,9 @@ version block sets).
 Symmetric int8, computed on the fly:
 
 - activations: one scale per tensor, over the whole batch (padding rows
-  included), so a row's result depends on its batch mates;
+  included), so a row's result depends on its batch mates; on a mesh the
+  batch is the global one: the data ranks' abs-maxes are maxed
+  (``quantize_activation``), as JAX's abs-max over a sharded batch is;
 - weights: one scale per output channel, taken from the kernel after its
   cast to the compute type (flax casts before the hook sees it);
 - the integer product accumulates in int32 (``torch._int_mm``), then
@@ -44,11 +46,14 @@ only through an explicit parts tuple, as in the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..parallel.mesh import data_all_reduce_max
 
 # The reference's shape gates (doc2tex_tpu/ops/quant.py): an op goes int8
 # only when its contraction and its output width both reach them.  They
@@ -107,10 +112,39 @@ def quantize(x: torch.Tensor, dims=None) -> tuple[torch.Tensor, torch.Tensor]:
         amax = xf.abs().amax()
     else:
         amax = xf.abs().amax(dim=dims, keepdim=True)
+    return _quantize_by(xf, amax)
+
+
+def _quantize_by(xf: torch.Tensor, amax: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     scale = torch.clamp_min(amax * _RECIP_127, _EPS)
     # a true division by a tensor on x's device (a CPU scalar divisor would
     # make CUDA multiply by its reciprocal instead)
     q = torch.clamp(torch.round(xf / scale), -127.0, 127.0).to(torch.int8)
+    return q, scale
+
+
+_SCALE_LOGS: list = []
+
+
+@contextlib.contextmanager
+def recorded_scales():
+    """While the block runs, every int8 product's activation scale, in
+    the order the products run, as Python floats in the yielded list."""
+    log: list = []
+    _SCALE_LOGS.append(log)
+    try:
+        yield log
+    finally:
+        _SCALE_LOGS.pop()
+
+
+def quantize_activation(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``quantize(x)`` with one scale over the whole batch: under an
+    active mesh the global batch's (the data ranks' abs-maxes maxed)."""
+    xf = x.float()
+    q, scale = _quantize_by(xf, data_all_reduce_max(xf.abs().amax()))
+    if _SCALE_LOGS:
+        _SCALE_LOGS[-1].append(float(scale))
     return q, scale
 
 
@@ -167,7 +201,7 @@ def int8_linear(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     the kernel as ``quantize_weight`` gives it.  Returns (..., N) in
     ``dtype``."""
     x = x.to(dtype)
-    a_q, a_scale = quantize(x)
+    a_q, a_scale = quantize_activation(x)
     acc = int_mm(a_q.reshape(-1, x.shape[-1]), w_q)
     return _rescale(acc, a_scale, w_scale, bias, dtype).reshape(*x.shape[:-1], -1)
 
@@ -190,7 +224,7 @@ def int8_conv2d(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     multiplied with the kernel as ``quantize_conv_weight`` gives it.
     Returns (B, O, Ho, Wo) in ``dtype``."""
     x = x.to(dtype)
-    a_q, a_scale = quantize(x)
+    a_q, a_scale = quantize_activation(x)
     (kh, kw), (sh, sw), (ph, pw), (dh, dw) = kernel_size, stride, padding, dilation
     if ph or pw:
         a_q = F.pad(a_q, (pw, pw, ph, ph))

@@ -6,6 +6,11 @@ the resize), grouped into the bucket ladder the weights were
 trained in (``bucket_growth`` of the model's version block), optionally
 coalesced into containing buckets, batched on a {1, 8, 64, ...} ladder and
 decoded on the device; tokens are cut at [s], joined and postprocessed.
+
+With a mesh (``parallel.mesh``, single controller) rank 0 calls the
+recognizer: each batch, its size rounded up to the data axis with copies of
+row 0, is broadcast and every rank decodes its rows; the other ranks build
+the same ``MathRecognition`` and run ``mesh.follow()``.
 """
 
 from __future__ import annotations
@@ -105,6 +110,7 @@ class MathRecognition:
         use_clahe: Optional[bool] = None,
         device="cuda",
         coalesce_ratio: Optional[float] = None,
+        mesh=None,
     ):
         """``seed`` seeds the random init used when ``weights_path`` is
         None.  ``use_clahe`` overrides the config's ``clahe`` (on unless the
@@ -114,7 +120,9 @@ class MathRecognition:
         encoder's gated products in int8, as every release ships),
         ``int8_full`` (also the decode attention memory in int8) or None;
         ``model.set_quantize`` takes an explicit parts tuple too.
-        ``coalesce_ratio`` overrides the config's."""
+        ``coalesce_ratio`` overrides the config's.  ``mesh``: decode every
+        batch sharded over the mesh's data axis (see the module's
+        docstring); the strings are the single-device ones."""
         if config is None:
             raise ValueError("MathRecognition needs a config (see load_recog_config)")
         self.config = config
@@ -143,8 +151,11 @@ class MathRecognition:
             self.config["min_dimension"], self.config["max_dimension"],
             self.config.get("scale_factor", 32),
             growth=float(self.config.get("bucket_growth", 1.5)))
+        self.mesh = mesh
         self._decode = make_decode_fn(self.model, self.config, beam_size=self.beam_size,
-                                      device=device)
+                                      device=device, mesh=mesh)
+        if mesh is not None:
+            self._decode = mesh.register("MathRecognition", self._decode)
 
     def bucket_key(self, image: np.ndarray):
         """The bucket this crop decodes in — shape arithmetic only."""
@@ -167,14 +178,15 @@ class MathRecognition:
         return resize_for_inference(image, self.config)
 
     @staticmethod
-    def make_batch(prepped: Sequence[np.ndarray], bucket) -> np.ndarray:
+    def make_batch(prepped: Sequence[np.ndarray], bucket, multiple: int = 1) -> np.ndarray:
         """Preprocessed uint8 crops -> one (N, H, W, 1) batch padded to
-        ``bucket``, the batch axis snapped to the {1, 8, 64, ...} ladder.
-        The padding rows repeat row 0, so they leave the int8 encoder's
-        per-tensor activation scale (the batch's abs-max) unchanged."""
+        ``bucket``, the batch axis snapped to the {1, 8, 64, ...} ladder and
+        rounded up to a ``multiple`` (a mesh's data axis).  The padding rows
+        repeat row 0, so they leave the int8 encoder's per-tensor activation
+        scale (the batch's abs-max) unchanged."""
         batch = np.stack([pad_to_bucket(img, bucket) for img in prepped])[..., None]
         n = batch.shape[0]
-        padded_n = _snap_batch(n)
+        padded_n = -(-_snap_batch(n) // multiple) * multiple
         if padded_n != n:
             batch = np.concatenate([batch, np.repeat(batch[:1], padded_n - n, axis=0)])
         return batch
@@ -183,7 +195,8 @@ class MathRecognition:
         """Preprocessed uint8 crops -> strings, decoded as one batch (see
         ``make_batch``)."""
         n = len(prepped)
-        tokens, _ = self._decode(self.make_batch(prepped, bucket))
+        tokens, _ = self._decode(self.make_batch(prepped, bucket,
+                                                 1 if self.mesh is None else self.mesh.nd))
         sep = " " if self.config.get("token_level", "word") == "word" else ""
         return [postprocess_prediction(sep.join(self.converter.detokenize(row[None])[0]))
                 for row in tokens[:n].cpu().numpy()]

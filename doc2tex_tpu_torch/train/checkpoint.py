@@ -10,6 +10,10 @@ in flax's layout (``weights.to_variables``), and ``opt_state`` laid out as
 ``load_checkpoint`` here restores JAX's (a tree that does not fit this
 optimizer raises).  ``BestCheckpointKeeper`` keeps ``best_bleu``,
 ``best_accuracy`` and ``last_checkpoint`` as the JAX keeper does.
+
+On a mesh every rank holds the whole tree (a model axis replicates), so a
+checkpoint is already the gathered tree: rank 0 writes it (``BestCheckpointKeeper(write=...)``),
+and a resume loads it whole on every rank, whatever the mesh's shape.
 """
 
 from __future__ import annotations
@@ -144,10 +148,13 @@ class BestCheckpointKeeper:
     """``best_bleu.msgpack`` and ``best_accuracy.msgpack`` when the metric
     improves, ``last_checkpoint.msgpack`` at every validation."""
 
-    def __init__(self, log_dir: str):
-        self.log_dir = log_dir
+    def __init__(self, log_dir: str, write: bool = True):
+        """``write=False`` (a mesh's ranks but 0): the same decisions,
+        no files."""
+        self.log_dir, self.write = log_dir, write
         self.best = {"bleu": -1.0, "accuracy": -1.0, "ED": -1.0, "word_ED": -1.0}
-        os.makedirs(log_dir, exist_ok=True)
+        if write:
+            os.makedirs(log_dir, exist_ok=True)
 
     def seed_best(self, meta: Mapping[str, Any]) -> None:
         """The best-metric gates from a resumed checkpoint's sidecar, so the
@@ -173,9 +180,12 @@ class BestCheckpointKeeper:
                 for mkey in ("ED", "word_ED"):
                     if mkey in metrics:
                         self.best[mkey] = max(self.best[mkey], float(metrics[mkey]))
-                save_checkpoint(os.path.join(self.log_dir, fname), state, self._extra(iteration))
+                self._save(fname, state, iteration)
                 saved.append(fname)
-        save_checkpoint(os.path.join(self.log_dir, "last_checkpoint.msgpack"), state,
-                        self._extra(iteration))
+        self._save("last_checkpoint.msgpack", state, iteration)
         saved.append("last_checkpoint.msgpack")
         return saved
+
+    def _save(self, fname: str, state: TrainState, iteration: int) -> None:
+        if self.write:
+            save_checkpoint(os.path.join(self.log_dir, fname), state, self._extra(iteration))

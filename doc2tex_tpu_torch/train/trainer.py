@@ -12,17 +12,27 @@ uninterrupted run draws there.  The step's parts run inside
 ``torch.profiler.record_function`` ranges (``train/forward``,
 ``train/backward``, ``train/optimizer``), which ``tools/profile_train.py``
 reads.
+
+With a mesh (``parallel.mesh``) the step is data-parallel, as JAX's is
+over a sharded batch: every rank takes the same global batch (padded to the
+data axis by ``pad_batch``) and works on its rows; BatchNorm's statistics,
+the loss's numerator and count and the gradients are summed over the data
+ranks before the optimizer (so ``grad_norm`` and the clipping see the
+global gradient), and the augmentation's and dropout's draws are the
+global batch's (``parallel.mesh.batch_rows``).  The ranks of one data row
+(a model axis) hold the same weights and rows: nothing is reduced over it.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
+from ..parallel.mesh import DATA_AXIS, activation_mesh, batch_rows, shard_batch
 from ..transforms.augment import normalize, train_augment
 from .optim import global_norm, optimizer_from_config
 
@@ -74,45 +84,102 @@ def _inputs(images, text, device):
     return x, torch.as_tensor(text).to(device, torch.long)
 
 
-def token_accuracy(logits, tgt):
+def token_accuracy(logits, tgt, mesh=None):
     mask = tgt != 0
     hits = ((logits.argmax(dim=-1) == tgt) & mask).sum()
-    return hits / torch.clamp(mask.sum(), min=1)
+    count = mask.sum()
+    if mesh is not None:
+        hits, count = mesh.all_reduce(torch.stack([hits, count]), DATA_AXIS)
+    return hits / torch.clamp(count, min=1)
 
 
-def loss_and_grads(model, criterion, x, text, generator=None):
+def pad_batch(images, text, multiple: int, go_id: int):
+    """A host batch padded to a multiple of the data axis, as the JAX
+    engine pads it: white images, and text rows that lead with [GO] (so the
+    TFM head's key mask never sees an all-PAD row) and are PAD after it,
+    which the loss masks out."""
+    nb = images.shape[0]
+    pad = -nb % multiple
+    if not pad:
+        return images, text
+    images = np.pad(images, ((0, pad),) + ((0, 0),) * (images.ndim - 1), constant_values=255)
+    text = np.pad(text, ((0, pad), (0, 0)))
+    text[nb:, 0] = go_id
+    return images, text
+
+
+def reduce_gradients(grads: dict, mesh) -> dict:
+    """The global gradient from each rank's part of it: every leaf summed
+    over the data axis (one flat all-reduce per dtype)."""
+    grads = dict(grads)
+    if mesh.nd == 1:
+        return grads
+    by_type: dict = {}
+    for k, g in grads.items():
+        by_type.setdefault(g.dtype, []).append(k)
+    for keys in by_type.values():
+        flat = mesh.all_reduce(torch.cat([grads[k].reshape(-1) for k in keys]), DATA_AXIS)
+        for k, part in zip(keys, flat.split([grads[k].numel() for k in keys])):
+            grads[k] = part.view_as(grads[k])
+    return grads
+
+
+def loss_and_grads(model, criterion, x, text, generator=None, mesh=None):
     """Teacher-forced loss on normalized images ``x`` and encoded ``text``
     and its gradient for every parameter (zeros where a parameter has
-    none); returns (loss, logits, grads)."""
+    none); returns (loss, logits, grads).  With ``mesh`` (inside its
+    ``activation_mesh``; ``x`` and ``text`` this rank's rows) the loss is
+    the global batch's, the sum of the ranks' numerators over the sum of
+    their counts, and the gradients are the global gradient."""
     params = dict(model.named_parameters())
     with record_function("train/forward"):
         logits = model(x, text[:, :-1], train=True, generator=generator)
-        loss = criterion(logits, text[:, 1:])
+        if mesh is None:
+            loss = objective = criterion(logits, text[:, 1:])
+        else:
+            num, count = criterion.terms(logits, text[:, 1:])
+            count = torch.clamp(mesh.all_reduce(count.detach(), DATA_AXIS), min=1.0)
+            objective = num / count
+            loss = mesh.all_reduce(num.detach(), DATA_AXIS) / count
     with record_function("train/backward"):
-        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
-    return loss.detach(), logits.detach(), {
-        k: torch.zeros_like(p) if g is None else g for (k, p), g in zip(params.items(), grads)}
+        grads = torch.autograd.grad(objective, list(params.values()), allow_unused=True)
+    grads = {k: torch.zeros_like(p) if g is None else g for (k, p), g in zip(params.items(), grads)}
+    if mesh is not None:
+        grads = reduce_gradients(grads, mesh)
+    return loss.detach(), logits.detach(), grads
 
 
-def make_train_step(model, criterion: Callable, tx, config) -> Callable:
+def make_train_step(model, criterion: Callable, tx, config, mesh=None) -> Callable:
     """``step(state, images_u8, text, generator) -> metrics``: one update
     of ``state`` in place.  ``images_u8`` (B, H, W, 1) uint8, ``text``
     (B, L+2) encoded labels (numpy or tensors); ``metrics`` holds 0-d
     device tensors ``loss``, ``grad_norm`` (before clipping) and
     ``token_acc``, read by the caller when it wants them.  The config's
-    ``augment`` turns ``train_augment`` on."""
+    ``augment`` turns ``train_augment`` on.  With ``mesh`` every rank
+    passes the same global batch (B a multiple of the data axis,
+    ``pad_batch``), or with ``rows_of`` its own rows of a global batch of
+    that many (a sharded loader's ``Batch.rows_of``), and the step is
+    data-parallel (see the module's docstring); the metrics are the global
+    batch's."""
     mean, std = config.get("mean", 0.5), config.get("std", 0.5)
     do_augment = config.get("augment", False)
 
-    def step(state: TrainState, images, text, generator: torch.Generator) -> dict:
+    def step(state: TrainState, images, text, generator: torch.Generator,
+             rows_of: Optional[int] = None) -> dict:
         device = model_device(state.model)
+        n = rows_of or images.shape[0]
+        if mesh is not None and rows_of is None:
+            images, text = shard_batch((images, text), mesh)
         x, text = _inputs(images, text, device)
-        if do_augment:
-            x = train_augment(step_generator(generator, state.step, 0, device), x, mean, std)
-        else:
-            x = normalize(x, mean, std)
-        loss, logits, grads = loss_and_grads(state.model, criterion, x, text,
-                                             step_generator(generator, state.step, 1, device))
+        with activation_mesh(mesh), batch_rows(mesh, n):
+            if do_augment:
+                x = train_augment(step_generator(generator, state.step, 0, device), x, mean,
+                                  std)
+            else:
+                x = normalize(x, mean, std)
+            loss, logits, grads = loss_and_grads(
+                state.model, criterion, x, text,
+                step_generator(generator, state.step, 1, device), mesh)
         params = named_params(state.model)
         with record_function("train/optimizer"), torch.no_grad():
             updates, state.opt_state = tx.update(grads, state.opt_state, params)
@@ -120,7 +187,7 @@ def make_train_step(model, criterion: Callable, tx, config) -> Callable:
             torch._foreach_add_([params[k] for k in keys], [updates[k] for k in keys])
         state.step += 1
         return {"loss": loss, "grad_norm": global_norm(grads),
-                "token_acc": token_accuracy(logits, text[:, 1:])}
+                "token_acc": token_accuracy(logits, text[:, 1:], mesh)}
 
     return step
 

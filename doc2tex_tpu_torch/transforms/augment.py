@@ -14,6 +14,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import rand
+
 
 def normalize(images: torch.Tensor, mean: float = 0.5, std: float = 0.5) -> torch.Tensor:
     """uint8/float (B, H, W, C) -> normalized float32."""
@@ -49,11 +51,11 @@ def draw_augment(generator, batch: int, device, p: float = 0.5, brightness: floa
     """(apply_sharp, sharp_factor, apply_bright, delta) for ``batch``
     samples from ``generator`` (on ``device``)."""
     def uniform(lo, hi):
-        return lo + torch.rand(batch, generator=generator, device=device) * (hi - lo)
+        return lo + rand((batch,), generator=generator, device=device) * (hi - lo)
 
-    apply_sharp = torch.rand(batch, generator=generator, device=device) < p
+    apply_sharp = rand((batch,), generator=generator, device=device) < p
     sharp_factor = uniform(0.0, sharpness)
-    apply_bright = torch.rand(batch, generator=generator, device=device) < p
+    apply_bright = rand((batch,), generator=generator, device=device) < p
     delta = uniform(-brightness, brightness)
     return apply_sharp, sharp_factor, apply_bright, delta
 

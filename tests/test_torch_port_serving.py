@@ -592,9 +592,10 @@ tiny:
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert out["selftest"] == 6 and out["completed"] == 6 and out["errors"] == 0
     assert out["quantize"] == "int8" and out["device"] == "cpu" and out["batches"] >= 1
-    for flag in (["--data_parallel", "2"], ["--platform", "cpu"]):
-        with pytest.raises(NotImplementedError):
-            serve.main(base + flag)
+    with pytest.raises(NotImplementedError):
+        serve.main(base + ["--platform", "cpu"])
+    # --data_parallel is ported: it parses (tests/test_torch_port_smoke.py runs it)
+    assert serve.parse_args(base + ["--data_parallel", "2"]).data_parallel == 2
     for flag in (["--detect_weights", "w.msgpack"], ["--stitch"]):
         with pytest.raises(SystemExit, match="needs --detect"):
             serve.main(base + flag)

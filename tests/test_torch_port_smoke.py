@@ -6,7 +6,10 @@
   page-eval, training, eval-CLI, detector-training, stitch, int8-eval,
   data-chain modules, the JPEG decoder and the reference's gates and tools
   (coalescing, PDF stitch, image metrics, interpretation, rendering,
-  weight export, the end-to-end demo, the resizer's trainer) among them;
+  weight export, the end-to-end demo, the resizer's trainer) and the mesh
+  (``parallel/``, ``tools/dryrun_multichip.py``) among them;
+- ``api.serve --data_parallel 2 --device cpu --selftest 8`` (rank 0 and a
+  follower process) answers every crop with the single process's strings;
 - ``chip_smoke.py`` exits non-zero, and never prints ``"ok": true``, on a
   machine without a card and from a directory without the repository;
 - chip_smoke's slice phase runs end to end on the CPU at a tiny size, for
@@ -19,6 +22,7 @@
 
 from __future__ import annotations
 
+import json
 import os
 import shutil
 import subprocess
@@ -55,7 +59,8 @@ REQUIRED = ("ops.quant", "serving", "api.serve", "utils.png", "data.loader", "ev
             "tools.torch_import", "utils.jpeg", "tools.coalesce_eval", "tools.stitch_pdf",
             "tools.image_eval", "tools.evaluate_images", "tools.inspect_images",
             "tools.interpretation", "tools.render", "tools.export_demo_weights",
-            "tools.e2e_demo", "tools.train_resizer", "tools.bench_host_tools")
+            "tools.e2e_demo", "tools.train_resizer", "tools.bench_host_tools", "parallel",
+            "parallel.mesh", "tools.dryrun_multichip")
 
 GUARD = textwrap.dedent(f"""
     import importlib, pkgutil, sys
@@ -416,3 +421,61 @@ def test_zoo_golden_logits_match_port_cpu(block):
     bf16 = chip_smoke.zoo_recognizer(dict(chip_smoke.cut_config(cfg), dtype="bfloat16"), "cpu")
     err, _, _, _ = chip_smoke.logit_check(chip_smoke.zoo_logits(bf16, crops[0]), ref)
     assert err <= bf16_tol / 2, (err, bf16_tol)
+
+
+SERVE_YAML = """common:
+  vocab: '{vocab}'
+  clahe: False
+tiny:
+  max_dimension: [64, 256]
+  min_dimension: [32, 32]
+  batch_max_length: 8
+  dtype: 'float32'
+  bucket_growth: 2.2
+  FeatureExtraction:
+    name: 'None'
+  SequenceModeling:
+    name: 'ViT'
+    params:
+      backbone:
+        name: 'resnet'
+        input_channel: 1
+        output_channel: 16
+      fix_embed: True
+      patching_style: '2d'
+      patch_size: [2, 2]
+      depth: 1
+      num_heads: 1
+      hidden_size: 16
+  Prediction:
+    name: 'TFM'
+    params:
+      d_model: 16
+      nhead: 1
+      num_decoder_layers: 1
+      dim_feedforward: 16
+  quantize: int8
+"""
+
+
+def test_serve_data_parallel_selftest_on_cpu(tmp_path):
+    """``--data_parallel 2`` on the CPU: rank 0 serves, a follower process
+    decodes its rows; every crop is answered, with the single process's
+    strings (the selftest's digest of its answers), int8 as the block
+    ships (the activation scale is the global batch's)."""
+    cfg = tmp_path / "recog.yaml"
+    from doc2tex_tpu_torch.data.synthetic import HARD_VOCAB_PATH
+
+    cfg.write_text(SERVE_YAML.format(vocab=HARD_VOCAB_PATH))
+    base = [sys.executable, "-m", "doc2tex_tpu_torch.api.serve", "--recog_config", str(cfg),
+            "--model_version", "tiny", "--device", "cpu", "--selftest", "8", "--beam_size", "2"]
+    outs = []
+    for extra in ([], ["--data_parallel", "2"]):
+        out = subprocess.run(base + extra, cwd=ROOT, env=_env(OMP_NUM_THREADS="1"),
+                             capture_output=True, text=True, timeout=300)
+        assert out.returncode == 0, out.stderr[-3000:]
+        outs.append(json.loads(out.stdout.strip().splitlines()[-1]))
+    single, sharded = outs
+    assert sharded["data_parallel"] == 2 and "2 ranks over gloo" in out.stderr
+    assert sharded["completed"] == single["completed"] == 8 and sharded["errors"] == 0
+    assert sharded["answers_sha1"] == single["answers_sha1"]

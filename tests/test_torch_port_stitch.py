@@ -195,8 +195,7 @@ def test_stitch_entry_points_parse(tmp_path):
     assert args.stitch and args.detect
     with pytest.raises(SystemExit, match="needs --detect"):
         serve.parse_args(["--stitch"])
-    with pytest.raises(NotImplementedError, match="A10"):
-        serve.parse_args(["--data_parallel", "2"])
+    assert serve.parse_args(["--data_parallel", "2"]).data_parallel == 2
     assert result_key("synthetic_tfm_big", 40, stitch=True, regions="structured",
                       detect_weights="w.msgpack", coalesce_ratio=8.0) == \
         "synthetic_tfm_big_stitch_co8_structured_customdet_p40"
